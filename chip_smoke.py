@@ -4,25 +4,50 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits non-zero before the result:
-  1 card    the device name and count, and nvidia-smi's name and power limit
-  2 build   nvcc builds every kernel source of luisarender_tpu_torch/csrc
-            (one nvcc per source, all started together)
-  3 kernels each kernel against its plain PyTorch version on the main path's
-            inputs (camera rays, one bounce of real rays and their shadow
-            rays, 512^2 Cornell) and on a random 512-row table with a ragged
-            ray count: slots, occlusion, t, u and v must agree bit for bit;
-            kernels timed with the profiler's device times
-  4 main    scenes/cornell.json rendered on the card through load_scene +
-            render at 512^2, depth 8 and the file's 256 spp, nothing cut:
-            seconds of render() (its scene compile included, the kernel
-            build not), rays, Mray/s, and the compile's seconds alone;
-            both kernels launched once per bounce;
-            the image finite, lit, red wall left and green wall right
-  5 profile one more 512^2 sample under torch.profiler: device busy share
-            and the kernels' share of it
-  6 golden  testing.cornell_box(64^2, 8 spp, depth 5) on the card against
-            tests/golden/cornell_64_8spp.exr: under 2% of pixels off by more
-            than 1e-3, image mean within 0.5%
+  1 card     the device name and count, and nvidia-smi's name and power limit
+  2 build    nvcc builds every kernel source of luisarender_tpu_torch/csrc
+             (one nvcc per source, all started together)
+  3 kernels  the brute-force traces against their plain PyTorch versions on
+             the general fork's inputs (camera rays, one bounce of real rays
+             and their shadow rays, 512^2 Cornell) and on a random 512-row
+             table with a ragged ray count: slots, occlusion, t, u and v
+             bit for bit. The fused kernel against its plain version on one
+             512^2 sample of scenes/materials.json (depth 10) and of
+             scenes/cornell.json (depth 8): ray counts within 4, under 2% of
+             lanes off by more than 1e-3 (the share bit-equal reported);
+             its persistent mode (4 samples a launch) equal to the sum of 4
+             one-sample launches within 1e-6. Kernel wrappers timed with
+             CUDA events around launches queued behind a spin kernel
+             (device time, no host dispatch), and with torch.profiler's
+             kernel time beside it where the profiler traces the card;
+             plain versions with CUDA events around their calls (host
+             dispatch included)
+  4 main     through load_scene + render, nothing cut: scenes/materials.json
+             (512^2, depth 10, 512 spp) with one fused launch a sample and
+             no brute-force launch; scenes/cornell.json (512^2, depth 8,
+             256 spp) the same, its image lit, red wall left and green wall
+             right; testing.cornell_box(1024^2, 32 spp, depth 5) on the
+             megawave integrator with one persistent launch a pass of
+             samples_per_pass samples. Seconds (the scene compile included,
+             the kernel build not), rays, Mray/s
+  5 general  the general fork: testing.cornell_box(512^2, depth 8) plus a
+             subdivided icosphere (352 triangles, so the fused kernel does
+             not cover it) through render at 32 spp (cut from 256 to save
+             time): both brute-force kernels launched once a bounce, the
+             fused kernel never
+  6 profile  512^2 materials samples on the fused fork and a 512^2
+             Cornell sample on the general fork under torch.profiler, per
+             sample: device busy share and the kernels' share of it (not
+             measured, and reported as null, if the profiler traces no
+             device work)
+  7 golden   testing.cornell_box(64^2, 8 spp, depth 5) through render (the
+             fused fork) against tests/golden/cornell_64_8spp.exr, the
+             reference's general fork: image mean within 0.5%, each sample
+             of the fused fork against the general fork by the rule of
+             phase 3, and the general fork's image under 2% of pixels off
+             by more than 1e-3; scenes/materials.json at 48^2, 8 spp,
+             depth 5 through the general fork against
+             tests/golden/materials_48_8spp.exr under that rule
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -30,6 +55,8 @@ Then a {"kernels": [...]} line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -45,8 +72,24 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # arithmetic operations (add, sub, mul, div) of one Moller-Trumbore row test
 FLOPS_PER_ROW = 46
+# ... of one ray / sphere quadric test
+FLOPS_PER_SPHERE = 17
+# float operations of one bounce's shading, counted from the kernel's code on
+# its cheapest surface (matte): interaction, emission, frame, NEE light
+# sample and shadow-ray spawn, two BSDF evaluations, one BSDF sample, the
+# continuation ray, throughput and roulette
+FLOPS_SHADE_BOUNCE = 400
+# clock cycles of the spin kernel that the timed launches queue behind:
+# ~0.1 s at the H100's 1.98 GHz boost clock
+SPIN_CYCLES = 200_000_000
 MAIN_SCENE = ROOT / "scenes" / "cornell.json"
+MATERIALS = ROOT / "scenes" / "materials.json"
 GOLDEN = ROOT / "tests" / "golden" / "cornell_64_8spp.exr"
+MATERIALS_GOLDEN = ROOT / "tests" / "golden" / "materials_48_8spp.exr"
+GENERAL_SPHERE = {"impl": "sphere", "prop": {
+    "analytic": False, "subdivision": 2, "surface": {"impl": "matte", "prop": {}},
+    "transform": {"impl": "srt", "prop": {"scale": [100, 100, 100],
+                                          "translate": [400, 100, 300]}}}}
 
 
 def emit(obj):
@@ -70,28 +113,48 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def reset_counts(brute, fused_path):
+    brute.closest_launches = brute.any_launches = 0
+    fused_path.launches = fused_path.persistent_launches = 0
+
+
+def read_counts(brute, fused_path):
+    return {"brute_closest": brute.closest_launches, "brute_any": brute.any_launches,
+            "fused_path": fused_path.launches,
+            "fused_path_persistent": fused_path.persistent_launches}
+
+
+def frac_off(a, b):
+    return float((np.abs(np.asarray(a) - np.asarray(b)).max(-1) > 1e-3).mean())
+
+
 # --------------------------------------------------------------------------
 # phase 3 helpers
 # --------------------------------------------------------------------------
 
 
-def device_ms(torch, fn, kernel_substr, iters=100):
-    """Per-launch device time of the kernel whose name contains
-    kernel_substr, from torch.profiler over `iters` calls of fn; fails when
-    the profiler records no such kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(5):
+def device_ms(torch, fn, iters=100):
+    """Device time per call of fn, a kernel wrapper: CUDA events around
+    `iters` calls queued behind a spin kernel, so that the interval holds
+    the calls' device work and none of the host's dispatch. Fails when the
+    card reached the first event before the host had queued every call,
+    even behind a spin four times as long."""
+    for _ in range(min(5, iters)):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for spin in (SPIN_CYCLES, 4 * SPIN_CYCLES):
+        torch.cuda._sleep(spin)
+        start.record()
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    for evt in device_events(prof):
-        if kernel_substr in evt.key and evt.count:
-            return evt.device_time_total / evt.count / 1e3
-    raise SmokeFailure(f"the profiler recorded no device time for {kernel_substr}")
+        end.record()
+        queued_in_time = not start.query()
+        end.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / iters
+    raise SmokeFailure("the host could not queue the timed launches ahead of the card")
 
 
 def device_events(prof):
@@ -195,9 +258,11 @@ def random_case(torch, device, p, n, seed):
 
 
 def capture_main_path_inputs(torch, brute, compiled, scene):
-    """The kernels' inputs on the main path: one sample of 512^2, two
-    bounces; returns {'closest': [camera, bounce-1], 'any': [...]}."""
-    from luisarender_tpu_torch.integrators.mega_path import path_trace_batch
+    """The brute-force kernels' inputs on the general fork: one sample of
+    512^2, two bounces; returns {'closest': [camera, bounce-1], 'any': [...]}."""
+    from luisarender_tpu_torch.integrators.mega_path import (
+        general_path_trace_batch, pixel_grid,
+    )
 
     captured = {"closest": [], "any": []}
     orig_closest, orig_any = brute.closest, brute.any_hit
@@ -211,15 +276,13 @@ def capture_main_path_inputs(torch, brute, compiled, scene):
         return orig_any(*args)
 
     w, h = scene.cameras[0].film.resolution
-    ys, xs = torch.meshgrid(torch.arange(h, device=compiled.device),
-                            torch.arange(w, device=compiled.device), indexing="ij")
-    pixel_xy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(torch.int32)
+    pixel_xy = pixel_grid(w, h, compiled.device)
     integ = scene.integrator
     brute.closest, brute.any_hit = rec_closest, rec_any
     try:
-        path_trace_batch(compiled, scene.cameras[0], integ.sampler,
-                         integ.light_sampler, pixel_xy, 0, max_depth=2,
-                         rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
+        general_path_trace_batch(compiled, scene.cameras[0], integ.sampler,
+                                 integ.light_sampler, pixel_xy, 0, max_depth=2,
+                                 rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
     finally:
         brute.closest, brute.any_hit = orig_closest, orig_any
     check(len(captured["closest"]) == 2 and len(captured["any"]) == 2,
@@ -227,7 +290,7 @@ def capture_main_path_inputs(torch, brute, compiled, scene):
     return captured
 
 
-def phase_kernels(torch, lt, brute, device):
+def phase_brute_kernels(torch, lt, brute, device):
     scene = lt.load_scene(str(MAIN_SCENE))
     compiled = lt.compile_scene(scene, device=device)
     cap = capture_main_path_inputs(torch, brute, compiled, scene)
@@ -245,11 +308,11 @@ def phase_kernels(torch, lt, brute, device):
         times = {}
         for name in ("camera", "bounce1"):
             args = cases[name]
-            ms = device_ms(torch, lambda: fn_k(*args),
-                           "closest_kernel" if kind == "closest" else "any_kernel")
+            ms = device_ms(torch, lambda: fn_k(*args))
+            prof = profile_one(torch, lambda: fn_k(*args), (f"{kind}_kernel",), 100)
             plain_ms = events_ms(torch, lambda: fn_p(*args), iters=3)
             bound_ms, bound_by = kernel_bounds(torch, brute, kind, *args)
-            times[name] = {"ms": ms, "plain_ms": plain_ms,
+            times[name] = {"ms": ms, "profiler_ms": prof["kernels_ms"], "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by}
         results[kind] = {"errors": errs, "hit_fraction": fracs, "times": times,
                          "max_abs_err": max(max(v) for v in errs.values())}
@@ -258,112 +321,353 @@ def phase_kernels(torch, lt, brute, device):
     return results
 
 
+def fused_work(torch, fp, tables, cam, pxy, n_samples, kw):
+    """The plain version's run, timed with CUDA events, with the work the
+    kernel must do counted: closest rays, the lanes shaded, and shadow rays
+    (occluded ones, which the kernel stops at their first occluder, count
+    one row)."""
+    counts = {"closest": 0, "shaded": 0, "shadow_open": 0, "shadow_occluded": 0}
+    orig_bounce, orig_closest, orig_occ = fp._Plain.bounce, fp._Plain.closest, fp._Plain.occluded
+
+    def bounce(self, s, dep, nrays):
+        self._active = s["active"]
+        counts["closest"] += int(s["active"].sum())
+        return orig_bounce(self, s, dep, nrays)
+
+    def closest(self, o, d, tmin, tmax):
+        out = orig_closest(self, o, d, tmin, tmax)
+        counts["shaded"] += int((out[0] & self._active).sum())
+        return out
+
+    def occluded(self, so, sd, s_tmax):
+        occ = orig_occ(self, so, sd, s_tmax)
+        pending = s_tmax > 0.0
+        counts["shadow_open"] += int((pending & ~occ).sum())
+        counts["shadow_occluded"] += int((pending & occ).sum())
+        return occ
+
+    fp._Plain.bounce, fp._Plain.closest, fp._Plain.occluded = bounce, closest, occluded
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        out = fp.paths_plain(tables, cam, pxy, 0, n_samples, **kw)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+    finally:
+        fp._Plain.bounce, fp._Plain.closest, fp._Plain.occluded = orig_bounce, orig_closest, orig_occ
+    return out, counts, plain_ms
+
+
+def fused_bound(tables, counts, n):
+    """(bound_ms, bound_by, flops): operations over fp32 peak; the bytes
+    (pixel ids in, rgb and a ray count out, 24 B a lane) are negligible."""
+    tri = tables.tri
+    rows = int((tri[:, 9] != 0).sum())
+    shadow_rows = int(((tri[:, 9] != 0) & (tri[:, 10] != 0)).sum())
+    n_sph = tables.sph.shape[0]
+    flops = (counts["closest"] * (rows * FLOPS_PER_ROW + n_sph * FLOPS_PER_SPHERE)
+             + counts["shaded"] * FLOPS_SHADE_BOUNCE
+             + counts["shadow_open"] * (shadow_rows * FLOPS_PER_ROW + n_sph * FLOPS_PER_SPHERE)
+             + counts["shadow_occluded"] * FLOPS_PER_ROW)
+    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    t_bytes = n * 24 / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes > t_ops else "operations"), flops
+
+
+def phase_fused_kernel(torch, lt, fp, device):
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+
+    results = {}
+    for path, depth in ((MATERIALS, 10), (MAIN_SCENE, 8)):
+        scene = lt.load_scene(str(path))
+        compiled = lt.compile_scene(scene, device=device)
+        check(compiled.plan.fused_path, f"{path.name}: the fused kernel does not cover it")
+        tables = fp.fused_tables(compiled)
+        cam = fp.camgen_params(scene.cameras[0], scene.integrator.sampler.seed)
+        w, h = scene.cameras[0].film.resolution
+        pxy = pixel_grid(w, h, device)
+        kw = dict(max_depth=depth, rr_depth=scene.integrator.rr_depth,
+                  rr_threshold=scene.integrator.rr_threshold)
+        rgb_k, rays_k = fp.paths(tables, cam, pxy, 0, 0, **kw)
+        torch.cuda.synchronize()
+        (rgb_p, rays_p), counts, _ = fused_work(torch, fp, tables, cam, pxy, 0, kw)
+        rays_diff = abs(int(rays_k.sum()) - int(rays_p.sum()))
+        off = frac_off(rgb_k.cpu(), rgb_p.cpu())
+        bit_equal = float((rgb_k == rgb_p).all(-1).float().mean())
+        max_err = float((rgb_k - rgb_p).abs().max())
+        check(rays_diff <= 4, f"fused {path.name}: ray counts differ by {rays_diff}")
+        check(off < 0.02, f"fused {path.name}: {off:.4f} of lanes off by more than 1e-3")
+        check(bool(torch.isfinite(rgb_k).all()) and float(rgb_k.mean()) > 0.0,
+              f"fused {path.name}: non-finite or black")
+        ms = device_ms(torch, lambda: fp.paths(tables, cam, pxy, 0, 0, **kw), iters=20)
+        prof = profile_one(torch, lambda: fp.paths(tables, cam, pxy, 0, 0, **kw),
+                           ("fused_path_kernel",), 20)
+        plain_ms = events_ms(torch, lambda: fp.paths_plain(tables, cam, pxy, 0, 0, **kw), iters=1)
+        bound_ms, bound_by, flops = fused_bound(tables, counts, pxy.shape[0])
+
+        # persistent: 4 samples in one launch == the sum of 4 launches
+        tot = sum(fp.paths(tables, cam, pxy, s, 0, **kw)[0] for s in range(4))
+        rgb4, rays4 = fp.paths(tables, cam, pxy, 0, 4, **kw)
+        torch.cuda.synchronize()
+        pers_err = float((rgb4 - tot).abs().max())
+        check(pers_err <= 1e-6, f"persistent {path.name}: off the summed samples by {pers_err}")
+        ms4 = device_ms(torch, lambda: fp.paths(tables, cam, pxy, 0, 4, **kw), iters=10)
+        (rgb4_p, _), counts4, plain4_ms = fused_work(torch, fp, tables, cam, pxy, 4, kw)
+        pers_plain_err = float((rgb4 - rgb4_p).abs().max())
+        bound4_ms, bound4_by, flops4 = fused_bound(tables, counts4, pxy.shape[0])
+        rec = {
+            "phase": "kernels", "kernel": "fused_path", "scene": path.name,
+            "n": pxy.shape[0], "depth": depth, "rays": int(rays_k.sum()),
+            "rays_plain": int(rays_p.sum()), "frac_lanes_off": off,
+            "share_bit_equal": bit_equal, "max_abs_err": max_err, "work": counts,
+            "flops": flops, "ms": ms, "profiler_ms": prof["kernels_ms"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "persistent": {"samples": 4, "max_abs_err_vs_sum": pers_err,
+                           "max_abs_err_vs_plain": pers_plain_err,
+                           "ms": ms4, "plain_ms": plain4_ms, "bound_ms": bound4_ms,
+                           "bound_by": bound4_by, "work": counts4, "flops": flops4},
+        }
+        emit(rec)
+        results[path.name] = rec
+    return results
+
+
 # --------------------------------------------------------------------------
-# phases 4-6
+# phases 4-7
 # --------------------------------------------------------------------------
 
 
-def phase_main(torch, lt, brute, device):
+def render_counted(torch, lt, brute, fp, scene, device):
+    """render() on the card with every kernel count set to 0 just before and
+    read just after; returns (image, seconds, counts)."""
+    reset_counts(brute, fp)
+    t0 = time.perf_counter()
+    images = lt.render(scene, device=device)  # compile + every sample
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(brute, fp)
+    return images[scene.cameras[0].file], seconds, counts
+
+
+def check_image(img, w, h, what):
+    check(img.shape == (h, w, 3), f"{what}: image shape {img.shape}")
+    check(bool(np.isfinite(img).all()), f"{what}: non-finite pixels")
+    check(img.mean() > 0.0, f"{what}: the image is black")
+
+
+def phase_main(torch, lt, brute, fp, device):
+    from luisarender_tpu_torch import testing
+
+    recs = {}
+    # scenes/materials.json, nothing cut
+    scene = lt.load_scene(str(MATERIALS))
+    cam, integ = scene.cameras[0], scene.integrator
+    w, h = cam.film.resolution
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    check_image(img, w, h, "materials")
+    check(counts["fused_path"] == cam.spp, f"materials: fused launches {counts} != spp {cam.spp}")
+    check(counts["brute_closest"] == counts["brute_any"] == 0,
+          f"materials: brute-force launches {counts}")
+    recs["materials"] = {"phase": "main", "scene": "scenes/materials.json",
+                         "resolution": [w, h], "depth": integ.max_depth, "spp": cam.spp,
+                         "cut": None, "seconds": seconds, "rays": integ.rays_traced,
+                         "mray_per_s": integ.rays_traced / seconds / 1e6,
+                         "launches": counts, "image_mean": float(img.mean())}
+    emit(recs["materials"])
+
+    # scenes/cornell.json, nothing cut
     scene = lt.load_scene(str(MAIN_SCENE))
-    cam = scene.cameras[0]
-    integ = scene.integrator
-    # the compile that render() starts with, timed on its own so its share
-    # of the render's seconds is known
+    cam, integ = scene.cameras[0], scene.integrator
+    w, h = cam.film.resolution
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lt.compile_scene(scene, device=device)
     torch.cuda.synchronize()
     compile_seconds = time.perf_counter() - t0
-    brute.closest_launches = 0
-    brute.any_launches = 0
-    t0 = time.perf_counter()
-    images = lt.render(scene, device=device)  # compile + every sample
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"closest": brute.closest_launches, "any": brute.any_launches}
-    img = images[cam.file]
-    w, h = cam.film.resolution
-    check(img.shape == (h, w, 3), f"image shape {img.shape}")
-    check(bool(np.isfinite(img).all()), "image has non-finite pixels")
-    check(img.mean() > 0.0, "image is black")
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    check_image(img, w, h, "cornell")
     band = img[h // 4: 3 * h // 4]  # the walls' middle, clear of floor and ceiling
     left = band[:, : w // 10].reshape(-1, 3).mean(0)
     right = band[:, -(w // 10):].reshape(-1, 3).mean(0)
     check(left[0] > 1.5 * left[1] and left[0] > 1.5 * left[2], f"left wall not red: {left}")
     check(right[1] > 1.5 * right[0] and right[1] > 1.5 * right[2],
           f"right wall not green: {right}")
-    check(integ.bounces_run > 0, "no bounce ran")
-    check(launches["closest"] == integ.bounces_run == launches["any"],
-          f"launches {launches} != bounces {integ.bounces_run}")
-    rec = {"phase": "main", "scene": "scenes/cornell.json", "resolution": [w, h],
-           "depth": integ.max_depth, "spp": cam.spp, "cut": None,
-           "seconds": seconds, "compile_seconds": compile_seconds,
-           "rays": integ.rays_traced,
-           "mray_per_s": integ.rays_traced / seconds / 1e6,
-           "bounces": integ.bounces_run, "launches": launches,
-           "image_mean": float(img.mean()), "left_rgb": left.tolist(),
-           "right_rgb": right.tolist()}
+    check(counts["fused_path"] == cam.spp and counts["brute_closest"] == 0,
+          f"cornell: launches {counts}, spp {cam.spp}")
+    recs["cornell"] = {"phase": "main", "scene": "scenes/cornell.json", "resolution": [w, h],
+                       "depth": integ.max_depth, "spp": cam.spp, "cut": None,
+                       "seconds": seconds, "compile_seconds": compile_seconds,
+                       "rays": integ.rays_traced,
+                       "mray_per_s": integ.rays_traced / seconds / 1e6,
+                       "launches": counts, "image_mean": float(img.mean()),
+                       "left_rgb": left.tolist(), "right_rgb": right.tolist()}
+    emit(recs["cornell"])
+
+    # megawave: one persistent launch a pass
+    scene = lt.Scene.from_dict(testing.cornell_box(resolution=(1024, 1024), spp=32, depth=5,
+                                                   integrator="megawave"))
+    cam, integ = scene.cameras[0], scene.integrator
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    check_image(img, 1024, 1024, "megawave")
+    passes = math.ceil(cam.spp / integ.samples_per_pass)
+    check(counts["fused_path_persistent"] == passes and counts["fused_path"] == 0
+          and counts["brute_closest"] == 0, f"megawave: launches {counts}, passes {passes}")
+    recs["megawave"] = {"phase": "main", "scene": "testing.cornell_box megawave",
+                        "resolution": [1024, 1024], "depth": 5, "spp": cam.spp,
+                        "samples_per_pass": integ.samples_per_pass, "seconds": seconds,
+                        "rays": integ.rays_traced,
+                        "mray_per_s": integ.rays_traced / seconds / 1e6,
+                        "launches": counts, "image_mean": float(img.mean())}
+    emit(recs["megawave"])
+    return recs
+
+
+def phase_general(torch, lt, brute, fp, device):
+    from luisarender_tpu_torch import testing
+
+    d = testing.cornell_box(resolution=(512, 512), spp=32, depth=8)
+    d["render"]["shapes"].append(GENERAL_SPHERE)
+    scene = lt.Scene.from_dict(d)
+    compiled = lt.compile_scene(scene, device=device)
+    check(not compiled.plan.fused_path and compiled.plan.num_tris == 352,
+          f"general scene: fused {compiled.plan.fused_path}, {compiled.plan.num_tris} triangles")
+    integ = scene.integrator
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    check_image(img, 512, 512, "general")
+    check(integ.bounces_run > 0, "general: no bounce ran")
+    check(counts["brute_closest"] == integ.bounces_run == counts["brute_any"]
+          and counts["fused_path"] == 0,
+          f"general: launches {counts}, bounces {integ.bounces_run}")
+    rec = {"phase": "general", "scene": "testing.cornell_box + icosphere(subdivision 2)",
+           "triangles": compiled.plan.num_tris, "resolution": [512, 512], "depth": 8,
+           "spp": 32, "cut": "spp 256 -> 32", "seconds": seconds,
+           "rays": integ.rays_traced, "mray_per_s": integ.rays_traced / seconds / 1e6,
+           "bounces": integ.bounces_run, "launches": counts,
+           "image_mean": float(img.mean())}
     emit(rec)
     return rec
 
 
-def phase_profile(torch, lt, device):
-    """One 512^2 sample of the main path under torch.profiler."""
+def profile_one(torch, fn, kernels, samples):
+    """`samples` calls of fn() under torch.profiler, per sample: wall ms,
+    device busy ms and share, the named kernels' device ms, device ops.
+    The device numbers are None when the profiler traced no device work
+    (the card's activity can be held by another tracer of the process);
+    fails when it traced device work but none of the named kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    from luisarender_tpu_torch.integrators.mega_path import path_trace_batch
-
-    scene = lt.load_scene(str(MAIN_SCENE))
-    compiled = lt.compile_scene(scene, device=device)
-    integ = scene.integrator
-    w, h = scene.cameras[0].film.resolution
-    ys, xs = torch.meshgrid(torch.arange(h, device=device),
-                            torch.arange(w, device=device), indexing="ij")
-    pixel_xy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(torch.int32)
-
-    def one_sample(i):
-        return path_trace_batch(compiled, scene.cameras[0],
-                                integ.sampler, integ.light_sampler, pixel_xy, i,
-                                max_depth=integ.max_depth, rr_depth=integ.rr_depth,
-                                rr_threshold=integ.rr_threshold, with_stats=True)
-
-    one_sample(0)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, _, stats = one_sample(1)
+        for _ in range(samples):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = brute_us = 0.0
-    n_kernels = 0
+        wall_ms = (time.perf_counter() - t0) * 1e3 / samples
+    busy = kern_us = 0.0
+    n_ops = 0
     for evt in device_events(prof):
-        dev_us = evt.device_time_total
-        busy += dev_us
-        n_kernels += evt.count
-        if "closest_kernel" in evt.key or "any_kernel" in evt.key:
-            brute_us += dev_us
-    rec = {"phase": "profile", "wall_ms": wall_ms, "bounces": stats["bounces"],
-           "device_busy_ms": busy / 1e3 if busy else None,
-           "device_busy_share": busy / 1e3 / wall_ms if busy else None,
-           "brute_kernels_ms": brute_us / 1e3 if busy else None,
-           "device_ops": n_kernels}
-    emit(rec)
-    return rec
+        busy += evt.device_time_total / samples
+        n_ops += evt.count
+        if any(k in evt.key for k in kernels):
+            kern_us += evt.device_time_total / samples
+    if busy == 0.0:
+        return {"samples": samples, "wall_ms": wall_ms, "device_busy_ms": None,
+                "device_busy_share": None, "kernels_ms": None,
+                "kernels_share_of_busy": None, "device_ops": None,
+                "profiler": "traced no device work: not measured"}
+    check(kern_us > 0, f"the profiler recorded no device time for {kernels}")
+    return {"samples": samples, "wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / 1e3 / wall_ms, "kernels_ms": kern_us / 1e3,
+            "kernels_share_of_busy": kern_us / busy, "device_ops": n_ops / samples}
 
 
-def phase_golden(lt, device):
+def phase_profile(torch, lt, device):
+    """512^2 samples of materials on the fused fork (8, each a few ms) and
+    one of Cornell on the general fork, per sample."""
+    from luisarender_tpu_torch.integrators.mega_path import (
+        general_path_trace_batch, path_trace_batch, pixel_grid,
+    )
+
+    recs = {}
+    for label, path, fn_batch, kernels, samples in (
+        ("fused", MATERIALS, path_trace_batch, ("fused_path_kernel",), 8),
+        ("general", MAIN_SCENE, general_path_trace_batch, ("closest_kernel", "any_kernel"), 1),
+    ):
+        scene = lt.load_scene(str(path))
+        compiled = lt.compile_scene(scene, device=device)
+        integ = scene.integrator
+        w, h = scene.cameras[0].film.resolution
+        pxy = pixel_grid(w, h, device)
+        counter = iter(range(1, 100))
+
+        def one_sample():
+            return fn_batch(compiled, scene.cameras[0], integ.sampler, integ.light_sampler,
+                            pxy, next(counter), max_depth=integ.max_depth,
+                            rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
+
+        recs[label] = {"phase": "profile", "fork": label, "scene": path.name,
+                       **profile_one(torch, one_sample, kernels, samples)}
+        emit(recs[label])
+    return recs
+
+
+def phase_golden(torch, lt, device):
     from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.integrators.mega_path import (
+        general_path_trace_batch, path_trace_batch, pixel_grid,
+    )
     from luisarender_tpu_torch.utils import imageio
 
     scene = lt.Scene.from_dict(testing.cornell_box(resolution=(64, 64), spp=8, depth=5))
     img = lt.render(scene, device=device)["cornell.exr"]
+    check(scene.integrator.fused_passes == 8, "golden: the render did not take the fused fork")
     ref = imageio.load_exr(str(GOLDEN))
-    frac = float((np.abs(img - ref).max(-1) > 1e-3).mean())
     rel = float(img.mean() / ref.mean() - 1.0)
-    emit({"phase": "golden", "frac_pixels_off": frac, "mean_rel_diff": rel,
-          "max_abs_diff": float(np.abs(img - ref).max())})
-    check(frac < 0.02, f"golden: {frac:.4f} of pixels off by more than 1e-3")
+    compiled = lt.compile_scene(scene, device=device)
+    integ = scene.integrator
+    pxy = pixel_grid(64, 64, device)
+    kw = dict(max_depth=5, rr_depth=0, rr_threshold=0.95)
+    acc, per_sample = 0.0, []
+    for si in range(8):
+        args = (compiled, scene.cameras[0], integ.sampler, integ.light_sampler, pxy, si)
+        rgb_f, _, st_f = path_trace_batch(*args, with_stats=True, **kw)
+        rgb_g, _, st_g = general_path_trace_batch(*args, **kw)
+        rays_f, rays_g = int(st_f["rays"]), int(st_g["rays"])
+        off = frac_off(rgb_f.cpu(), rgb_g.cpu())
+        per_sample.append(off)
+        check(abs(rays_f - rays_g) <= max(8, rays_g // 500),
+              f"golden sample {si}: rays {rays_f} vs {rays_g}")
+        check(off < 0.02, f"golden sample {si}: {off:.4f} of pixels off")
+        acc = acc + rgb_g.cpu().numpy()
+    frac_general = frac_off((acc / 8).reshape(64, 64, 3), ref)
+
+    d = json.load(open(MATERIALS))
+    cam = d["render"]["cameras"][0]["prop"]
+    cam["film"]["prop"]["resolution"] = [48, 48]
+    cam["spp"] = 8
+    d["render"]["integrator"]["prop"]["depth"] = 5
+    os.environ["LUISARENDER_TPU_NO_FUSED"] = "1"
+    try:
+        mscene = lt.Scene.from_dict(d)
+        mimg = lt.render(mscene, device=device)["materials.exr"]
+    finally:
+        del os.environ["LUISARENDER_TPU_NO_FUSED"]
+    check(mscene.integrator.fused_passes == 0, "materials golden: took the fused fork")
+    mref = imageio.load_exr(str(MATERIALS_GOLDEN))
+    mfrac = frac_off(mimg, mref)
+    mrel = float(mimg.mean() / mref.mean() - 1.0)
+    emit({"phase": "golden", "cornell_fused_frac_pixels_off": frac_off(img, ref),
+          "cornell_fused_mean_rel_diff": rel, "cornell_per_sample_frac_off": per_sample,
+          "cornell_general_frac_pixels_off": frac_general,
+          "materials_general_frac_pixels_off": mfrac, "materials_mean_rel_diff": mrel})
     check(abs(rel) < 0.005, f"golden: image mean off by {rel:.5f}")
+    check(frac_general < 0.02, f"golden: general fork {frac_general:.4f} of pixels off")
+    check(mfrac < 0.02 and abs(mrel) < 0.005,
+          f"materials golden: {mfrac:.4f} of pixels off, mean off by {mrel:.5f}")
 
 
 def main():
@@ -374,6 +678,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import luisarender_tpu_torch as lt
     from luisarender_tpu_torch.ops import brute, build
+    from luisarender_tpu_torch.ops import fused_path as fp
 
     device = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -386,25 +691,43 @@ def main():
     sources = sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(build.compile_library, sources))
-    emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0})
+    emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
+          "ptxas": {src: build.ptxas_report(src) for src in sources}})
 
-    kern = phase_kernels(torch, lt, brute, device)
-    main_rec = phase_main(torch, lt, brute, device)
+    brute_k = phase_brute_kernels(torch, lt, brute, device)
+    fused_k = phase_fused_kernel(torch, lt, fp, device)
+    main_recs = phase_main(torch, lt, brute, fp, device)
+    general = phase_general(torch, lt, brute, fp, device)
     phase_profile(torch, lt, device)
-    phase_golden(lt, device)
+    phase_golden(torch, lt, device)
 
     entries = []
     for name, kind_key, line in (("brute_closest", "closest", 79),
                                  ("brute_any", "any", 101)):
-        t = kern[kind_key]["times"]["bounce1"]
+        t = brute_k[kind_key]["times"]["bounce1"]
         entries.append({
             "name": name, "route": "cuda",
             "source": "luisarender_tpu_torch/csrc/brute.cu",
             "replaces": f"luisarender_tpu/ops/brute_pallas.py:{line}",
-            "launches": main_rec["launches"][kind_key],
-            "max_abs_err": kern[kind_key]["max_abs_err"],
+            "launches": general["launches"][name],
+            "max_abs_err": brute_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
+        })
+    mat = fused_k["materials.json"]
+    for name, rec, launches in (
+        ("fused_path", mat, main_recs["materials"]["launches"]["fused_path"]),
+        ("fused_path_persistent", mat["persistent"],
+         main_recs["megawave"]["launches"]["fused_path_persistent"]),
+    ):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "luisarender_tpu_torch/csrc/fused_path.cu",
+            "replaces": "luisarender_tpu/ops/fused_path.py:742",
+            "launches": launches,
+            "max_abs_err": rec.get("max_abs_err", rec.get("max_abs_err_vs_plain")),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
         })
     emit({"kernels": entries})
     print(smi, flush=True)

@@ -28,7 +28,12 @@ from .lightsamplers import uniform as _ls_uniform  # noqa: F401
 from .samplers import base as _samplers  # noqa: F401
 from .shapes import impls as _shapes  # noqa: F401
 from .spectra import srgb as _spec_srgb  # noqa: F401
+from .surfaces import disney as _surf_disney  # noqa: F401
+from .surfaces import glass as _surf_glass  # noqa: F401
 from .surfaces import matte as _surf_matte  # noqa: F401
+from .surfaces import metal as _surf_metal  # noqa: F401
+from .surfaces import mirror as _surf_mirror  # noqa: F401
+from .surfaces import plastic as _surf_plastic  # noqa: F401
 from .textures import constant as _tex_constant  # noqa: F401
 from .transforms import all as _transforms  # noqa: F401
 

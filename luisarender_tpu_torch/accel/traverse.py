@@ -5,14 +5,17 @@ Counterpart of luisarender_tpu/accel/traverse.py (`trace_closest` /
 triangles to its brute-force Pallas kernels and larger ones to the cluster
 kernel; the port has the brute-force kernels (ops/brute.py), and its scene
 compiler raises for larger scenes until the cluster kernel is ported.
+Analytic spheres are exact quadrics tested before the triangles, whose
+trace they clip.
 
-Hit.prim is the row of the triangle table (shared with the shade table);
--1 = miss.
+Hit.prim is the row of the triangle table (shared with the shade table),
+P + s for sphere s (P = triangle rows); -1 = miss.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -24,9 +27,62 @@ BRUTE_FORCE_MAX_TRIS = brute.MAX_TRIS
 
 class TraceGeometry(NamedTuple):
     tri_table: torch.Tensor  # (P, 16) float32, ops/brute.py layout
+    # analytic spheres (S, 16): 0:3 center, 3 radius, 4:13 rotation
+    # (row-major), 13 instance id, 14 opaque; None without spheres
+    sph: Optional[torch.Tensor] = None
 
 
-def trace_closest(geom: TraceGeometry, rays) -> Hit:
+def _sphere_roots(row, o, d):
+    c = row[0:3]
+    r = row[3]
+    oc = o - c
+    b = (oc * d).sum(-1)
+    c2 = (oc * oc).sum(-1) - r * r
+    disc = b * b - c2
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    return disc, -b - sq, -b + sq
+
+
+def sphere_closest(sph, rays):
+    """Closest analytic-sphere hit: (t (inf on miss), index (-1), u, v),
+    uv in the icosphere's parameterization of the sphere's local frame:
+    v = acos(z) / pi, u = atan2(y, x) / 2pi mod 1."""
+    o, d = rays.origin, rays.direction
+    best_t = torch.full(o.shape[:-1], math.inf, device=o.device)
+    best_i = torch.full(o.shape[:-1], -1, dtype=torch.int32, device=o.device)
+    for s, row in enumerate(sph.unbind(0)):
+        disc, t0, t1 = _sphere_roots(row, o, d)
+        t = torch.where((t0 > rays.t_min) & (t0 < rays.t_max), t0, t1)
+        ok = (disc > 0.0) & (t > rays.t_min) & (t < rays.t_max) & (t < best_t)
+        best_t = torch.where(ok, t, best_t)
+        best_i = torch.where(ok, s, best_i)
+    srow = sph[torch.clamp(best_i, min=0)]
+    r = torch.clamp(srow[..., 3], min=1e-20)
+    n = (o + best_t[..., None] * d - srow[..., 0:3]) / r[..., None]
+    rot = srow[..., 4:13]
+    lx = n[..., 0] * rot[..., 0] + n[..., 1] * rot[..., 3] + n[..., 2] * rot[..., 6]
+    ly = n[..., 0] * rot[..., 1] + n[..., 1] * rot[..., 4] + n[..., 2] * rot[..., 7]
+    lz = n[..., 0] * rot[..., 2] + n[..., 1] * rot[..., 5] + n[..., 2] * rot[..., 8]
+    v = torch.arccos(torch.clamp(lz, -1.0, 1.0)) * (1.0 / math.pi)
+    u = torch.atan2(ly, lx) * (0.5 / math.pi)
+    u = torch.where(u < 0.0, u + 1.0, u)
+    found = best_i >= 0
+    return (torch.where(found, best_t, math.inf), best_i,
+            torch.where(found, u, 0.0), torch.where(found, v, 0.0))
+
+
+def sphere_any(sph, rays):
+    """Occlusion by any opaque analytic sphere within (t_min, t_max)."""
+    occ = torch.zeros(rays.origin.shape[:-1], dtype=torch.bool, device=rays.origin.device)
+    for row in sph.unbind(0):
+        disc, t0, t1 = _sphere_roots(row, rays.origin, rays.direction)
+        hit0 = (t0 > rays.t_min) & (t0 < rays.t_max)
+        hit1 = (t1 > rays.t_min) & (t1 < rays.t_max)
+        occ = occ | ((disc > 0.0) & (hit0 | hit1) & (row[14] > 0.0))
+    return occ
+
+
+def _trace_closest_tris(geom, rays) -> Hit:
     t, slot, u, v = brute.closest(
         rays.origin, rays.direction, rays.t_min, rays.t_max, geom.tri_table
     )
@@ -39,8 +95,29 @@ def trace_closest(geom: TraceGeometry, rays) -> Hit:
     )
 
 
+def trace_closest(geom: TraceGeometry, rays) -> Hit:
+    if geom.sph is None:
+        return _trace_closest_tris(geom, rays)
+    # spheres first; their hits clip the triangle trace, whose hit wins
+    t_s, i_s, u_s, v_s = sphere_closest(geom.sph, rays)
+    hit = _trace_closest_tris(geom, rays._replace(t_max=torch.minimum(rays.t_max, t_s)))
+    sph_wins = (i_s >= 0) & ~(hit.prim >= 0)
+    return Hit(
+        inst=torch.where(sph_wins, 0, hit.inst).to(torch.int32),
+        prim=torch.where(sph_wins, geom.tri_table.shape[0] + i_s, hit.prim),
+        bary=torch.where(sph_wins[..., None], torch.stack([u_s, v_s], dim=-1), hit.bary),
+        t=torch.where(sph_wins, t_s, hit.t),
+    )
+
+
 def trace_any(geom: TraceGeometry, rays):
     """Shadow-ray occlusion; returns bool occluded per ray."""
-    return brute.any_hit(
+    occ = None
+    if geom.sph is not None:
+        occ = sphere_any(geom.sph, rays)
+        # occluded lanes skip the triangle trace
+        rays = rays._replace(t_max=torch.where(occ, 0.0, rays.t_max))
+    tri = brute.any_hit(
         rays.origin, rays.direction, rays.t_min, rays.t_max, geom.tri_table
     )
+    return tri if occ is None else occ | tri

@@ -83,7 +83,7 @@ def convert_tables(arrays, surface_types, light_types):
     trace = {
         k: np.asarray(tr[k])
         for k in ("tri_v0", "tri_e1", "tri_e2", "prim_index", "tri_opaque",
-                  "shade_table")
+                  "shade_table", "sph") if k in tr
     }
     out = {
         "instances": {
@@ -103,11 +103,15 @@ def convert_tables(arrays, surface_types, light_types):
         ],
         "trace": trace,
     }
+    if "fused" in arrays:
+        out["fused"] = {k: np.asarray(v, np.float32) for k, v in arrays["fused"].items()}
     plan = ScenePlan(
         surface_types=surf_cls,
         light_types=light_cls,
         num_lights=int(out["light_entries"]["inst"].shape[0]),
         num_tris=int(np.sum(trace["prim_index"] >= 0)),
+        num_spheres=int(trace["sph"].shape[0]) if "sph" in trace else 0,
+        fused_path="fused" in out,
     )
     return out, plan
 

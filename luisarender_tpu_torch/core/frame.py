@@ -31,6 +31,22 @@ def cross(a, b):
     )
 
 
+def reflect(wo, n):
+    return -wo + 2.0 * dot(wo, n)[..., None] * n
+
+
+def refract(wi, n, eta):
+    """Refract wi about n with relative IOR eta = eta_i / eta_t; returns
+    (valid, wt)."""
+    cos_i = dot(n, wi)
+    sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    sin2_t = eta * eta * sin2_i
+    valid = sin2_t < 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    wt = eta[..., None] * -wi + (eta * cos_i - cos_t)[..., None] * n
+    return valid, wt
+
+
 def make_frame(n):
     """Branchless orthonormal frame around unit normal n (Duff et al. 2017)."""
     nz = n[..., 2]
@@ -69,6 +85,10 @@ def to_world(frame, v):
 
 
 # --- local-space trig (z-up shading space) ---
+
+
+def cos_theta(w):
+    return w[..., 2]
 
 
 def abs_cos_theta(w):

@@ -1,7 +1,7 @@
 """Integrator interface and the progressive render loop.
 
 Counterpart of luisarender_tpu/integrators/base.py: per camera, film
-prepare -> one sample at a time -> film develop -> image save. Checkpoint /
+prepare -> samples -> film develop -> image save. Checkpoint /
 resume and shutter buckets (motion blur) are not ported yet.
 """
 
@@ -43,11 +43,8 @@ class Integrator(SceneNode):
 
 
 class ProgressiveIntegrator(Integrator):
-    """Renders each camera sample by sample into its film.
-
-    The reference batches `samples_per_pass` samples into one compiled
-    pass; here every sample is its own bounce loop, so the property is not
-    read."""
+    """Renders each camera into its film, sample by sample or, for the
+    megawave integrator, `samples_per_pass` samples per kernel launch."""
 
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
@@ -55,10 +52,13 @@ class ProgressiveIntegrator(Integrator):
             raise NotImplementedError(
                 "checkpoint/resume is not supported by luisarender_tpu_torch yet"
             )
+        self.samples_per_pass = desc.int("samples_per_pass", 4)
         # totals of the last render(): rays traced (closest + shadow, as
-        # path_trace_batch counts them) and bounce steps run
+        # path_trace_batch counts them), bounce steps run on the general
+        # fork, and passes of the fused fork (one kernel launch each)
         self.rays_traced = 0
         self.bounces_run = 0
+        self.fused_passes = 0
 
     def _render_one_camera(self, compiled, camera):
         raise NotImplementedError
@@ -67,6 +67,7 @@ class ProgressiveIntegrator(Integrator):
         results = {}
         self.rays_traced = 0
         self.bounces_run = 0
+        self.fused_passes = 0
         for camera in compiled.scene.cameras:
             t0 = _time.time()
             image = self._render_one_camera(compiled, camera).cpu().numpy()

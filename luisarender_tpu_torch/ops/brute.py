@@ -46,8 +46,9 @@ def make_tri_table(tri_v0, tri_e1, tri_e2, prim_index, tri_opaque):
 
 
 def moller_trumbore(r, ox, oy, oz, dx, dy, dz):
-    """One table row r (16 0-dim tensors) against all rays. Returns
-    (ok, t, u, v); ok excludes the t-range test."""
+    """Table row(s) r (16 tensors: one row's 0-dim entries, or (P,) columns
+    against (N, 1) rays) against the rays. Returns (ok, t, u, v); ok
+    excludes the t-range test."""
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = r[:9]
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z

@@ -23,10 +23,11 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # --fmad=false and no fast math: kernels round like their plain PyTorch
-# versions (see each source's note)
+# versions (see each source's note); -Xptxas -v: ptxas's register, shared
+# memory and spill report, kept beside the library (`ptxas_report`)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -61,8 +62,32 @@ def compile_library(name: str) -> Path:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
     return out
+
+
+def ptxas_report(name: str) -> dict:
+    """ptxas's report of csrc/<name>.cu's last build, per kernel: {kernel:
+    {registers, stack_bytes, spill_stores, spill_loads, smem_bytes}}."""
+    import re
+
+    path = library_path(name).with_suffix(".ptxas.txt")
+    report, kernel = {}, None
+    for line in path.read_text().splitlines() if path.exists() else []:
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            kernel = re.findall(r"[a-z_]+_kernel", m.group(1))[-1]
+            report[kernel] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and kernel:
+            report[kernel].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and kernel:
+            report[kernel].update(registers=int(m.group(1)), smem_bytes=int(m.group(2)))
+    return report
 
 
 def load_library(name: str) -> ctypes.CDLL:

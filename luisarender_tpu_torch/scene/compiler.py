@@ -8,9 +8,12 @@ trace / shade tables.
 
 Triangles keep their original order (row r is triangle r). The reference
 sorts them into BVH order even for brute-force scenes; the port builds no
-BVH in this slice, so its tables match the reference's per original
-triangle id (`prim_index`), not per row. Scenes above BRUTE_FORCE_MAX_TRIS
-triangles, two-level instancing, spheres, media and environments raise.
+BVH yet, so its tables match the reference's per original triangle id
+(`prim_index`), not per row. Spheres that qualify (`analytic_sphere`) are
+exact quadrics in their own table instead of triangles. A scene the fused
+kernel covers also gets its per-instance tables (`arrays["fused"]`, see
+ops/fused_path.py build_fused_pack). Scenes above BRUTE_FORCE_MAX_TRIS
+triangles, two-level instancing, media and environments raise.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..accel.traverse import BRUTE_FORCE_MAX_TRIS, TraceGeometry
 from ..core.device import resolve_device
 from ..core.sampling import build_alias_table
 from ..ops import brute
+from ..ops.fused_path import build_fused_pack
 from ..shapes.base import compute_vertex_normals
 from .geometry import build_shade_table
 
@@ -36,6 +40,8 @@ class ScenePlan:
     num_lights: int  # light-list entries (emissive instances)
     num_tris: int
     spectral_dim: int = 3
+    num_spheres: int = 0
+    fused_path: bool = False  # the fused kernel covers the scene
 
 
 @dataclass
@@ -50,7 +56,8 @@ class CompiledScene:
     device: torch.device
 
     def trace_geometry(self) -> TraceGeometry:
-        return TraceGeometry(tri_table=self.arrays["trace"]["tri_table"])
+        tr = self.arrays["trace"]
+        return TraceGeometry(tri_table=tr["tri_table"], sph=tr.get("sph"))
 
 
 INT_INSTANCE_KEYS = (
@@ -148,6 +155,31 @@ class SceneCompiler:
             walk(s, np.eye(4), None, None)
         return out
 
+    @staticmethod
+    def analytic_sphere(shape, m, surface, light):
+        """(center (3,), radius, rotation (3, 3)) when this instance can be
+        intersected as an exact quadric, else None: an analytic sphere with
+        a surface and no light, under a similarity transform (uniform scale
+        times rotation, plus translation)."""
+        from ..shapes.impls import SphereShape
+
+        if not isinstance(shape, SphereShape) or not shape.analytic:
+            return None
+        if light is not None or surface is None:
+            return None
+        a = np.asarray(m, np.float64)[:3, :3]
+        det = np.linalg.det(a)
+        if det <= 0.0:
+            return None
+        sc = det ** (1.0 / 3.0)
+        if not np.allclose(a @ a.T, (sc * sc) * np.eye(3), rtol=1e-5, atol=1e-5 * sc * sc):
+            return None
+        return (
+            np.asarray(m, np.float64)[:3, 3].astype(np.float32),
+            np.float32(sc),
+            (a / sc).astype(np.float32),
+        )
+
     def compile_numpy(self):
         """Host tables (nested dict of numpy arrays) and the static plan."""
         scene = self.scene
@@ -170,9 +202,18 @@ class SceneCompiler:
         # packed per-emissive-triangle rows, in the alias tables' flat order
         light_tri_rows: list = []
 
+        sphere_rows: list = []  # (instance id, center, radius, rotation)
         v_off = 0
         t_off = 0
         for inst_id, (shape, m, surface, light) in enumerate(instances):
+            an = self.analytic_sphere(shape, m, surface, light)
+            if an is not None:
+                sphere_rows.append((inst_id, *an))
+                s_tag, s_idx = self.compile_surface(surface)
+                for k, v in (("surface_tag", s_tag), ("surface_index", s_idx),
+                             ("light_tag", -1), ("light_index", 0), ("light_entry", -1)):
+                    inst_rows[k].append(v)
+                continue
             mesh = shape.mesh()
             p = mesh.positions.astype(np.float64)
             pw = (p @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
@@ -239,6 +280,14 @@ class SceneCompiler:
             v_off += pw.shape[0]
             t_off += tris.shape[0]
 
+        if not all_p:
+            # spheres only: one far-away degenerate triangle keeps the
+            # triangle tables non-empty, as in the reference
+            all_p.append(np.full((3, 3), 1e30, np.float32))
+            all_n.append(np.tile(np.asarray([[0.0, 0.0, 1.0]], np.float32), (3, 1)))
+            all_uv.append(np.zeros((3, 2), np.float32))
+            all_t.append(np.asarray([[0, 1, 2]], np.int32))
+            all_ti.append(np.zeros(1, np.int32))
         vertex_p = np.concatenate(all_p, axis=0)
         vertex_n = np.concatenate(all_n, axis=0)
         vertex_uv = np.concatenate(all_uv, axis=0)
@@ -283,12 +332,31 @@ class SceneCompiler:
                 ),
             },
         }
+        if sphere_rows:
+            # accel/traverse.py sphere table layout
+            sph = np.zeros((len(sphere_rows), 16), np.float32)
+            for si, (iid, center, radius, rot) in enumerate(sphere_rows):
+                sph[si, 0:3] = center
+                sph[si, 3] = radius
+                sph[si, 4:13] = rot.reshape(-1)
+                sph[si, 13] = float(iid)
+                sph[si, 14] = 1.0  # opaque: an analytic sphere has a surface
+            arrays["trace"]["sph"] = sph
+        fused = build_fused_pack(
+            self._surface_types, self._surface_rows, self._light_types,
+            self._light_rows, inst_rows, light_entries, self.spectrum, num_tris,
+            bool(np.all(inst_blocks)), n_spheres=len(sphere_rows),
+        )
+        if fused is not None:
+            arrays["fused"] = fused
         plan = ScenePlan(
             surface_types=tuple(self._surface_types),
             light_types=tuple(self._light_types),
             num_lights=len(light_entries["inst"]),
             num_tris=num_tris,
             spectral_dim=self.spectrum.dimension,
+            num_spheres=len(sphere_rows),
+            fused_path=fused is not None,
         )
         return arrays, plan
 

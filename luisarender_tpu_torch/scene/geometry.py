@@ -100,8 +100,11 @@ def build_shade_table(
 
 
 def surface_interaction(arrays, hit: Hit, ray) -> Interaction:
-    """Interaction at each hit: one shade-row gather + interpolation."""
-    row = arrays["trace"]["shade_table"][torch.clamp(hit.prim, min=0)]
+    """Interaction at each hit: one shade-row gather + interpolation, or, for
+    an analytic-sphere hit (prim = P + sphere index), the exact quadric's
+    point, normal and tangent rebuilt from its (u, v)."""
+    shade = arrays["trace"]["shade_table"]
+    row = shade[torch.clamp(hit.prim, 0, shade.shape[0] - 1)]
     valid = (hit.prim >= 0) & (row[..., 32] > 0.0)
 
     u = hit.bary[..., 0]
@@ -133,6 +136,42 @@ def surface_interaction(arrays, hit: Hit, ray) -> Interaction:
     )
     tangent = row[..., 28:31]
     inst = row[..., 31].to(torch.int32)
+
+    sph = arrays["trace"].get("sph")
+    if sph is not None:
+        p_tris = shade.shape[0]
+        is_sph = hit.prim >= p_tris
+        srow = sph[torch.clamp(hit.prim - p_tris, 0, sph.shape[0] - 1)]
+        c = srow[..., 0:3]
+        radius = srow[..., 3]
+        rot = srow[..., 4:13]
+        two_pi = 2.0 * np.pi
+        phi = u * two_pi
+        theta = v * np.pi
+        st = torch.sin(theta)
+        n_loc = (torch.cos(phi) * st, torch.sin(phi) * st, torch.cos(theta))
+        # world normal = R n_loc (rot is row-major R)
+        n_w = torch.stack([
+            rot[..., 3 * r] * n_loc[0] + rot[..., 3 * r + 1] * n_loc[1]
+            + rot[..., 3 * r + 2] * n_loc[2] for r in range(3)
+        ], dim=-1)
+        p_sph = c + radius[..., None] * n_w
+        # dpdu = 2 pi r R (-sin phi st, cos phi st, 0); the frame's tangent at
+        # the poles
+        t_loc = (-torch.sin(phi) * st, torch.cos(phi) * st)
+        t_w = torch.stack([
+            rot[..., 3 * r] * t_loc[0] + rot[..., 3 * r + 1] * t_loc[1] for r in range(3)
+        ], dim=-1) * (two_pi * radius)[..., None]
+        t_w = torch.where((st > 1e-6)[..., None], t_w, fr.make_frame(n_w)["s"])
+        m = is_sph[..., None]
+        p = torch.where(m, p_sph, p)
+        uv = torch.where(m, hit.bary, uv)
+        ng = torch.where(m, n_w, ng)
+        ns = torch.where(m, n_w, ns)
+        tangent = torch.where(m, t_w, tangent)
+        inst = torch.where(is_sph, srow[..., 13].to(torch.int32), inst)
+        prim_area = torch.where(is_sph, (4.0 * np.pi) * radius * radius, prim_area)
+        valid = valid | (is_sph & (hit.prim < p_tris + sph.shape[0]))
 
     wo = -ray.direction
     back_facing = fr.dot(wo, ng) < 0.0

@@ -1,7 +1,8 @@
-"""Concrete shapes: the inline mesh.
+"""Concrete shapes: the inline mesh and the sphere.
 
-Counterpart of the InlineMesh of luisarender_tpu/shapes/impls.py. File
-meshes, spheres, groups and instances are not ported yet.
+Counterpart of the InlineMesh, `icosphere` and SphereShape of
+luisarender_tpu/shapes/impls.py. File meshes, groups and instances are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +39,83 @@ class InlineMesh(Shape):
             else None
         )
         self._mesh = MeshData(positions=p, triangles=t, normals=n, uvs=uv)
+
+    @property
+    def is_mesh(self):
+        return True
+
+    def mesh(self):
+        return self._mesh
+
+
+_SPHERE_MESHES: dict = {}
+
+
+def icosphere(subdivision: int):
+    """Subdivided icosahedron on the unit sphere: (positions (V, 3) float32,
+    triangles (T, 3) int32), T = 20 * 4^subdivision."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array(
+        [
+            [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+            [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+            [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+        ],
+        dtype=np.float64,
+    )
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = np.array(
+        [
+            [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+            [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+            [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+            [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+        ],
+        dtype=np.int64,
+    )
+    for _ in range(subdivision):
+        edge_mid: dict = {}
+        verts_list = list(verts)
+        new_faces = []
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = verts_list[a] + verts_list[b]
+                edge_mid[key] = len(verts_list)
+                verts_list.append(m / np.linalg.norm(m))
+            return edge_mid[key]
+
+        for f in faces:
+            a, b, c = int(f[0]), int(f[1]), int(f[2])
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.asarray(verts_list)
+        faces = np.asarray(new_faces, dtype=np.int64)
+    return verts.astype(np.float32), faces.astype(np.int32)
+
+
+@register(SceneNodeTag.SHAPE, "sphere", "Sphere")
+class SphereShape(Shape):
+    """The unit sphere, placed by its transform. By default the scene
+    compiler intersects it as an exact quadric; `analytic: false`, an
+    emissive sphere or a transform that is not a similarity use the
+    subdivided icosphere mesh instead (scene/compiler.py analytic_sphere),
+    with the same uv parameterization either way."""
+
+    def __init__(self, scene, desc):
+        super().__init__(scene, desc)
+        self.subdivision = min(max(desc.int("subdivision", 4), 0), 8)
+        self.analytic = desc.bool("analytic", True)
+        if self.subdivision not in _SPHERE_MESHES:
+            p, t = icosphere(self.subdivision)
+            theta = np.arccos(np.clip(p[:, 2], -1, 1))
+            phi = np.arctan2(p[:, 1], p[:, 0])
+            uv = np.stack([(phi / (2 * np.pi)) % 1.0, theta / np.pi], axis=-1)
+            _SPHERE_MESHES[self.subdivision] = MeshData(
+                positions=p, triangles=t, normals=p.copy(), uvs=uv.astype(np.float32)
+            )
+        self._mesh = _SPHERE_MESHES[self.subdivision]
 
     @property
     def is_mesh(self):

@@ -1,0 +1,311 @@
+"""Disney "principled" BSDF.
+
+Counterpart of luisarender_tpu/surfaces/disney.py, the whole lobe set:
+diffuse with retro-reflection, the Hanrahan-Krueger fake subsurface
+(thin only, by `flatness`), sheen, GTR1 clearcoat, metallic / dielectric
+GGX specular with tint and anisotropy, specular transmission, and thin
+diffuse transmission. Lobes are picked by a CDF over their weights; every
+lobe is evaluated for every lane and combined by weight.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..core import frame as fr
+from ..core import microfacet as mf
+from ..core import sampling
+from ..core.colorspace import cie_y_of_srgb
+from ..scene.node import SceneNodeTag
+from ..scene.registry import register
+from ..textures.base import compile_tex_params
+from .base import (
+    EVENT_ENTER, EVENT_EXIT, EVENT_REFLECT, EVENT_THROUGH, Surface, oriented_frame,
+)
+
+PI = math.pi
+
+# scalar texture parameters and their defaults
+_TEX_PARAMS = (
+    ("metallic", 0.0), ("eta", 1.5), ("roughness", 0.5), ("specular_tint", 0.0),
+    ("anisotropic", 0.0), ("sheen", 0.0), ("sheen_tint", 0.0), ("clearcoat", 0.0),
+    ("clearcoat_gloss", 1.0), ("specular_trans", 0.0), ("flatness", 0.0),
+    ("diffuse_trans", 0.0),
+)
+
+
+def schlick_weight(cos_t):
+    m = torch.clamp(1.0 - cos_t, 0.0, 1.0)
+    return (m * m) * (m * m) * m
+
+
+def gtr1(cos_h, alpha):
+    """Clearcoat NDF (GTR1)."""
+    a2 = alpha * alpha
+    denom = PI * torch.log(torch.clamp(a2, min=1e-8)) * (1.0 + (a2 - 1.0) * cos_h * cos_h)
+    return (a2 - 1.0) / torch.where(torch.abs(denom) < 1e-12, 1e-12, denom)
+
+
+def _smith_g_sep(w, alpha):
+    """Separable Smith G of the clearcoat (alpha 0.25)."""
+    c2 = fr.cos2_theta(w)
+    t2 = fr.sin2_theta(w) / torch.clamp(c2, min=1e-9)
+    return 2.0 / (1.0 + torch.sqrt(1.0 + alpha * alpha * t2))
+
+
+def _sign_z(v, sign):
+    """v with its z component multiplied by sign (..., 1)."""
+    return torch.cat([v[..., :2], v[..., 2:3] * sign], dim=-1)
+
+
+@register(SceneNodeTag.SURFACE, "disney", "Disney", "principled", "Principled")
+class DisneySurface(Surface):
+    texture_params = (("color", (0.5, 0.5, 0.5, 0.0), 3),) + tuple(
+        (name, (default,) * 4, 1) for name, default in _TEX_PARAMS
+    )
+
+    def __init__(self, scene, desc):
+        super().__init__(scene, desc)
+        self.color = scene.load_texture(desc.node("color") or desc.node("Kd"))
+        self.thin = desc.bool("thin", False)
+        self.remap_roughness = desc.bool("remap_roughness", True)
+        for name, _ in _TEX_PARAMS:
+            setattr(self, name, scene.load_texture(desc.node(name)))
+
+    def compile(self, compiler) -> dict:
+        return {
+            **self.compile_common(),
+            **compile_tex_params(self),
+            "thin": np.float32(1.0 if self.thin else 0.0),
+            "remap_roughness": np.float32(1.0 if self.remap_roughness else 0.0),
+        }
+
+    @staticmethod
+    def _ctx(params, ctx, swl):
+        p = params
+        c = {
+            "color": ctx.spectrum.decode_albedo(p["color"], swl),
+            "color_lum": torch.clamp(cie_y_of_srgb(p["color"]), min=1e-6),
+            "metallic": p["metallic"],
+            "eta": torch.clamp(p["eta"], min=1.001),
+            "roughness": torch.clamp(p["roughness"], 0.0, 1.0),
+            "spec_tint": p["specular_tint"],
+            "aniso": p["anisotropic"],
+            "sheen": p["sheen"],
+            "sheen_tint": p["sheen_tint"],
+            "clearcoat": p["clearcoat"],
+            "cc_gloss": p["clearcoat_gloss"],
+            "spec_trans": torch.clamp(p["specular_trans"], 0.0, 1.0),
+            "flatness": p["flatness"],
+            "diff_trans": torch.clamp(p["diffuse_trans"], 0.0, 1.0) * 0.5,
+            "thin": p["thin"] > 0.5,
+        }
+        aspect = torch.sqrt(torch.clamp(1.0 - 0.9 * c["aniso"], min=1e-4))
+        r = c["roughness"]
+        rr = torch.where(p["remap_roughness"] > 0.5, r * r, r)
+        c["alpha"] = torch.stack(
+            [torch.clamp(rr / aspect, min=1e-4), torch.clamp(rr * aspect, min=1e-4)], dim=-1
+        )
+        lum = c["color_lum"][..., None]
+        c["tint"] = c["color"] / lum
+        c["csheen"] = (1.0 - c["sheen_tint"])[..., None] + c["sheen_tint"][..., None] * c["tint"]
+        f0 = ((c["eta"] - 1.0) / (c["eta"] + 1.0)) ** 2
+        cspec0_diel = f0[..., None] * (
+            (1.0 - c["spec_tint"])[..., None] + c["spec_tint"][..., None] * c["tint"]
+        )
+        c["cspec0"] = (
+            (1.0 - c["metallic"])[..., None] * cspec0_diel + c["metallic"][..., None] * c["color"]
+        )
+        c["alpha_cc"] = (1.0 - c["cc_gloss"]) * 0.1 + c["cc_gloss"] * 0.001
+        return c
+
+    @staticmethod
+    def _diffuse_lobes(c, wo, wi, wh):
+        """Diffuse + retro + fake subsurface + sheen (f without |cos_i|)."""
+        cos_o = fr.abs_cos_theta(wo)
+        cos_i = fr.abs_cos_theta(wi)
+        fo = schlick_weight(cos_o)
+        fi = schlick_weight(cos_i)
+        cos_d = fr.dot(wi, wh)
+        base = c["color"] * (1.0 / PI)
+        f_diffuse = base * ((1.0 - 0.5 * fo) * (1.0 - 0.5 * fi))[..., None]
+        rr = 2.0 * c["roughness"] * cos_d * cos_d
+        f_retro = base * (rr * (fo + fi + fo * fi * (rr - 1.0)))[..., None]
+        fss90 = cos_d * cos_d * c["roughness"]
+        fss = (1.0 + (fss90 - 1.0) * fo) * (1.0 + (fss90 - 1.0) * fi)
+        f_ss = base * (
+            1.25 * (fss * (1.0 / torch.clamp(cos_o + cos_i, min=1e-4) - 0.5) + 0.5)
+        )[..., None]
+        f_sheen = c["csheen"] * (c["sheen"] * schlick_weight(torch.abs(cos_d)))[..., None]
+        thin = c["thin"][..., None]
+        flat = c["flatness"][..., None]
+        diffuse_mix = torch.where(thin, (1.0 - flat) * f_diffuse + flat * f_ss, f_diffuse)
+        return diffuse_mix + f_retro + f_sheen
+
+    @staticmethod
+    def _specular_lobe(c, wo, wi, wh):
+        d = mf.ggx_d(wh, c["alpha"])
+        g = mf.ggx_g(wo, wi, c["alpha"])
+        cos_d = fr.dot(wi, wh)
+        f_diel = mf.fresnel_dielectric(cos_d, torch.ones_like(c["eta"]), c["eta"])
+        f_schlick = mf.fresnel_schlick(cos_d, c["cspec0"])
+        fres = (
+            (1.0 - c["metallic"])[..., None] * f_diel[..., None]
+            * ((1.0 - c["spec_tint"])[..., None] + c["spec_tint"][..., None] * c["tint"])
+            + c["metallic"][..., None] * f_schlick
+        )
+        denom = torch.clamp(4.0 * fr.abs_cos_theta(wo) * fr.abs_cos_theta(wi), min=1e-6)
+        return fres * (d * g / denom)[..., None]
+
+    @staticmethod
+    def _clearcoat_lobe(c, wo, wi, wh):
+        d = gtr1(fr.abs_cos_theta(wh), c["alpha_cc"])
+        f = 0.04 + 0.96 * schlick_weight(fr.dot(wi, wh))
+        g = _smith_g_sep(wo, 0.25) * _smith_g_sep(wi, 0.25)
+        denom = torch.clamp(4.0 * fr.abs_cos_theta(wo) * fr.abs_cos_theta(wi), min=1e-6)
+        return (c["clearcoat"] * 0.25 * d * f * g / denom)[..., None]
+
+    @staticmethod
+    def lobe_weights(c):
+        """Normalized sampling weights: diffuse, specular, clearcoat, trans."""
+        metal = c["metallic"]
+        w_diff = (1.0 - metal) * (1.0 - c["spec_trans"]) * c["color_lum"]
+        w_spec = torch.clamp(cie_y_of_srgb(c["cspec0"]), min=0.1)
+        w_cc = 0.25 * c["clearcoat"]
+        w_trans = (1.0 - metal) * c["spec_trans"] + c["thin"].to(torch.float32) * c["diff_trans"]
+        total = torch.clamp(w_diff + w_spec + w_cc + w_trans, min=1e-6)
+        return w_diff / total, w_spec / total, w_cc / total, w_trans / total
+
+    @staticmethod
+    def _eval_local(c, wo, wi):
+        """f (with |cos_i|) and pdf in the local frame."""
+        same = fr.same_hemisphere(wo, wi)
+        cos_i = fr.abs_cos_theta(wi)
+        cos_o = fr.abs_cos_theta(wo)
+        valid_r = same & (cos_i > 1e-6) & (cos_o > 1e-6)
+        wh = fr.normalize(wo + wi)
+        wh = torch.where(fr.cos_theta(wh)[..., None] < 0.0, -wh, wh)
+
+        diffuse_weight = (1.0 - c["metallic"]) * (1.0 - c["spec_trans"])
+        f_diff = DisneySurface._diffuse_lobes(c, wo, wi, wh) * diffuse_weight[..., None]
+        dt = c["diff_trans"]
+        f_diff = f_diff * torch.where(c["thin"], 1.0 - dt, 1.0)[..., None]
+        f_spec = DisneySurface._specular_lobe(c, wo, wi, wh)
+        f_cc = DisneySurface._clearcoat_lobe(c, wo, wi, wh)
+        f_refl = (f_diff + f_spec + f_cc) * cos_i[..., None]
+        f_refl = torch.where(valid_r[..., None], f_refl, 0.0)
+
+        # transmission
+        eta = c["eta"]
+        trans_weight = (1.0 - c["metallic"]) * c["spec_trans"]
+        eta_rel = torch.where(fr.cos_theta(wo) > 0.0, eta, 1.0 / eta)
+        eta_rel = torch.where(c["thin"], 1.0, eta_rel)
+        wht = fr.normalize(wo + wi * eta_rel[..., None])
+        wht = torch.where(fr.cos_theta(wht)[..., None] < 0.0, -wht, wht)
+        dot_o = fr.dot(wo, wht)
+        dot_i = fr.dot(wi, wht)
+        trans_ok = (~same) & (dot_o * dot_i < 0.0) & (cos_o > 1e-6) & (cos_i > 1e-6)
+        d_t = mf.ggx_d(wht, c["alpha"])
+        g_t = mf.ggx_g(wo, wi, c["alpha"])
+        f_ht = mf.fresnel_dielectric(dot_o, torch.ones_like(eta), eta)
+        denom_t = dot_o + eta_rel * dot_i
+        f_st = (
+            (1.0 - f_ht) * d_t * g_t * torch.abs(dot_i * dot_o)
+            / torch.clamp(cos_i * cos_o * denom_t * denom_t, min=1e-8)
+        )
+        f_strans = torch.sqrt(torch.clamp(c["color"], min=0.0)) * (trans_weight * f_st)[..., None]
+        f_dtrans = c["color"] * (diffuse_weight * dt / PI)[..., None]
+        use_dtrans = c["thin"] & (~same)
+        f_trans = torch.where(
+            use_dtrans[..., None], f_dtrans,
+            torch.where(trans_ok[..., None], f_strans, 0.0),
+        )
+        f_trans = f_trans * cos_i[..., None]
+        f = f_refl + torch.where(same[..., None], 0.0, f_trans)
+
+        w_diff, w_spec, w_cc, w_trans = DisneySurface.lobe_weights(c)
+        pdf_diff = sampling.cosine_hemisphere_pdf(cos_i)
+        pdf_spec = mf.ggx_pdf(wo, wh, c["alpha"]) / torch.clamp(
+            4.0 * torch.abs(fr.dot(wo, wh)), min=1e-6
+        )
+        pdf_cc = (
+            gtr1(fr.abs_cos_theta(wh), c["alpha_cc"]) * fr.abs_cos_theta(wh)
+            / torch.clamp(4.0 * torch.abs(fr.dot(wo, wh)), min=1e-6)
+        )
+        dwh_dwi = (eta_rel / torch.clamp(torch.abs(denom_t), min=1e-6)) ** 2 * torch.abs(dot_i)
+        pdf_strans = mf.ggx_pdf(wo, wht, c["alpha"]) * dwh_dwi
+        pdf_dtrans = sampling.cosine_hemisphere_pdf(cos_i)
+        pdf_trans = torch.where(use_dtrans, pdf_dtrans, torch.where(trans_ok, pdf_strans, 0.0))
+        pdf = torch.where(
+            same, w_diff * pdf_diff + w_spec * pdf_spec + w_cc * pdf_cc, w_trans * pdf_trans
+        )
+        return f, torch.where(cos_o > 1e-6, pdf, 0.0)
+
+    @staticmethod
+    def evaluate(params, ctx, it, swl, wo, wi):
+        frame = oriented_frame(params, it, wo)
+        c = DisneySurface._ctx(params, ctx, swl)
+        f, pdf = DisneySurface._eval_local(c, fr.to_local(frame, wo), fr.to_local(frame, wi))
+        return {"f": f, "pdf": pdf}
+
+    @staticmethod
+    def sample(params, ctx, it, swl, wo, u_lobe, u):
+        frame = oriented_frame(params, it, wo)
+        c = DisneySurface._ctx(params, ctx, swl)
+        wo_l = fr.to_local(frame, wo)
+        w_diff, w_spec, w_cc, _ = DisneySurface.lobe_weights(c)
+        cdf1 = w_diff
+        cdf2 = cdf1 + w_spec
+        cdf3 = cdf2 + w_cc
+        pick_diff = u_lobe < cdf1
+        pick_spec = (~pick_diff) & (u_lobe < cdf2)
+        pick_cc = (~pick_diff) & (~pick_spec) & (u_lobe < cdf3)
+        pick_trans = (~pick_diff) & (~pick_spec) & (~pick_cc)
+
+        sign = torch.where(wo_l[..., 2:3] < 0.0, -1.0, 1.0)
+        wi_diff = _sign_z(sampling.sample_cosine_hemisphere(u), sign)
+        wh = mf.ggx_sample_wh(wo_l, u, c["alpha"])
+        wh_o = torch.where(wo_l[..., 2:3] < 0, -wh, wh)
+        wi_spec = fr.reflect(wo_l, wh_o)
+        a2 = c["alpha_cc"] * c["alpha_cc"]
+        cos_h = torch.sqrt(torch.clamp(
+            (1.0 - torch.pow(a2, 1.0 - u[..., 0])) / torch.clamp(1.0 - a2, min=1e-6), min=0.0
+        ))
+        sin_h = torch.sqrt(torch.clamp(1.0 - cos_h * cos_h, min=0.0))
+        phi = 2.0 * PI * u[..., 1]
+        wh_cc = _sign_z(
+            torch.stack([sin_h * torch.cos(phi), sin_h * torch.sin(phi), cos_h], dim=-1), sign
+        )
+        wi_cc = fr.reflect(wo_l, wh_cc)
+        eta = c["eta"]
+        eta_rel_in = torch.where(fr.cos_theta(wo_l) > 0.0, 1.0 / eta, eta)
+        wh_t = torch.where(fr.dot(wo_l, wh_o)[..., None] < 0, -wh_o, wh_o)
+        ok_t, wi_refr = fr.refract(wo_l, wh_t, eta_rel_in)
+        wi_trans = torch.where(
+            c["thin"][..., None], _sign_z(sampling.sample_cosine_hemisphere(u), -sign), wi_refr
+        )
+        wi_l = torch.where(
+            pick_diff[..., None], wi_diff,
+            torch.where(pick_spec[..., None], wi_spec,
+                        torch.where(pick_cc[..., None], wi_cc, wi_trans)),
+        )
+        f, pdf = DisneySurface._eval_local(c, wo_l, wi_l)
+        pdf = torch.where(~(pick_trans & ~c["thin"]) | ok_t, pdf, 0.0)
+        event = torch.where(
+            fr.same_hemisphere(wo_l, wi_l),
+            EVENT_REFLECT,
+            torch.where(
+                c["thin"], EVENT_THROUGH,
+                torch.where(fr.cos_theta(wo_l) > 0.0, EVENT_ENTER, EVENT_EXIT),
+            ),
+        ).to(torch.int32)
+        return {
+            "f": f,
+            "pdf": pdf,
+            "wi": fr.to_world(frame, wi_l),
+            "event": event,
+            "eta": torch.where(c["thin"], torch.ones_like(eta), eta),
+        }

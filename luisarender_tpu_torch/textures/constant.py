@@ -20,8 +20,12 @@ class ConstantTexture(Texture):
         if len(v) > 4:
             raise ValueError("constant texture accepts at most 4 channels")
         rgba = list(v) + [0.0] * (4 - len(v))
-        if len(v) == 1:  # a single scalar broadcasts to rgb, like float3(v)
+        # channels as the reference counts them: a single scalar broadcasts
+        # to rgb, like float3(v), and counts as 3
+        self.channels = max(len(v), 1)
+        if len(v) == 1:
             rgba = [v[0], v[0], v[0], 0.0]
+            self.channels = 3
         self.value = np.asarray(rgba, dtype=np.float32)
 
     def evaluate_static(self):

@@ -1,5 +1,7 @@
-"""The brute-force CUDA kernels (luisarender_tpu_torch/csrc/brute.cu) held
-against their plain PyTorch versions (ops/brute.py), on a CUDA card.
+"""The CUDA kernels of luisarender_tpu_torch/csrc held against their plain
+PyTorch versions, on a CUDA card: the brute-force traces (brute.cu against
+ops/brute.py) and the fused whole-path kernel (fused_path.cu against
+ops/fused_path.py paths_plain).
 
 Marked `gpu`; every test skips where no card is present. On a machine with
 a card and without JAX:
@@ -9,8 +11,12 @@ a card and without JAX:
 (--noconftest: tests/conftest.py configures JAX for the CPU suite.)
 
 Kernel and plain version do the same IEEE float32 operations in the same
-order (nvcc --fmad=false, no fast math), so they must agree exactly:
-slots and occlusion bit for bit, and t / u / v bit for bit too.
+order (nvcc --fmad=false, no fast math), so the brute-force traces must
+agree exactly: slots and occlusion bit for bit, and t / u / v bit for bit
+too. The fused kernel also calls sinf / cosf / powf / expf / logf, which
+CUDA and PyTorch need not round alike, so whole paths are held with the
+reference's rule (tests/test_fused_path.py:108-110): ray counts within 4,
+under 2% of lanes off by more than 1e-3.
 """
 
 import math
@@ -128,3 +134,49 @@ def test_wrappers_reject_bad_inputs(cuda):
     t, slot, u, v = brute.closest(o[:0], d[:0], t_min[:0], t_max[:0], tab)
     assert slot.shape == (0,)
     assert math.isfinite(float(u.sum()))
+
+
+def _fused_case(cuda, path, res, depth):
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+    from luisarender_tpu_torch.ops import fused_path
+
+    scene = lt.load_scene(path)
+    compiled = lt.compile_scene(scene, device=cuda)
+    assert compiled.plan.fused_path
+    cam = fused_path.camgen_params(scene.cameras[0], scene.integrator.sampler.seed)
+    w, h = scene.cameras[0].film.resolution
+    pxy = pixel_grid(w, h, cuda)[:: (w * h) // (res * res)].contiguous()
+    kw = dict(max_depth=depth, rr_depth=0, rr_threshold=0.95)
+    return fused_path, fused_path.fused_tables(compiled), cam, pxy, kw
+
+
+@pytest.mark.parametrize("scene,depth", [("cornell", 8), ("materials", 10)])
+def test_fused_kernel_matches_plain(cuda, scene, depth):
+    fp, tables, cam, pxy, kw = _fused_case(cuda, f"scenes/{scene}.json", 128, depth)
+    n0, p0 = fp.launches, fp.persistent_launches
+    rgb, rays = fp.paths(tables, cam, pxy, 3, **kw)
+    torch.cuda.synchronize()
+    assert fp.launches == n0 + 1
+    rgb_p, rays_p = fp.paths_plain(tables, cam, pxy, 3, 0, **kw)
+    assert abs(int(rays.sum()) - int(rays_p.sum())) <= 4
+    assert ((rgb - rgb_p).abs().amax(-1) > 1e-3).float().mean().item() < 0.02
+    assert torch.isfinite(rgb).all() and rgb.mean().item() > 0.0
+
+    tot = sum(fp.paths(tables, cam, pxy, s, **kw)[0] for s in range(4))
+    rgb4, rays4 = fp.paths(tables, cam, pxy, 0, 4, **kw)
+    torch.cuda.synchronize()
+    assert fp.persistent_launches == p0 + 1
+    assert torch.allclose(rgb4, tot, atol=1e-6, rtol=0)
+
+
+def test_fused_wrapper_rejects_bad_inputs(cuda):
+    fp, tables, cam, pxy, kw = _fused_case(cuda, "scenes/cornell.json", 16, 2)
+    with pytest.raises(ValueError):
+        fp.paths(tables, cam, pxy.long(), 0, **kw)
+    with pytest.raises(ValueError):
+        fp.paths(tables, cam, pxy.cpu(), 0, **kw)
+    with pytest.raises(ValueError):
+        fp.paths(tables._replace(inst=tables.inst.repeat(6, 1)), cam, pxy, 0, **kw)
+    rgb, rays = fp.paths(tables, cam, pxy[:0], 0, **kw)
+    assert rgb.shape == (0, 3) and rays.shape == (0,)
