@@ -6,7 +6,8 @@
 Phases, one JSON line each; any failure exits non-zero before the result:
   1 card     the device name and count, and nvidia-smi's name and power limit
   2 build    nvcc builds every kernel source of luisarender_tpu_torch/csrc
-             (one nvcc per source, all started together)
+             (one nvcc per source, all started together, with g++ building
+             the SAH builder beside them)
   3 kernels  the brute-force traces against their plain PyTorch versions on
              the general fork's inputs (camera rays, one bounce of real rays
              and their shadow rays, 512^2 Cornell) and on a random 512-row
@@ -16,7 +17,13 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              scenes/cornell.json (depth 8): ray counts within 4, under 2% of
              lanes off by more than 1e-3 (the share bit-equal reported);
              its persistent mode (4 samples a launch) equal to the sum of 4
-             one-sample launches within 1e-6. Kernel wrappers timed with
+             one-sample launches within 1e-6. The cluster traces against
+             their plain version on the full mesh-heavy scene (512,004
+             triangles: camera rays, bounce-1 rays and the shadow rays of
+             both bounces, 1280 x 720) and on a random 3,000-triangle soup
+             with a ragged 100,003 rays: t, slot, u, v, occlusion and the
+             per-ray node pops, leaf visits and rows tested bit for bit.
+             Kernel wrappers timed with
              CUDA events around launches queued behind a spin kernel
              (device time, no host dispatch), and with torch.profiler's
              kernel time beside it where the profiler traces the card;
@@ -28,16 +35,22 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              256 spp) the same, its image lit, red wall left and green wall
              right; testing.cornell_box(1024^2, 32 spp, depth 5) on the
              megawave integrator with one persistent launch a pass of
-             samples_per_pass samples. Seconds (the scene compile included,
-             the kernel build not), rays, Mray/s
+             samples_per_pass samples; testing.mesh_heavy (1280 x 720,
+             depth 5, 4 spp, 512,004 triangles; its checkerboard and
+             environment replaced, see its docstring) on the general fork
+             with the cluster kernels launched once a bounce each and no
+             brute-force or fused launch, the image lit. Seconds (the scene
+             compile included, the kernel build not), rays, Mray/s, and
+             the compile seconds on their own
   5 general  the general fork: testing.cornell_box(512^2, depth 8) plus a
              subdivided icosphere (352 triangles, so the fused kernel does
              not cover it) through render at 32 spp (cut from 256 to save
              time): both brute-force kernels launched once a bounce, the
              fused kernel never
-  6 profile  512^2 materials samples on the fused fork and a 512^2
-             Cornell sample on the general fork under torch.profiler, per
-             sample: device busy share and the kernels' share of it (not
+  6 profile  512^2 materials samples on the fused fork, a 512^2 Cornell
+             sample and a 1280 x 720 mesh-heavy sample on the general fork
+             under torch.profiler, per sample: device busy share and the
+             kernels' share of it (not
              measured, and reported as null, if the profiler traces no
              device work)
   7 golden   testing.cornell_box(64^2, 8 spp, depth 5) through render (the
@@ -47,7 +60,10 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              phase 3, and the general fork's image under 2% of pixels off
              by more than 1e-3; scenes/materials.json at 48^2, 8 spp,
              depth 5 through the general fork against
-             tests/golden/materials_48_8spp.exr under that rule
+             tests/golden/materials_48_8spp.exr under that rule;
+             testing.cornell_sphere (48^2, 8 spp, depth 5, 1,312
+             triangles, the cluster kernels) against
+             tests/golden/cornell_sphere_48_8spp.exr under that rule
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -74,6 +90,9 @@ PEAK_FP32_PER_S = 67e12
 FLOPS_PER_ROW = 46
 # ... of one ray / sphere quadric test
 FLOPS_PER_SPHERE = 17
+# ... of one node pop of the cluster walk: safe-inverse-scaled slab test
+# (6 sub, 6 mul, 12 min / max, 1 compare) and the child decode
+FLOPS_PER_NODE = 20
 # float operations of one bounce's shading, counted from the kernel's code on
 # its cheapest surface (matte): interaction, emission, frame, NEE light
 # sample and shadow-ray spawn, two BSDF evaluations, one BSDF sample, the
@@ -86,6 +105,8 @@ MAIN_SCENE = ROOT / "scenes" / "cornell.json"
 MATERIALS = ROOT / "scenes" / "materials.json"
 GOLDEN = ROOT / "tests" / "golden" / "cornell_64_8spp.exr"
 MATERIALS_GOLDEN = ROOT / "tests" / "golden" / "materials_48_8spp.exr"
+SPHERE_GOLDEN = ROOT / "tests" / "golden" / "cornell_sphere_48_8spp.exr"
+MESH_HEAVY = dict(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5)
 GENERAL_SPHERE = {"impl": "sphere", "prop": {
     "analytic": False, "subdivision": 2, "surface": {"impl": "matte", "prop": {}},
     "transform": {"impl": "srt", "prop": {"scale": [100, 100, 100],
@@ -114,12 +135,19 @@ def nvidia_smi_line():
 
 
 def reset_counts(brute, fused_path):
+    from luisarender_tpu_torch.ops import cluster
+
     brute.closest_launches = brute.any_launches = 0
+    cluster.closest_launches = cluster.any_launches = 0
     fused_path.launches = fused_path.persistent_launches = 0
 
 
 def read_counts(brute, fused_path):
+    from luisarender_tpu_torch.ops import cluster
+
     return {"brute_closest": brute.closest_launches, "brute_any": brute.any_launches,
+            "cluster_closest": cluster.closest_launches,
+            "cluster_any": cluster.any_launches,
             "fused_path": fused_path.launches,
             "fused_path_persistent": fused_path.persistent_launches}
 
@@ -258,8 +286,10 @@ def random_case(torch, device, p, n, seed):
 
 
 def capture_main_path_inputs(torch, brute, compiled, scene):
-    """The brute-force kernels' inputs on the general fork: one sample of
-    512^2, two bounces; returns {'closest': [camera, bounce-1], 'any': [...]}."""
+    """The trace kernels' inputs on the general fork (`brute` is the trace
+    module the scene routes to: ops/brute.py or ops/cluster.py): one sample
+    of every pixel, two bounces; returns {'closest': [camera, bounce-1],
+    'any': [the shadow rays of bounce 0, of bounce 1]}."""
     from luisarender_tpu_torch.integrators.mega_path import (
         general_path_trace_batch, pixel_grid,
     )
@@ -435,6 +465,136 @@ def phase_fused_kernel(torch, lt, fp, device):
     return results
 
 
+def soup_case(torch, cluster, device, n_tris, n_rays, seed):
+    """A random soup of small triangles in the unit cube, its cluster tables
+    as the scene compiler builds them, and rays through it: a tenth dead
+    (t_max = 0), a third with a finite t_max."""
+    rs = np.random.RandomState(seed)
+    c = rs.uniform(0.0, 1.0, (n_tris, 1, 3))
+    verts = (c + rs.normal(0.0, 0.05, (n_tris, 3, 3))).astype(np.float32)
+    positions = verts.transpose(1, 0, 2).reshape(-1, 3)
+    idx = np.arange(n_tris)
+    triangles = np.stack([idx, idx + n_tris, idx + 2 * n_tris], 1).astype(np.int32)
+    opaque = rs.rand(n_tris) < 0.7
+    nodes, tris = cluster.build_cluster_tables(positions, triangles, opaque,
+                                               rs.permutation(n_tris))
+    o = rs.uniform(-0.5, 1.5, (n_rays, 3))
+    d = rs.randn(n_rays, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_min = np.full(n_rays, 1e-4)
+    t_max = np.where(rs.rand(n_rays) < 0.33, rs.rand(n_rays) * 2.0, np.inf)
+    t_max[rs.rand(n_rays) < 0.1] = 0.0
+    return tuple(torch.as_tensor(np.asarray(x, np.float32), device=device).contiguous()
+                 for x in (o, d, t_min, t_max, nodes, tris))
+
+
+def compare_cluster(torch, cluster, any_hit, args):
+    """Kernel against plain on one input set; built to do the same IEEE
+    operations in the same per-lane order, so every output and every walk
+    count must agree bit for bit. Returns ([max |dt|, |du|, |dv|] or
+    [max |d occ|], the hit fraction, the kernel's (N, 3) walk counts, the
+    (C,) bool mask of clusters some ray tested)."""
+    what = "cluster_any" if any_hit else "cluster_closest"
+    n = args[0].shape[0]
+    err = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+    walk_k = torch.zeros((n, 3), dtype=torch.int32, device=args[0].device)
+    out_k = cluster.launch(*args, any_hit, err, walk_k)
+    torch.cuda.synchronize()
+    check(int(err.item()) == 0, f"{what}: error word {int(err.item())}")
+    visited = torch.zeros(args[5].shape[0], dtype=torch.bool, device=args[0].device)
+    t, slot, u, v, occ, walk_p = cluster.walk_plain(*args, any_hit, visited)
+    check(torch.equal(walk_k, walk_p), f"{what}: the walk's counts differ from the plain "
+                                       f"version on {int((walk_k != walk_p).any(1).sum())} lanes")
+    if any_hit:
+        occ_k = out_k > 0
+        diff = float((occ_k.long() - occ.long()).abs().max())
+        check(diff == 0.0, f"{what}: occlusion differs on {int((occ_k != occ).sum())} lanes")
+        return [diff], float(occ_k.float().mean()), walk_k, visited
+    kt, ks, ku, kv = out_k
+    check(torch.equal(ks, slot), f"{what}: slots differ on {int((ks != slot).sum())} lanes")
+    hit = ks >= 0
+    check(torch.equal(torch.isinf(kt), ~hit), f"{what}: miss lanes without t = inf")
+    errs = [float((kt[hit] - t[hit]).abs().max()) if hit.any() else 0.0,
+            float((ku - u).abs().max()), float((kv - v).abs().max())]
+    check(max(errs) == 0.0 and torch.equal(kt, t),
+          f"{what}: t, u, v differ from the plain version: {errs}")
+    return errs, float(hit.float().mean()), walk_k, visited
+
+
+def cluster_bound(kind, args, walk, visited):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations (the pops and rows this run's walk made) over fp32 peak.
+    The bytes are what this run's walk must read and write once: rays in
+    (32 B) and hits out (16 B closest, 4 B any), the node table (0.4 MB at
+    512k triangles, counted whole), and of the clusters some ray tested
+    the attributes the walk reads: v0 / e1 / e2, valid, opaque and (closest)
+    slot of each valid row, and only `valid` of each padding row."""
+    o, nodes, tris = args[0], args[4], args[5]
+    n = o.shape[0]
+    attrs = 12 if kind == "closest" else 11
+    valid_rows = int((tris[visited, 9, :] > 0.0).sum())
+    pad_rows = int(visited.sum()) * tris.shape[2] - valid_rows
+    nbytes = (n * (32 + (16 if kind == "closest" else 4)) + nodes.numel() * 4
+              + (valid_rows * attrs + pad_rows) * 4)
+    ops = int(walk[:, 0].sum()) * FLOPS_PER_NODE + int(walk[:, 2].sum()) * FLOPS_PER_ROW
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def walk_summary(walk):
+    w = walk.double()
+    return {"pops_per_ray": float(w[:, 0].mean()), "leaves_per_ray": float(w[:, 1].mean()),
+            "rows_per_ray": float(w[:, 2].mean()), "max_pops": int(walk[:, 0].max())}
+
+
+def phase_cluster_kernels(torch, lt, cluster, device):
+    """The cluster traces on the mesh-heavy scene's general-fork inputs and
+    on a random soup; times on the camera and bounce-1 inputs."""
+    from luisarender_tpu_torch import testing
+
+    scene = lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY))
+    compiled = lt.compile_scene(scene, device=device)
+    tr = compiled.arrays["trace"]
+    check(compiled.plan.num_tris == 512_004 and not compiled.plan.fused_path
+          and "cluster_nodes" in tr and "tri_table" not in tr,
+          f"mesh_heavy: {compiled.plan.num_tris} triangles, tables {sorted(tr)}")
+    cap = capture_main_path_inputs(torch, cluster, compiled, scene)
+    w, h = MESH_HEAVY["res"]
+    n_main = cap["closest"][0][0].shape[0]
+    check(n_main == w * h, f"main path has {n_main} rays, expected {w * h}")
+    soup = soup_case(torch, cluster, device, 3000, 100_003, seed=5)
+    results = {}
+    for kind in ("closest", "any"):
+        any_hit = kind == "any"
+        cases = {"camera": cap[kind][0], "bounce1": cap[kind][1], "soup3000": soup}
+        errs, fracs, walks, times = {}, {}, {}, {}
+        for name, args in cases.items():
+            errs[name], fracs[name], walk, visited = compare_cluster(torch, cluster, any_hit,
+                                                                     args)
+            walks[name] = walk_summary(walk)
+            if name == "soup3000":
+                continue
+            err = torch.zeros(1, dtype=torch.int32, device=device)
+            ms = device_ms(torch, lambda: cluster.launch(*args, any_hit, err), iters=20)
+            check(int(err.item()) == 0, f"cluster_{kind}: error word while timing")
+            plain_ms = events_ms(torch, lambda: cluster.walk_plain(*args, any_hit), iters=1)
+            bound_ms, bound_by = cluster_bound(kind, args, walk, visited)
+            times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by,
+                           "clusters_tested": int(visited.sum())}
+        results[kind] = {"errors": errs, "hit_fraction": fracs, "walk": walks, "times": times,
+                         "max_abs_err": max(max(v) for v in errs.values())}
+        emit({"phase": "kernels", "kernel": f"cluster_{kind}", "n": n_main,
+              "inputs": {"camera": "camera rays" if kind == "closest" else
+                         "the shadow rays of bounce 0",
+                         "bounce1": "bounce-1 rays" if kind == "closest" else
+                         "the shadow rays of bounce 1"},
+              "nodes": int(tr["cluster_nodes"].shape[0]),
+              "clusters": int(tr["cluster_tris"].shape[0]), **results[kind]})
+    return results
+
+
 # --------------------------------------------------------------------------
 # phases 4-7
 # --------------------------------------------------------------------------
@@ -522,6 +682,32 @@ def phase_main(torch, lt, brute, fp, device):
                         "mray_per_s": integ.rays_traced / seconds / 1e6,
                         "launches": counts, "image_mean": float(img.mean())}
     emit(recs["megawave"])
+
+    # the mesh-heavy scene on the general fork: the cluster kernels
+    scene = lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY))
+    cam, integ = scene.cameras[0], scene.integrator
+    w, h = cam.film.resolution
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lt.compile_scene(scene, device=device)
+    torch.cuda.synchronize()
+    compile_seconds = time.perf_counter() - t0
+    emit({"phase": "main", "scene": "testing.mesh_heavy", "compile_seconds": compile_seconds})
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    check_image(img, w, h, "mesh_heavy")
+    check(integ.bounces_run > 0 and counts["cluster_closest"] == integ.bounces_run
+          == counts["cluster_any"] and counts["brute_closest"] == counts["brute_any"] == 0
+          and counts["fused_path"] == counts["fused_path_persistent"] == 0,
+          f"mesh_heavy: launches {counts}, bounces {integ.bounces_run}")
+    recs["mesh_heavy"] = {"phase": "main", "scene": "testing.mesh_heavy",
+                          "triangles": 512_004, "resolution": [w, h], "depth": integ.max_depth,
+                          "spp": cam.spp, "cut": "checkerboard Kd constant, no environment",
+                          "seconds": seconds, "compile_seconds": compile_seconds,
+                          "rays": integ.rays_traced,
+                          "mray_per_s": integ.rays_traced / seconds / 1e6,
+                          "bounces": integ.bounces_run, "launches": counts,
+                          "image_mean": float(img.mean())}
+    emit(recs["mesh_heavy"])
     return recs
 
 
@@ -539,7 +725,7 @@ def phase_general(torch, lt, brute, fp, device):
     check_image(img, 512, 512, "general")
     check(integ.bounces_run > 0, "general: no bounce ran")
     check(counts["brute_closest"] == integ.bounces_run == counts["brute_any"]
-          and counts["fused_path"] == 0,
+          and counts["fused_path"] == counts["cluster_closest"] == counts["cluster_any"] == 0,
           f"general: launches {counts}, bounces {integ.bounces_run}")
     rec = {"phase": "general", "scene": "testing.cornell_box + icosphere(subdivision 2)",
            "triangles": compiled.plan.num_tris, "resolution": [512, 512], "depth": 8,
@@ -586,8 +772,10 @@ def profile_one(torch, fn, kernels, samples):
 
 
 def phase_profile(torch, lt, device):
-    """512^2 samples of materials on the fused fork (8, each a few ms) and
-    one of Cornell on the general fork, per sample."""
+    """512^2 samples of materials on the fused fork (8, each a few ms), one
+    of Cornell and one of the mesh-heavy scene on the general fork, per
+    sample."""
+    from luisarender_tpu_torch import testing
     from luisarender_tpu_torch.integrators.mega_path import (
         general_path_trace_batch, path_trace_batch, pixel_grid,
     )
@@ -596,8 +784,11 @@ def phase_profile(torch, lt, device):
     for label, path, fn_batch, kernels, samples in (
         ("fused", MATERIALS, path_trace_batch, ("fused_path_kernel",), 8),
         ("general", MAIN_SCENE, general_path_trace_batch, ("closest_kernel", "any_kernel"), 1),
+        ("general_mesh_heavy", None, general_path_trace_batch,
+         ("cluster_closest_kernel", "cluster_any_kernel"), 1),
     ):
-        scene = lt.load_scene(str(path))
+        scene = (lt.load_scene(str(path)) if path is not None
+                 else lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY)))
         compiled = lt.compile_scene(scene, device=device)
         integ = scene.integrator
         w, h = scene.cameras[0].film.resolution
@@ -609,7 +800,8 @@ def phase_profile(torch, lt, device):
                             pxy, next(counter), max_depth=integ.max_depth,
                             rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
 
-        recs[label] = {"phase": "profile", "fork": label, "scene": path.name,
+        recs[label] = {"phase": "profile", "fork": label,
+                       "scene": path.name if path is not None else "testing.mesh_heavy",
                        **profile_one(torch, one_sample, kernels, samples)}
         emit(recs[label])
     return recs
@@ -660,14 +852,31 @@ def phase_golden(torch, lt, device):
     mref = imageio.load_exr(str(MATERIALS_GOLDEN))
     mfrac = frac_off(mimg, mref)
     mrel = float(mimg.mean() / mref.mean() - 1.0)
+
+    # above 512 triangles: the cluster kernels
+    from luisarender_tpu_torch.ops import brute
+    from luisarender_tpu_torch.ops import fused_path as fp
+
+    sscene = lt.Scene.from_dict(testing.cornell_sphere(resolution=(48, 48), spp=8, depth=5))
+    reset_counts(brute, fp)
+    simg = lt.render(sscene, device=device)["cornell.exr"]
+    scounts = read_counts(brute, fp)
+    check(scounts["cluster_closest"] == sscene.integrator.bounces_run > 0
+          and scounts["brute_closest"] == 0, f"sphere golden: launches {scounts}")
+    sref = imageio.load_exr(str(SPHERE_GOLDEN))
+    sfrac = frac_off(simg, sref)
+    srel = float(simg.mean() / sref.mean() - 1.0)
     emit({"phase": "golden", "cornell_fused_frac_pixels_off": frac_off(img, ref),
           "cornell_fused_mean_rel_diff": rel, "cornell_per_sample_frac_off": per_sample,
           "cornell_general_frac_pixels_off": frac_general,
-          "materials_general_frac_pixels_off": mfrac, "materials_mean_rel_diff": mrel})
+          "materials_general_frac_pixels_off": mfrac, "materials_mean_rel_diff": mrel,
+          "cornell_sphere_frac_pixels_off": sfrac, "cornell_sphere_mean_rel_diff": srel})
     check(abs(rel) < 0.005, f"golden: image mean off by {rel:.5f}")
     check(frac_general < 0.02, f"golden: general fork {frac_general:.4f} of pixels off")
     check(mfrac < 0.02 and abs(mrel) < 0.005,
           f"materials golden: {mfrac:.4f} of pixels off, mean off by {mrel:.5f}")
+    check(sfrac < 0.02 and abs(srel) < 0.005,
+          f"cornell_sphere golden: {sfrac:.4f} of pixels off, mean off by {srel:.5f}")
 
 
 def main():
@@ -677,7 +886,8 @@ def main():
         raise SmokeFailure("no CUDA device: chip_smoke.py runs on a CUDA card")
     sys.path.insert(0, str(ROOT))
     import luisarender_tpu_torch as lt
-    from luisarender_tpu_torch.ops import brute, build
+    from luisarender_tpu_torch.accel import native
+    from luisarender_tpu_torch.ops import brute, build, cluster
     from luisarender_tpu_torch.ops import fused_path as fp
 
     device = torch.device("cuda:0")
@@ -689,13 +899,18 @@ def main():
 
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        list(pool.map(build.compile_library, sources))
-    emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        jobs = [pool.submit(build.compile_library, src) for src in sources]
+        jobs.append(pool.submit(native._load))  # g++, the SAH builder
+        for job in jobs:
+            job.result()
+    emit({"phase": "build", "sources": sources + ["bvh_builder.cpp"],
+          "seconds": time.perf_counter() - t0,
           "ptxas": {src: build.ptxas_report(src) for src in sources}})
 
     brute_k = phase_brute_kernels(torch, lt, brute, device)
     fused_k = phase_fused_kernel(torch, lt, fp, device)
+    cluster_k = phase_cluster_kernels(torch, lt, cluster, device)
     main_recs = phase_main(torch, lt, brute, fp, device)
     general = phase_general(torch, lt, brute, fp, device)
     phase_profile(torch, lt, device)
@@ -728,6 +943,17 @@ def main():
             "max_abs_err": rec.get("max_abs_err", rec.get("max_abs_err_vs_plain")),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
+        })
+    for name, kind_key in (("cluster_closest", "closest"), ("cluster_any", "any")):
+        t = cluster_k[kind_key]["times"]["bounce1"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "luisarender_tpu_torch/csrc/cluster.cu",
+            "replaces": "luisarender_tpu/ops/cluster_pallas.py:339",
+            "launches": main_recs["mesh_heavy"]["launches"][name],
+            "max_abs_err": cluster_k[kind_key]["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
         })
     emit({"kernels": entries})
     print(smi, flush=True)

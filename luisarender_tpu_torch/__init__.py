@@ -33,6 +33,7 @@ from .surfaces import glass as _surf_glass  # noqa: F401
 from .surfaces import matte as _surf_matte  # noqa: F401
 from .surfaces import metal as _surf_metal  # noqa: F401
 from .surfaces import mirror as _surf_mirror  # noqa: F401
+from .surfaces import null as _surf_null  # noqa: F401
 from .surfaces import plastic as _surf_plastic  # noqa: F401
 from .textures import constant as _tex_constant  # noqa: F401
 from .transforms import all as _transforms  # noqa: F401

@@ -1,15 +1,14 @@
 """Ray intersection: the routing of closest / any-hit traces.
 
 Counterpart of luisarender_tpu/accel/traverse.py (`trace_closest` /
-`trace_any`). The reference sends scenes of up to BRUTE_FORCE_MAX_TRIS
-triangles to its brute-force Pallas kernels and larger ones to the cluster
-kernel; the port has the brute-force kernels (ops/brute.py), and its scene
-compiler raises for larger scenes until the cluster kernel is ported.
-Analytic spheres are exact quadrics tested before the triangles, whose
-trace they clip.
+`trace_any`). A scene whose compiled tables carry the cluster kernel's
+(the scene compiler builds them above brute.MAX_TRIS triangles, as the
+reference does) traces with ops/cluster.py, any other with the
+brute-force kernels of ops/brute.py. Analytic spheres are exact quadrics
+tested before the triangles, whose trace they clip.
 
-Hit.prim is the row of the triangle table (shared with the shade table),
-P + s for sphere s (P = triangle rows); -1 = miss.
+Hit.prim is the triangle's slot in the scene's SAH order (the row of the
+shade table), P + s for sphere s (P = the triangle rows); -1 = miss.
 """
 
 from __future__ import annotations
@@ -20,13 +19,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.types import Hit
-from ..ops import brute
-
-BRUTE_FORCE_MAX_TRIS = brute.MAX_TRIS
+from ..ops import brute, cluster
 
 
 class TraceGeometry(NamedTuple):
-    tri_table: torch.Tensor  # (P, 16) float32, ops/brute.py layout
+    num_rows: int  # P, the triangle rows in SAH order
+    # (P, 16) float32, ops/brute.py layout; None with cluster tables
+    tri_table: Optional[torch.Tensor] = None
+    # ops/cluster.py tables; None for a brute-force scene
+    cluster_nodes: Optional[torch.Tensor] = None  # (N, 8) float32
+    cluster_tris: Optional[torch.Tensor] = None  # (C, 16, 128) float32
     # analytic spheres (S, 16): 0:3 center, 3 radius, 4:13 rotation
     # (row-major), 13 instance id, 14 opaque; None without spheres
     sph: Optional[torch.Tensor] = None
@@ -82,10 +84,16 @@ def sphere_any(sph, rays):
     return occ
 
 
+def _ray_args(rays):
+    return rays.origin, rays.direction, rays.t_min, rays.t_max
+
+
 def _trace_closest_tris(geom, rays) -> Hit:
-    t, slot, u, v = brute.closest(
-        rays.origin, rays.direction, rays.t_min, rays.t_max, geom.tri_table
-    )
+    if geom.cluster_nodes is None:
+        t, slot, u, v = brute.closest(*_ray_args(rays), geom.tri_table)
+    else:
+        t, slot, u, v = cluster.closest(*_ray_args(rays), geom.cluster_nodes,
+                                        geom.cluster_tris)
     found = slot >= 0
     return Hit(
         inst=torch.where(found, 0, -1).to(torch.int32),
@@ -104,7 +112,7 @@ def trace_closest(geom: TraceGeometry, rays) -> Hit:
     sph_wins = (i_s >= 0) & ~(hit.prim >= 0)
     return Hit(
         inst=torch.where(sph_wins, 0, hit.inst).to(torch.int32),
-        prim=torch.where(sph_wins, geom.tri_table.shape[0] + i_s, hit.prim),
+        prim=torch.where(sph_wins, geom.num_rows + i_s, hit.prim),
         bary=torch.where(sph_wins[..., None], torch.stack([u_s, v_s], dim=-1), hit.bary),
         t=torch.where(sph_wins, t_s, hit.t),
     )
@@ -117,7 +125,8 @@ def trace_any(geom: TraceGeometry, rays):
         occ = sphere_any(geom.sph, rays)
         # occluded lanes skip the triangle trace
         rays = rays._replace(t_max=torch.where(occ, 0.0, rays.t_max))
-    tri = brute.any_hit(
-        rays.origin, rays.direction, rays.t_min, rays.t_max, geom.tri_table
-    )
+    if geom.cluster_nodes is None:
+        tri = brute.any_hit(*_ray_args(rays), geom.tri_table)
+    else:
+        tri = cluster.any_hit(*_ray_args(rays), geom.cluster_nodes, geom.cluster_tris)
     return tri if occ is None else occ | tri

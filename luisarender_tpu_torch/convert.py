@@ -4,16 +4,17 @@ The renderer's "weights" are its compiled scene tables. `convert_tables`
 takes luisarender_tpu's `CompiledScene.arrays` as numpy (a nested dict, as
 `jax.device_get` returns it) and produces the port's tables; `convert` puts
 them on a device as a CompiledScene the port's integrators render. Only the
-keys this slice reads are used: trace.{tri_v0, tri_e1, tri_e2, prim_index,
-tri_opaque, shade_table}, instances.*, light_entries.*, the light alias
-tables and light-triangle rows, and the surface / light rows with their
-constant textures.
+keys the port reads are used: trace.{tri_v0, tri_e1, tri_e2, prim_index,
+tri_opaque, shade_table, sph, cluster_nodes, cluster_tris}, instances.*,
+light_entries.*, the light alias tables and light-triangle rows, the
+surface / light rows with their constant textures, and the fused tables.
 
-The reference keeps its triangles in BVH order (padding rows carry
-prim_index -1); the converted tables keep that order, so a converted
-scene's hit slots are the reference's. The reference's per-instance
-constant-texture columns (`<name>__src`, rows of textures.constant.value)
-are hoisted into values here, as the port's own compiler does.
+Both packages keep triangles in the order of the same SAH tree, and the
+cluster tables carry each triangle's slot in it, so a converted scene's
+tables are the port compiler's own and its hit slots the reference's.
+The reference's per-instance constant-texture columns (`<name>__src`,
+rows of textures.constant.value) are hoisted into values here, as the
+port's own compiler does.
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ def convert_tables(arrays, surface_types, light_types):
     trace = {
         k: np.asarray(tr[k])
         for k in ("tri_v0", "tri_e1", "tri_e2", "prim_index", "tri_opaque",
-                  "shade_table", "sph") if k in tr
+                  "shade_table", "sph", "cluster_nodes", "cluster_tris") if k in tr
     }
     out = {
         "instances": {

@@ -84,9 +84,11 @@ def ptxas_report(name: str) -> dict:
         if m and kernel:
             report[kernel].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
                                   spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
-            report[kernel].update(registers=int(m.group(1)), smem_bytes=int(m.group(2)))
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[kernel].update(registers=int(m.group(1)),
+                                  smem_bytes=int(smem.group(1)) if smem else 0)
     return report
 
 

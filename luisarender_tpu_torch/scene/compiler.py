@@ -6,14 +6,16 @@ soup with an instance table, per-surface-type and per-light-type parameter
 tables, the light list with its flat area alias tables, and the packed
 trace / shade tables.
 
-Triangles keep their original order (row r is triangle r). The reference
-sorts them into BVH order even for brute-force scenes; the port builds no
-BVH yet, so its tables match the reference's per original triangle id
-(`prim_index`), not per row. Spheres that qualify (`analytic_sphere`) are
-exact quadrics in their own table instead of triangles. A scene the fused
-kernel covers also gets its per-instance tables (`arrays["fused"]`, see
-ops/fused_path.py build_fused_pack). Scenes above BRUTE_FORCE_MAX_TRIS
-triangles, two-level instancing, media and environments raise.
+Triangles are sorted into the order of a binned-SAH tree (accel/native.py,
+leaf size 4), as in the reference: row r of the trace and shade tables is
+original triangle `prim_index[r]`, and a hit's slot is its row. Scenes
+above BRUTE_FORCE_MAX_TRIS triangles also get the cluster kernel's tables
+(`cluster_nodes`, `cluster_tris`; ops/cluster.py build_cluster_tables),
+whose blocks carry each triangle's slot. Spheres that qualify
+(`analytic_sphere`) are exact quadrics in their own table instead of
+triangles. A scene the fused kernel covers also gets its per-instance
+tables (`arrays["fused"]`, see ops/fused_path.py build_fused_pack).
+Two-level instancing, media and environments raise.
 """
 
 from __future__ import annotations
@@ -24,13 +26,19 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..accel.traverse import BRUTE_FORCE_MAX_TRIS, TraceGeometry
+from ..accel.native import build_bvh_sah
+from ..accel.traverse import TraceGeometry
 from ..core.device import resolve_device
 from ..core.sampling import build_alias_table
 from ..ops import brute
+from ..ops.cluster import build_cluster_tables
 from ..ops.fused_path import build_fused_pack
 from ..shapes.base import compute_vertex_normals
 from .geometry import build_shade_table
+
+# above this many triangles a scene traces with the cluster kernel, as in
+# the reference; up to it, with the brute-force kernels
+BRUTE_FORCE_MAX_TRIS = brute.MAX_TRIS
 
 
 @dataclass(frozen=True)
@@ -57,7 +65,11 @@ class CompiledScene:
 
     def trace_geometry(self) -> TraceGeometry:
         tr = self.arrays["trace"]
-        return TraceGeometry(tri_table=tr["tri_table"], sph=tr.get("sph"))
+        return TraceGeometry(
+            num_rows=tr["shade_table"].shape[0],
+            tri_table=tr.get("tri_table"), cluster_nodes=tr.get("cluster_nodes"),
+            cluster_tris=tr.get("cluster_tris"), sph=tr.get("sph"),
+        )
 
 
 INT_INSTANCE_KEYS = (
@@ -67,14 +79,8 @@ INT_INSTANCE_KEYS = (
 
 def tables_to_device(arrays_np: dict, device) -> dict:
     """numpy tables -> tensors on `device`, adding the brute-force kernel
-    table (ops/brute.py layout) built from the trace arrays."""
-    rows = arrays_np["trace"]["tri_v0"].shape[0]
-    if rows > BRUTE_FORCE_MAX_TRIS:
-        raise NotImplementedError(
-            f"scene has {rows} triangle rows: above {BRUTE_FORCE_MAX_TRIS} the "
-            "reference traces with the cluster kernel, which "
-            "luisarender_tpu_torch does not have yet"
-        )
+    table (ops/brute.py layout) built from the trace arrays to a scene
+    without cluster tables."""
 
     def conv(x):
         if isinstance(x, dict):
@@ -85,9 +91,10 @@ def tables_to_device(arrays_np: dict, device) -> dict:
 
     out = conv(arrays_np)
     tr = out["trace"]
-    tr["tri_table"] = brute.make_tri_table(
-        tr["tri_v0"], tr["tri_e1"], tr["tri_e2"], tr["prim_index"], tr["tri_opaque"]
-    )
+    if "cluster_nodes" not in tr:
+        tr["tri_table"] = brute.make_tri_table(
+            tr["tri_v0"], tr["tri_e1"], tr["tri_e2"], tr["prim_index"], tr["tri_opaque"]
+        )
     return out
 
 
@@ -165,7 +172,7 @@ class SceneCompiler:
 
         if not isinstance(shape, SphereShape) or not shape.analytic:
             return None
-        if light is not None or surface is None:
+        if light is not None or surface is None or getattr(surface, "is_null", False):
             return None
         a = np.asarray(m, np.float64)[:3, :3]
         det = np.linalg.det(a)
@@ -236,7 +243,8 @@ class SceneCompiler:
             all_t.append(tris + v_off)
             all_ti.append(np.full(tris.shape[0], inst_id, np.int32))
 
-            if surface is not None:
+            # a null surface (a light panel, a medium boundary) has no tag
+            if surface is not None and not getattr(surface, "is_null", False):
                 s_tag, s_idx = self.compile_surface(surface)
             else:
                 s_tag, s_idx = -1, 0
@@ -299,10 +307,12 @@ class SceneCompiler:
         inst_blocks = (np.asarray(inst_rows["surface_tag"]) >= 0) | (
             np.asarray(inst_rows["light_tag"]) >= 0
         )
-        prim_index = np.arange(num_tris, dtype=np.int32)  # original order
-        tv0 = vertex_p[triangles[:, 0]]
-        tv1 = vertex_p[triangles[:, 1]]
-        tv2 = vertex_p[triangles[:, 2]]
+        # the SAH order of the reference (its builder's default leaf size)
+        prim_index = build_bvh_sah(vertex_p, triangles).prim_index
+        sorted_tris = triangles[prim_index]
+        tv0 = vertex_p[sorted_tris[:, 0]]
+        tv1 = vertex_p[sorted_tris[:, 1]]
+        tv2 = vertex_p[sorted_tris[:, 2]]
 
         arrays = {
             "instances": {
@@ -326,12 +336,20 @@ class SceneCompiler:
                 "tri_e1": tv1 - tv0,
                 "tri_e2": tv2 - tv0,
                 "prim_index": prim_index,
-                "tri_opaque": inst_blocks[tri_inst],
+                "tri_opaque": inst_blocks[tri_inst[prim_index]],
                 "shade_table": build_shade_table(
                     vertex_p, vertex_n, vertex_uv, triangles, tri_inst, prim_index
                 ),
             },
         }
+        if num_tris > BRUTE_FORCE_MAX_TRIS:
+            canon_of_orig = np.empty(num_tris, np.int64)
+            canon_of_orig[prim_index] = np.arange(num_tris)
+            nodes, blocks = build_cluster_tables(
+                vertex_p, triangles, inst_blocks[tri_inst], canon_of_orig
+            )
+            arrays["trace"]["cluster_nodes"] = nodes
+            arrays["trace"]["cluster_tris"] = blocks
         if sphere_rows:
             # accel/traverse.py sphere table layout
             sph = np.zeros((len(sphere_rows), 16), np.float32)
@@ -344,8 +362,8 @@ class SceneCompiler:
             arrays["trace"]["sph"] = sph
         fused = build_fused_pack(
             self._surface_types, self._surface_rows, self._light_types,
-            self._light_rows, inst_rows, light_entries, self.spectrum, num_tris,
-            bool(np.all(inst_blocks)), n_spheres=len(sphere_rows),
+            self._light_rows, inst_rows, light_entries, self.spectrum,
+            int(tv0.shape[0]), bool(np.all(inst_blocks)), n_spheres=len(sphere_rows),
         )
         if fused is not None:
             arrays["fused"] = fused

@@ -1,8 +1,7 @@
-"""Concrete shapes: the inline mesh and the sphere.
+"""Concrete shapes: the inline mesh, the file mesh and the sphere.
 
-Counterpart of the InlineMesh, `icosphere` and SphereShape of
-luisarender_tpu/shapes/impls.py. File meshes, groups and instances are not
-ported yet.
+Counterpart of the InlineMesh, ObjMesh, `icosphere` and SphereShape of
+luisarender_tpu/shapes/impls.py. Groups and instances are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,6 +10,9 @@ import numpy as np
 
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
+from ..utils.loop_subdiv import loop_subdivide
+from ..utils.objloader import load_obj
+from ..utils.plyloader import load_ply
 from .base import MeshData, Shape
 
 
@@ -39,6 +41,48 @@ class InlineMesh(Shape):
             else None
         )
         self._mesh = MeshData(positions=p, triangles=t, normals=n, uvs=uv)
+
+    @property
+    def is_mesh(self):
+        return True
+
+    def mesh(self):
+        return self._mesh
+
+
+# file meshes by (path, flip_uv, subdivision): a scene that places one mesh
+# many times loads it once
+_MESH_CACHE: dict = {}
+
+
+@register(SceneNodeTag.SHAPE, "mesh", "Mesh")
+class ObjMesh(Shape):
+    """File mesh: OBJ (utils/objloader.py) or PLY ascii / binary
+    (utils/plyloader.py), by the file's extension. `flip_uv` mirrors v;
+    `subdivision: N` applies N levels of Loop subdivision
+    (utils/loop_subdiv.py), which drops the authored normals and uvs (the
+    compiler then computes vertex normals)."""
+
+    def __init__(self, scene, desc):
+        super().__init__(scene, desc)
+        path = desc.path("file", None)
+        if path is None:
+            raise ValueError("mesh shape requires 'file'")
+        self.flip_uv = desc.bool("flip_uv", False)
+        self.subdivision = max(desc.int("subdivision", 0), 0)
+        key = (path, self.flip_uv, self.subdivision)
+        if key not in _MESH_CACHE:
+            if str(path).lower().endswith(".ply"):
+                p, t, n, uv = load_ply(path)
+            else:
+                p, t, n, uv = load_obj(path)
+            if uv is not None and self.flip_uv:
+                uv = np.stack([uv[:, 0], 1.0 - uv[:, 1]], axis=-1)
+            if self.subdivision > 0:
+                p, t = loop_subdivide(p, t, self.subdivision)
+                n, uv = None, None
+            _MESH_CACHE[key] = MeshData(positions=p, triangles=t, normals=n, uvs=uv)
+        self._mesh = _MESH_CACHE[key]
 
     @property
     def is_mesh(self):

@@ -1,8 +1,9 @@
-"""Test scenes: the Cornell box, as a JSON-SDL dict.
+"""Test scenes as JSON-SDL dicts: the Cornell box and the mesh-heavy scene.
 
-Counterpart of luisarender_tpu/testing.py `cornell_box`. Geometry uses the
-classic Cornell box measurement data (public domain, cornell.edu);
-reflectances and emission follow the common PBRT/Bitterli RGB values.
+Counterpart of luisarender_tpu/testing.py `cornell_box` and `mesh_heavy`.
+Cornell geometry uses the classic Cornell box measurement data (public
+domain, cornell.edu); reflectances and emission follow the common
+PBRT/Bitterli RGB values.
 """
 
 from __future__ import annotations
@@ -151,6 +152,99 @@ def cornell_box(resolution=(64, 64), spp=16, depth=5, integrator=None, **int_pro
                 "impl": integrator,
                 "prop": {"depth": depth, **int_props},
             },
+            "shapes": shapes,
+        }
+    }
+
+
+def cornell_sphere(resolution=(48, 48), spp=8, depth=5):
+    """The Cornell box plus a matte icosphere mesh of subdivision 3 floating
+    just above the short block: 32 + 1,280 = 1,312 triangles, so it traces
+    with the cluster kernel. Its 48^2, 8-spp, depth-5 render by the
+    reference is tests/golden/cornell_sphere_48_8spp.exr."""
+    d = cornell_box(resolution=resolution, spp=spp, depth=depth)
+    d["render"]["shapes"].append({"impl": "sphere", "prop": {
+        "analytic": False, "subdivision": 3,
+        "surface": {"impl": "matte", "prop": {
+            "Kd": {"impl": "constant", "prop": {"v": [0.5, 0.5, 0.5]}}}},
+        "transform": {"impl": "srt", "prop": {"scale": [80, 80, 80],
+                                              "translate": [186, 250, 168]}}}})
+    return d
+
+
+def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5):
+    """The reference's bedroom-class scene (luisarender_tpu/testing.py
+    mesh_heavy) with two parts replaced until their modules are ported:
+    n x n icosphere meshes (subdivision `subdiv`, 20 * 4^subdiv triangles
+    each) with Disney surfaces over a 1000 x 1000 floor quad, lit by a
+    diffuse panel with a `null` surface. The defaults give 512,004
+    triangles at 1280 x 720. Replaced: the floor's checkerboard Kd is the
+    constant [0.725, 0.71, 0.68] (its "on" colour), and the `spherical`
+    environment is left out. The dict renders on both packages."""
+
+    def quad(p0, p1, p2, p3, surface, light=None):
+        prop = {
+            "positions": [c for p in (p0, p1, p2, p3) for c in p],
+            "indices": [0, 1, 2, 0, 2, 3],
+            "surface": surface,
+        }
+        if light:
+            prop["light"] = light
+        return {"impl": "inlinemesh", "prop": prop}
+
+    floor_mat = {"impl": "matte", "prop": {
+        "Kd": {"impl": "constant", "prop": {"v": [0.725, 0.71, 0.68]}}}}
+    size = 1000.0
+    shapes = [
+        quad([0, 0, 0], [size, 0, 0], [size, 0, size], [0, 0, size], floor_mat),
+        quad([350, 600, 350], [650, 600, 350], [650, 600, 650], [350, 600, 650],
+             {"impl": "null", "prop": {}},
+             light={"impl": "diffuse", "prop": {
+                 "emission": {"impl": "constant", "prop": {"v": [8.0, 7.5, 7.0]}}}}),
+    ]
+    rough_tex = {"impl": "constant", "prop": {"v": [0.35]}}
+    for i in range(n):
+        for j in range(n):
+            color = [0.3 + 0.6 * i / max(n - 1, 1), 0.4, 0.9 - 0.6 * j / max(n - 1, 1)]
+            mat = {
+                "impl": "disney",
+                "prop": {
+                    "color": {"impl": "constant", "prop": {"v": color}},
+                    "metallic": {"impl": "constant", "prop": {"v": [0.5 * ((i + j) % 2)]}},
+                    "roughness": rough_tex,
+                },
+            }
+            shapes.append({
+                "impl": "sphere",
+                "prop": {
+                    "analytic": False,  # the mesh pipeline is what it exercises
+                    "subdivision": subdiv,
+                    "surface": mat,
+                    "transform": {"impl": "srt", "prop": {
+                        "scale": [70, 70, 70],
+                        "translate": [150 + 700 * i / max(n - 1, 1), 80,
+                                      150 + 700 * j / max(n - 1, 1)],
+                    }},
+                },
+            })
+    return {
+        "render": {
+            "cameras": [{
+                "impl": "pinhole",
+                "prop": {
+                    "fov": 50.0,
+                    "spp": spp,
+                    "file": "mesh_heavy.exr",
+                    "film": {"impl": "color", "prop": {"resolution": list(res)}},
+                    "filter": {"impl": "box", "prop": {}},
+                    "transform": {"impl": "view", "prop": {
+                        "origin": [500.0, 350.0, -700.0],
+                        "front": [0.0, -0.25, 1.0],
+                        "up": [0.0, 1.0, 0.0],
+                    }},
+                },
+            }],
+            "integrator": {"impl": "megapath", "prop": {"depth": depth}},
             "shapes": shapes,
         }
     }

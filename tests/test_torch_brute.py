@@ -193,6 +193,23 @@ def test_cornell_table_matches_pallas(cornell_case):
     assert 0.05 < occ.mean() < 0.95
 
 
+def test_compiled_cornell_table_matches_pallas(cornell_case):
+    """The port compiler's own table of the 512^2 Cornell view: its rows are
+    in the reference's SAH order, so slots compare directly."""
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch.scene.compiler import SceneCompiler
+
+    from torch_parity import require_reference_builder
+
+    require_reference_builder()
+    _, _, geom, rays, ref = cornell_case
+    path = Path(__file__).parent.parent / "scenes" / "cornell.json"
+    port, _ = SceneCompiler(lt.load_scene(str(path))).compile_numpy()
+    np.testing.assert_array_equal(port["trace"]["prim_index"], geom["prim_index"])
+    miss, occ = _compare(geom, rays, ref, _port_trace(_table(port["trace"]), rays))
+    assert (~miss[np.isinf(rays[3])]).mean() > 0.9
+
+
 def test_plain_closest_strict_tie_takes_lowest_row():
     """Rows 1 and 2 are the same triangle: the strict t < best_t keeps row 1;
     row 0 lies off the ray and row 3 is an invalid copy in front of it."""

@@ -1,6 +1,7 @@
 """The CUDA kernels of luisarender_tpu_torch/csrc held against their plain
 PyTorch versions, on a CUDA card: the brute-force traces (brute.cu against
-ops/brute.py) and the fused whole-path kernel (fused_path.cu against
+ops/brute.py), the cluster traces (cluster.cu against ops/cluster.py
+walk_plain) and the fused whole-path kernel (fused_path.cu against
 ops/fused_path.py paths_plain).
 
 Marked `gpu`; every test skips where no card is present. On a machine with
@@ -11,9 +12,10 @@ a card and without JAX:
 (--noconftest: tests/conftest.py configures JAX for the CPU suite.)
 
 Kernel and plain version do the same IEEE float32 operations in the same
-order (nvcc --fmad=false, no fast math), so the brute-force traces must
-agree exactly: slots and occlusion bit for bit, and t / u / v bit for bit
-too. The fused kernel also calls sinf / cosf / powf / expf / logf, which
+order (nvcc --fmad=false, no fast math), so the brute-force and cluster
+traces must agree exactly: slots and occlusion bit for bit, and t / u / v
+bit for bit too (the cluster walk's per-ray pop, leaf and row counts as
+well). The fused kernel also calls sinf / cosf / powf / expf / logf, which
 CUDA and PyTorch need not round alike, so whole paths are held with the
 reference's rule (tests/test_fused_path.py:108-110): ray counts within 4,
 under 2% of lanes off by more than 1e-3.
@@ -134,6 +136,73 @@ def test_wrappers_reject_bad_inputs(cuda):
     t, slot, u, v = brute.closest(o[:0], d[:0], t_min[:0], t_max[:0], tab)
     assert slot.shape == (0,)
     assert math.isfinite(float(u.sum()))
+
+
+def _cluster_case(cuda, n_tris, n_rays, seed):
+    from luisarender_tpu_torch.ops import cluster
+    from torch_parity import soup
+
+    positions, triangles = soup(n_tris, seed)
+    rs = np.random.RandomState(seed)
+    opaque = rs.rand(n_tris) < 0.7
+    nodes, tris = cluster.build_cluster_tables(positions, triangles, opaque,
+                                               rs.permutation(n_tris))
+    o = rs.uniform(-0.5, 1.5, (n_rays, 3)).astype(np.float32)
+    d = rs.randn(n_rays, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_min = np.full(n_rays, 1e-4, np.float32)
+    t_max = np.where(rs.rand(n_rays) < 0.5, np.inf, rs.rand(n_rays) * 2.0).astype(np.float32)
+    t_max[rs.rand(n_rays) < 0.1] = 0.0  # dead lanes
+    return cluster, _to(cuda, o, d, t_min, t_max, nodes, tris)
+
+
+@pytest.mark.parametrize("n_tris,n_rays", [(100, 1000), (3000, 100_003)],
+                         ids=["one_cluster", "t3000_ragged"])
+def test_cluster_kernel_matches_plain(cuda, n_tris, n_rays):
+    cluster, args = _cluster_case(cuda, n_tris, n_rays, 11)
+    c0, a0 = cluster.closest_launches, cluster.any_launches
+    kern = cluster.closest(*args)
+    occ = cluster.any_hit(*args)
+    torch.cuda.synchronize()
+    assert (cluster.closest_launches, cluster.any_launches) == (c0 + 1, a0 + 1)
+    t, slot, u, v, _, stats = cluster.walk_plain(*args, False)
+    _assert_same(kern, (t, slot, u, v))
+    occ_p, stats_any = cluster.walk_plain(*args, True)[4:]
+    assert torch.equal(occ, occ_p)
+    hit = kern[1] >= 0  # both answers are exercised
+    assert 0.01 < hit.float().mean().item() < 0.95
+    assert 0.01 < occ.float().mean().item() < 0.95
+    # the walks themselves: the same pops, leaf visits and rows per ray
+    for any_hit, want in ((False, stats), (True, stats_any)):
+        err = torch.zeros(1, dtype=torch.int32, device=cuda)
+        got = torch.zeros_like(want)
+        cluster.launch(*args, any_hit, err, got)
+        torch.cuda.synchronize()
+        assert int(err.item()) == 0
+        assert torch.equal(got, want)
+
+
+def test_cluster_wrappers_raise_on_bad_inputs_and_trees(cuda):
+    cluster, (o, d, t_min, t_max, nodes, tris) = _cluster_case(cuda, 700, 256, 12)
+    with pytest.raises(TypeError):
+        cluster.closest(o.double(), d, t_min, t_max, nodes, tris)
+    with pytest.raises(ValueError):
+        cluster.any_hit(o, d, t_min, t_max, nodes[:, :6].contiguous(), tris)
+    with pytest.raises(ValueError):
+        cluster.closest(o.cpu(), d, t_min, t_max, nodes, tris)
+    t, slot, u, v = cluster.closest(o[:0], d[:0], t_min[:0], t_max[:0], nodes, tris)
+    assert slot.shape == (0,) and cluster.any_hit(o[:0], d[:0], t_min[:0], t_max[:0],
+                                                  nodes, tris).shape == (0,)
+    # a node table whose walk never ends: the error word, then a raise
+    box = [-10.0, -10.0, -10.0, 10.0, 10.0, 10.0]
+    loop = torch.tensor([box + [0.0, -1.0], box + [-1.0, 0.0]], device=cuda)
+    ray = torch.zeros((4, 3), device=cuda)
+    x = torch.tensor([[1.0, 0.0, 0.0]], device=cuda).repeat(4, 1)
+    args = (ray, x, torch.zeros(4, device=cuda), torch.full((4,), math.inf, device=cuda),
+            loop, tris[:1].contiguous())
+    for fn in (cluster.closest, cluster.any_hit):
+        with pytest.raises(RuntimeError, match="pops"):
+            fn(*args)
 
 
 def _fused_case(cuda, path, res, depth):

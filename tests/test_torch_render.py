@@ -6,9 +6,14 @@
     integrators/common.py);
 (b) the port's render() against the committed golden images: the Cornell
     box through the fused fork, scenes/materials.json (cut to 48^2, 8 spp,
-    depth 5) through the general fork;
+    depth 5) through the general fork, and the Cornell box with a
+    1,280-triangle sphere through the general fork's cluster trace;
 (c) the port rendering the reference's tables (convert.py) against the port
-    rendering its own compiler's tables.
+    rendering its own compiler's tables: the same tables, the same image;
+(d) scenes above 512 triangles, which trace with the cluster kernel (its
+    plain version here): the Cornell box with a 1,280-triangle sphere and
+    the mesh-heavy scene at test size, sample by sample against the
+    reference's path_trace_batch (its CPU run walks its skip-link BVH).
 
 The rule is the reference's own for its fused kernel against its bounce
 loop (tests/test_fused_path.py): ray counts within 4, and under 2% of
@@ -41,6 +46,8 @@ from luisarender_tpu_torch.integrators.mega_path import (
     general_path_trace_batch, path_trace_batch,
 )
 from luisarender_tpu_torch.utils import imageio
+
+from torch_parity import require_reference_builder
 
 GOLDEN = Path(__file__).parent / "golden" / "cornell_64_8spp.exr"
 MATERIALS_GOLDEN = Path(__file__).parent / "golden" / "materials_48_8spp.exr"
@@ -141,6 +148,9 @@ def test_general_fork_matches_materials_golden(monkeypatch):
 
 
 def test_converted_tables_render_like_own_compiler():
+    """Both compilers sort by the same SAH tree, so the converted tables are
+    the port's own and the two renders are the same image."""
+    require_reference_builder()
     d = testing.cornell_box(resolution=(32, 32), spp=4, depth=5)
     jcomp = lr.compile_scene(lr.Scene.from_dict(d))
     scene = lt.Scene.from_dict(d)
@@ -151,11 +161,71 @@ def test_converted_tables_render_like_own_compiler():
         scene, device="cpu",
     )
     own = lt.compile_scene(scene, device="cpu")
+    for k, v in own.arrays["trace"].items():
+        assert torch.equal(conv.arrays["trace"][k], v), k
     img_conv = scene.integrator.render(conv)["cornell.exr"]
     rays_conv = scene.integrator.rays_traced
     img_own = scene.integrator.render(own)["cornell.exr"]
-    assert abs(scene.integrator.rays_traced - rays_conv) <= 4
-    assert _frac_off(img_conv, img_own) < 0.02
+    assert scene.integrator.rays_traced == rays_conv
+    np.testing.assert_array_equal(img_conv, img_own)
+
+
+@pytest.mark.parametrize("name,res,n_samples,n_tris", [
+    ("cornell_sphere", (16, 16), 2, 1312),
+    ("mesh_heavy", (16, 9), 1, 1284),
+])
+def test_cluster_scene_matches_reference(name, res, n_samples, n_tris):
+    """Depth 3, each sample by this file's rule. The mesh-heavy scene is
+    testing.mesh_heavy(n=2, subdiv=2): four Disney icospheres, the floor,
+    and the light panel with its null surface."""
+    require_reference_builder()
+    w, h = res
+    if name == "mesh_heavy":
+        d = testing.mesh_heavy(res=res, spp=n_samples, depth=3, n=2, subdiv=2)
+    else:
+        d = testing.cornell_sphere(resolution=res, spp=n_samples, depth=3)
+    jscene = lr.Scene.from_dict(d)
+    jcomp = lr.compile_scene(jscene)
+    tscene = lt.Scene.from_dict(d)
+    tcomp = lt.compile_scene(tscene, device="cpu")
+    assert tcomp.plan.num_tris == jcomp.plan.num_tris == n_tris
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    pxy = np.stack([xs.reshape(-1), ys.reshape(-1)], -1).astype(np.int32)
+    kw = dict(max_depth=3, rr_depth=0, rr_threshold=0.95)
+    for si in range(n_samples):
+        rgb_ref, _, st_ref = jax_ptb(
+            jcomp, jcomp.arrays, jscene.cameras[0], jscene.integrator.sampler,
+            jscene.integrator.light_sampler, jnp.asarray(pxy), jnp.int32(si),
+            with_stats=True, **kw)
+        rgb, _, st = path_trace_batch(
+            tcomp, tscene.cameras[0], tscene.integrator.sampler,
+            tscene.integrator.light_sampler, torch.as_tensor(pxy), si, with_stats=True, **kw)
+        assert st["fused"] == 0 and st["bounces"] >= 1
+        assert abs(int(st["rays"]) - int(st_ref["rays"])) <= 4
+        assert _frac_off(rgb.numpy(), np.asarray(rgb_ref)) < 0.02
+        assert float(rgb.mean()) > 0.0
+
+
+def test_cluster_render_matches_golden():
+    """testing.cornell_sphere (48^2, 8 spp, depth 5; 1,312 triangles, the
+    cluster trace) against tests/golden/cornell_sphere_48_8spp.exr, the
+    reference's CPU render, made with the JAX package on the CPU by:
+
+        scene = lr.Scene.from_dict(testing.cornell_sphere(resolution=(48, 48),
+                                                          spp=8, depth=5))
+        img = lr.render(scene)["cornell.exr"]
+        imageio.save_exr("tests/golden/cornell_sphere_48_8spp.exr", img)
+
+    (`lr` = luisarender_tpu with its native SAH builder loaded, `testing` =
+    luisarender_tpu_torch.testing, `imageio` = luisarender_tpu.utils.imageio).
+    Under this file's rule, and the mean within 0.5%."""
+    scene = lt.Scene.from_dict(testing.cornell_sphere(resolution=(48, 48), spp=8, depth=5))
+    img = lt.render(scene, device="cpu")["cornell.exr"]
+    assert scene.integrator.fused_passes == 0 and scene.integrator.bounces_run >= 8
+    ref = imageio.load_exr(str(Path(__file__).parent / "golden" / "cornell_sphere_48_8spp.exr"))
+    assert img.shape == ref.shape and np.all(np.isfinite(img))
+    assert _frac_off(img, ref) < 0.02
+    assert abs(img.mean() / ref.mean() - 1.0) < 0.005
 
 
 def test_save_writes_exr(tmp_path):

@@ -2,10 +2,10 @@
 scenes/cornell.json against the reference's compiled tables carried across
 by luisarender_tpu_torch/convert.py.
 
-The reference keeps triangles in BVH order; the port keeps them in their
-original order. Per-triangle rows are therefore compared by original
-triangle id (`prim_index`), the rest row by row. Both sides run the same
-float32 numpy construction, so the tolerance is float32 rounding.
+Both packages sort triangles into the order of the same binned-SAH tree
+(the same builder source, built with the same flags), so per-triangle rows
+compare row by row, slot for slot. Both sides run the same float32 numpy
+construction, so the tolerance is float32 rounding.
 """
 
 from pathlib import Path
@@ -23,12 +23,15 @@ from luisarender_tpu_torch import convert
 from luisarender_tpu_torch.core import sampling as tsampling
 from luisarender_tpu_torch.scene.compiler import SceneCompiler
 
+from torch_parity import require_reference_builder
+
 CORNELL = Path(__file__).parent.parent / "scenes" / "cornell.json"
 RTOL, ATOL = 1e-6, 1e-6
 
 
 @pytest.fixture(scope="module")
 def tables():
+    require_reference_builder()
     ref = lr.compile_scene(lr.load_scene(str(CORNELL)))
     names = (
         [c.impl_names[0] for c in ref.plan.surface_types],
@@ -37,16 +40,6 @@ def tables():
     conv, conv_plan = convert.convert_tables(jax.device_get(ref.arrays), *names)
     port, port_plan = SceneCompiler(lt.load_scene(str(CORNELL))).compile_numpy()
     return ref, conv, conv_plan, port, port_plan
-
-
-def _by_original_id(tr):
-    """Rows of a trace table reordered by original triangle id; padding
-    rows dropped."""
-    pid = np.asarray(tr["prim_index"])
-    order = np.argsort(np.where(pid >= 0, pid, np.iinfo(np.int32).max))
-    order = order[: int((pid >= 0).sum())]
-    assert np.array_equal(pid[order], np.arange(order.shape[0]))
-    return {k: np.asarray(v)[order] for k, v in tr.items()}
 
 
 def test_plan_matches(tables):
@@ -58,14 +51,16 @@ def test_plan_matches(tables):
 
 
 def test_trace_and_shade_rows_match_per_original_triangle(tables):
+    """Row r is original triangle prim_index[r] on both sides: the same
+    permutation, and the same rows slot by slot."""
     _, conv, _, port, _ = tables
-    a = _by_original_id(conv["trace"])
-    b = _by_original_id(port["trace"])
+    a, b = conv["trace"], port["trace"]
+    np.testing.assert_array_equal(b["prim_index"], a["prim_index"])
+    assert np.array_equal(np.sort(b["prim_index"]), np.arange(32))
+    assert not np.array_equal(b["prim_index"], np.arange(32))  # sorted, not original
     for k in ("tri_v0", "tri_e1", "tri_e2", "shade_table"):
         np.testing.assert_allclose(b[k], a[k], rtol=RTOL, atol=ATOL, err_msg=k)
     np.testing.assert_array_equal(b["tri_opaque"], a["tri_opaque"])
-    # the port keeps the original order: row r is triangle r
-    np.testing.assert_array_equal(port["trace"]["prim_index"], np.arange(32))
 
 
 def test_instance_light_and_alias_rows_match(tables):
