@@ -23,6 +23,18 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              both bounces, 1280 x 720) and on a random 3,000-triangle soup
              with a ragged 100,003 rays: t, slot, u, v, occlusion and the
              per-ray node pops, leaf visits and rows tested bit for bit.
+             The wide8, subpacket and trace kernels against their plain
+             versions on the same mesh-heavy rays (the scene compiled with
+             the 8-wide tables) and on a random 8,000-triangle soup with a
+             ragged 100,003 rays, every output and walk count bit for bit;
+             and against the cluster kernel on the same rays: wide8 and
+             trace the same slots on every lane but exact ties, subpacket
+             by the reference's rule for it (under 0.5% of lanes flip
+             between hit and miss, over 99.5% of slots agree, any-hit on
+             99.8% of lanes, t within rtol 2e-4 / atol 1e-4 on the lanes
+             whose slots agree; the lanes that differ are written to
+             chiprun_out/subpacket_flips.npz for tests/subpacket_flips.py,
+             which holds them against the reference's own kernel).
              Kernel wrappers timed with
              CUDA events around launches queued behind a spin kernel
              (device time, no host dispatch), and with torch.profiler's
@@ -39,9 +51,14 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              depth 5, 4 spp, 512,004 triangles; its checkerboard and
              environment replaced, see its docstring) on the general fork
              with the cluster kernels launched once a bounce each and no
-             brute-force or fused launch, the image lit. Seconds (the scene
-             compile included, the kernel build not), rays, Mray/s, and
-             the compile seconds on their own
+             brute-force or fused launch, the image lit; the same scene on
+             the opt-in routes, wide8 (one wide8 closest and any-hit
+             launch a bounce, nothing else) and subpacket (one subpacket
+             closest and one cluster any-hit launch a bounce), each image
+             under 2% of pixels off the cluster route's by more than 1e-3
+             and its mean within 0.5%. Seconds (the scene compile
+             included, the kernel build not), rays, Mray/s, and the
+             compile seconds on their own
   5 general  the general fork: testing.cornell_box(512^2, depth 8) plus a
              subdivided icosphere (352 triangles, so the fused kernel does
              not cover it) through render at 32 spp (cut from 256 to save
@@ -62,8 +79,9 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              depth 5 through the general fork against
              tests/golden/materials_48_8spp.exr under that rule;
              testing.cornell_sphere (48^2, 8 spp, depth 5, 1,312
-             triangles, the cluster kernels) against
-             tests/golden/cornell_sphere_48_8spp.exr under that rule
+             triangles) on the cluster, wide8 and subpacket routes, each
+             against tests/golden/cornell_sphere_48_8spp.exr under that
+             rule
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -77,6 +95,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -93,6 +112,9 @@ FLOPS_PER_SPHERE = 17
 # ... of one node pop of the cluster walk: safe-inverse-scaled slab test
 # (6 sub, 6 mul, 12 min / max, 1 compare) and the child decode
 FLOPS_PER_NODE = 20
+# ... of one Woop row test (ops/subpacket.py woop_tests), a fused
+# multiply-add counted as 2: o' 3 x 6, d' 3 x 5, t 1, u 2, v 2, u + v 1
+FLOPS_PER_WOOP_ROW = 39
 # float operations of one bounce's shading, counted from the kernel's code on
 # its cheapest surface (matte): interaction, emission, frame, NEE light
 # sample and shadow-ray spawn, two BSDF evaluations, one BSDF sample, the
@@ -135,21 +157,40 @@ def nvidia_smi_line():
 
 
 def reset_counts(brute, fused_path):
-    from luisarender_tpu_torch.ops import cluster
+    from luisarender_tpu_torch.ops import cluster, subpacket, trace, wide8
 
     brute.closest_launches = brute.any_launches = 0
-    cluster.closest_launches = cluster.any_launches = 0
+    for mod in (cluster, wide8, subpacket):
+        mod.closest_launches = mod.any_launches = 0
+    trace.launches = 0
     fused_path.launches = fused_path.persistent_launches = 0
 
 
 def read_counts(brute, fused_path):
-    from luisarender_tpu_torch.ops import cluster
+    from luisarender_tpu_torch.ops import cluster, subpacket, trace, wide8
 
-    return {"brute_closest": brute.closest_launches, "brute_any": brute.any_launches,
-            "cluster_closest": cluster.closest_launches,
-            "cluster_any": cluster.any_launches,
-            "fused_path": fused_path.launches,
-            "fused_path_persistent": fused_path.persistent_launches}
+    counts = {"brute_closest": brute.closest_launches, "brute_any": brute.any_launches}
+    for name, mod in (("cluster", cluster), ("wide8", wide8), ("subpacket", subpacket)):
+        counts[f"{name}_closest"] = mod.closest_launches
+        counts[f"{name}_any"] = mod.any_launches
+    counts["trace_closest"] = trace.launches
+    counts["fused_path"] = fused_path.launches
+    counts["fused_path_persistent"] = fused_path.persistent_launches
+    return counts
+
+
+@contextmanager
+def routes(wide=False, sub=False):
+    """The opt-in trace routes (LR_WIDE8 / LR_SUBPACKET) switched as given
+    for the body, as the environment variables switch them at import."""
+    from luisarender_tpu_torch.ops import subpacket, wide8
+
+    saved = wide8.ENABLED, subpacket.ENABLED
+    wide8.ENABLED, subpacket.ENABLED = wide, sub
+    try:
+        yield
+    finally:
+        wide8.ENABLED, subpacket.ENABLED = saved
 
 
 def frac_off(a, b):
@@ -465,10 +506,13 @@ def phase_fused_kernel(torch, lt, fp, device):
     return results
 
 
-def soup_case(torch, cluster, device, n_tris, n_rays, seed):
+def soup_case(torch, cluster, device, n_tris, n_rays, seed, trees=False):
     """A random soup of small triangles in the unit cube, its cluster tables
     as the scene compiler builds them, and rays through it: a tenth dead
-    (t_max = 0), a third with a finite t_max."""
+    (t_max = 0), a third with a finite t_max. Returns (o, d, t_min, t_max,
+    nodes, tris); with `trees`, also the soup's 8-wide tables and its
+    binary SAH tree's trace arrays, as the compiler keeps them ({name:
+    tensor}, keys of arrays["trace"])."""
     rs = np.random.RandomState(seed)
     c = rs.uniform(0.0, 1.0, (n_tris, 1, 3))
     verts = (c + rs.normal(0.0, 0.05, (n_tris, 3, 3))).astype(np.float32)
@@ -476,16 +520,35 @@ def soup_case(torch, cluster, device, n_tris, n_rays, seed):
     idx = np.arange(n_tris)
     triangles = np.stack([idx, idx + n_tris, idx + 2 * n_tris], 1).astype(np.int32)
     opaque = rs.rand(n_tris) < 0.7
-    nodes, tris = cluster.build_cluster_tables(positions, triangles, opaque,
-                                               rs.permutation(n_tris))
+    canon = rs.permutation(n_tris)
+    if trees:  # slots in the SAH order, as the compiler gives them
+        from luisarender_tpu_torch.accel.native import build_bvh_sah
+
+        bvh = build_bvh_sah(positions, triangles)
+        canon[bvh.prim_index] = np.arange(n_tris)
+    nodes, tris = cluster.build_cluster_tables(positions, triangles, opaque, canon)
     o = rs.uniform(-0.5, 1.5, (n_rays, 3))
     d = rs.randn(n_rays, 3)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     t_min = np.full(n_rays, 1e-4)
     t_max = np.where(rs.rand(n_rays) < 0.33, rs.rand(n_rays) * 2.0, np.inf)
     t_max[rs.rand(n_rays) < 0.1] = 0.0
-    return tuple(torch.as_tensor(np.asarray(x, np.float32), device=device).contiguous()
+    args = tuple(torch.as_tensor(np.asarray(x, np.float32), device=device).contiguous()
                  for x in (o, d, t_min, t_max, nodes, tris))
+    if not trees:
+        return args
+    from luisarender_tpu_torch.ops import subpacket, wide8
+
+    slab8, meta8 = subpacket.build_slab_meta(subpacket.build_bvh8(nodes))
+    srt = triangles[bvh.prim_index]
+    v0, v1, v2 = (positions[srt[:, k]] for k in range(3))
+    tables = {"cluster_nodes": nodes, "cluster_tris": tris, "cluster_slab8": slab8,
+              "cluster_meta8": meta8, "cluster_cboxes": wide8.build_cluster_boxes(nodes),
+              "cluster_woop": subpacket.build_woop_table(tris), "tri_v0": v0,
+              "tri_e1": v1 - v0, "tri_e2": v2 - v0, "prim_index": bvh.prim_index,
+              "aabb_min": bvh.aabb_min, "aabb_max": bvh.aabb_max, "skip": bvh.skip,
+              "node_first": bvh.node_first, "node_count": bvh.node_count}
+    return args, {k: torch.as_tensor(v, device=device).contiguous() for k, v in tables.items()}
 
 
 def compare_cluster(torch, cluster, any_hit, args):
@@ -493,7 +556,8 @@ def compare_cluster(torch, cluster, any_hit, args):
     operations in the same per-lane order, so every output and every walk
     count must agree bit for bit. Returns ([max |dt|, |du|, |dv|] or
     [max |d occ|], the hit fraction, the kernel's (N, 3) walk counts, the
-    (C,) bool mask of clusters some ray tested)."""
+    (C,) bool mask of clusters some ray tested, the distinct rows that won
+    a closest hit (0 for any-hit))."""
     what = "cluster_any" if any_hit else "cluster_closest"
     n = args[0].shape[0]
     err = torch.zeros(1, dtype=torch.int32, device=args[0].device)
@@ -509,7 +573,7 @@ def compare_cluster(torch, cluster, any_hit, args):
         occ_k = out_k > 0
         diff = float((occ_k.long() - occ.long()).abs().max())
         check(diff == 0.0, f"{what}: occlusion differs on {int((occ_k != occ).sum())} lanes")
-        return [diff], float(occ_k.float().mean()), walk_k, visited
+        return [diff], float(occ_k.float().mean()), walk_k, visited, 0
     kt, ks, ku, kv = out_k
     check(torch.equal(ks, slot), f"{what}: slots differ on {int((ks != slot).sum())} lanes")
     hit = ks >= 0
@@ -518,24 +582,26 @@ def compare_cluster(torch, cluster, any_hit, args):
             float((ku - u).abs().max()), float((kv - v).abs().max())]
     check(max(errs) == 0.0 and torch.equal(kt, t),
           f"{what}: t, u, v differ from the plain version: {errs}")
-    return errs, float(hit.float().mean()), walk_k, visited
+    return errs, float(hit.float().mean()), walk_k, visited, int(torch.unique(ks[hit]).numel())
 
 
-def cluster_bound(kind, args, walk, visited):
+def cluster_bound(kind, args, walk, visited, winners):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
     operations (the pops and rows this run's walk made) over fp32 peak.
     The bytes are what this run's walk must read and write once: rays in
     (32 B) and hits out (16 B closest, 4 B any), the node table (0.4 MB at
     512k triangles, counted whole), and of the clusters some ray tested
-    the attributes the walk reads: v0 / e1 / e2, valid, opaque and (closest)
-    slot of each valid row, and only `valid` of each padding row."""
+    the attributes the walk reads of every row: v0 / e1 / e2 and valid of
+    each valid row, `valid` of each padding row. The slot (closest) or
+    opacity (any-hit) column is read only on a row that a ray hits: the
+    slots of the `winners` distinct rows that won a closest hit are
+    counted, the opacities of the occluders, not known here, are not."""
     o, nodes, tris = args[0], args[4], args[5]
     n = o.shape[0]
-    attrs = 12 if kind == "closest" else 11
     valid_rows = int((tris[visited, 9, :] > 0.0).sum())
     pad_rows = int(visited.sum()) * tris.shape[2] - valid_rows
     nbytes = (n * (32 + (16 if kind == "closest" else 4)) + nodes.numel() * 4
-              + (valid_rows * attrs + pad_rows) * 4)
+              + (valid_rows * 10 + pad_rows + winners) * 4)
     ops = int(walk[:, 0].sum()) * FLOPS_PER_NODE + int(walk[:, 2].sum()) * FLOPS_PER_ROW
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_PER_S * 1e3
@@ -548,21 +614,31 @@ def walk_summary(walk):
             "rows_per_ray": float(w[:, 2].mean()), "max_pops": int(walk[:, 0].max())}
 
 
-def phase_cluster_kernels(torch, lt, cluster, device):
-    """The cluster traces on the mesh-heavy scene's general-fork inputs and
-    on a random soup; times on the camera and bounce-1 inputs."""
+def mesh_heavy_inputs(torch, lt, cluster, device):
+    """testing.mesh_heavy compiled with the opt-in routes' 8-wide tables,
+    and the trace kernels' inputs on its general fork, captured on the
+    default (cluster) route."""
     from luisarender_tpu_torch import testing
 
     scene = lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY))
-    compiled = lt.compile_scene(scene, device=device)
+    with routes(wide=True, sub=True):
+        compiled = lt.compile_scene(scene, device=device)
     tr = compiled.arrays["trace"]
     check(compiled.plan.num_tris == 512_004 and not compiled.plan.fused_path
-          and "cluster_nodes" in tr and "tri_table" not in tr,
+          and "cluster_nodes" in tr and "tri_table" not in tr and "cluster_woop" in tr,
           f"mesh_heavy: {compiled.plan.num_tris} triangles, tables {sorted(tr)}")
     cap = capture_main_path_inputs(torch, cluster, compiled, scene)
     w, h = MESH_HEAVY["res"]
     n_main = cap["closest"][0][0].shape[0]
     check(n_main == w * h, f"main path has {n_main} rays, expected {w * h}")
+    return compiled, cap
+
+
+def phase_cluster_kernels(torch, cluster, device, compiled, cap):
+    """The cluster traces on the mesh-heavy scene's general-fork inputs and
+    on a random soup; times on the camera and bounce-1 inputs."""
+    tr = compiled.arrays["trace"]
+    n_main = cap["closest"][0][0].shape[0]
     soup = soup_case(torch, cluster, device, 3000, 100_003, seed=5)
     results = {}
     for kind in ("closest", "any"):
@@ -570,8 +646,8 @@ def phase_cluster_kernels(torch, lt, cluster, device):
         cases = {"camera": cap[kind][0], "bounce1": cap[kind][1], "soup3000": soup}
         errs, fracs, walks, times = {}, {}, {}, {}
         for name, args in cases.items():
-            errs[name], fracs[name], walk, visited = compare_cluster(torch, cluster, any_hit,
-                                                                     args)
+            errs[name], fracs[name], walk, visited, winners = compare_cluster(
+                torch, cluster, any_hit, args)
             walks[name] = walk_summary(walk)
             if name == "soup3000":
                 continue
@@ -579,7 +655,7 @@ def phase_cluster_kernels(torch, lt, cluster, device):
             ms = device_ms(torch, lambda: cluster.launch(*args, any_hit, err), iters=20)
             check(int(err.item()) == 0, f"cluster_{kind}: error word while timing")
             plain_ms = events_ms(torch, lambda: cluster.walk_plain(*args, any_hit), iters=1)
-            bound_ms, bound_by = cluster_bound(kind, args, walk, visited)
+            bound_ms, bound_by = cluster_bound(kind, args, walk, visited, winners)
             times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                            "bound_by": bound_by,
                            "clusters_tested": int(visited.sum())}
@@ -592,6 +668,296 @@ def phase_cluster_kernels(torch, lt, cluster, device):
                          "the shadow rays of bounce 1"},
               "nodes": int(tr["cluster_nodes"].shape[0]),
               "clusters": int(tr["cluster_tris"].shape[0]), **results[kind]})
+    return results
+
+
+# the TraceGeometry fields that ops/trace.py pack_tables reads
+TRACE_TREE_KEYS = ("tri_v0", "tri_e1", "tri_e2", "prim_index", "aabb_min", "aabb_max",
+                   "skip", "node_first", "node_count")
+# the tree kernels of slice 4: (module, modes, route of the render, TPU kernel)
+TREE_KERNELS = (
+    ("wide8", ("closest", "any"), "luisarender_tpu/ops/wide8_pallas.py:84"),
+    ("subpacket", ("closest", "any"), "luisarender_tpu/ops/subpacket_pallas.py:322"),
+    ("trace", ("closest",), "luisarender_tpu/ops/trace_pallas.py:83"),
+)
+
+
+def tree_call(mods, name, tr, leaf_size):
+    """(table arguments, launch(rays, any_hit, err, stats), plain(rays,
+    any_hit, visited) -> (outputs, stats), visited masks(device), the stack
+    bound) of one tree kernel over the trace arrays `tr`, the stack bound
+    computed once from the tree."""
+    import torch
+
+    mod = mods[name]
+    if name == "trace":
+        from luisarender_tpu_torch.accel.traverse import TraceGeometry
+
+        geom = TraceGeometry(num_rows=tr["tri_v0"].shape[0], leaf_size=leaf_size,
+                             **{k: tr[k] for k in TRACE_TREE_KEYS})
+        tables = mod.pack_tables(geom) + (leaf_size,)
+        stack = mod.tree_stack(tables[0])
+
+        def launch(rays, any_hit, err, stats):
+            return mod.launch(*rays, *tables, err, stats, stack=stack)
+
+        def plain(rays, any_hit, visited):
+            out = mod.walk_plain(*rays, *tables, visited, stack=stack)
+            return out[:4], out[4]
+
+        def masks(dev):
+            return (torch.zeros(tables[0].shape[0], dtype=torch.bool, device=dev),
+                    torch.zeros(tables[1].shape[0], dtype=torch.bool, device=dev))
+        return tables, launch, plain, masks, stack
+    leaf = ((tr["cluster_cboxes"], tr["cluster_tris"]) if name == "wide8"
+            else (tr["cluster_woop"],))
+    tables = (tr["cluster_slab8"], tr["cluster_meta8"]) + leaf
+    walk = mod.wide8_plain if name == "wide8" else mod.subpacket_plain
+    stack = mods["subpacket"].stack8_need(tr["cluster_meta8"].cpu().numpy())
+
+    def launch(rays, any_hit, err, stats):
+        return mod.launch(*rays, *tables, any_hit, err, stats, stack=stack)
+
+    def plain(rays, any_hit, visited):
+        st = walk(*rays, *tables, any_hit, visited, stack=stack)
+        if any_hit:
+            return st.occ, st.stats
+        t = torch.where(st.best_s >= 0, st.best_t, math.inf)
+        out = (t, st.best_s, st.best_u, st.best_v) if name == "wide8" else (t, st.best_s)
+        return out, st.stats
+
+    def masks(dev):
+        return (torch.zeros(tables[0].shape[0], dtype=torch.bool, device=dev),
+                torch.zeros(leaf[-1].shape[0], dtype=torch.bool, device=dev))
+    return tables, launch, plain, masks, stack
+
+
+def tree_bound(name, kind, tables, rays, walk, visited, winners):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations (this run's walk) over fp32 peak. Bytes, each read once:
+    rays in (32 B) and hits out; of the nodes the walk popped the columns
+    it reads; of the clusters (rows) it tested the columns it reads of every
+    row: the binary tree's v0 / e1 / e2 and index, wide8's v0 / e1 / e2 and
+    valid (and `valid` of a padding row), subpacket's o' / d' and slot (the
+    slot of a padding row). A column read only on a hit, wide8's slot
+    (closest) or opacity (any-hit) and subpacket's opacity, counts for the
+    `winners` distinct rows that won a closest hit and not at all for
+    any-hit (its occluders are not known here). Operations: a binary node
+    pop 20 (one box), an 8-wide pop 8 boxes of 20, a wide8 cluster's box
+    re-test 20, a Moller-Trumbore row 46, a Woop row 39."""
+    n = rays[0].shape[0]
+    closest = kind == "closest"
+    out = {"wide8": 16, "subpacket": 8, "trace": 16}[name] if closest else 4
+    pops, leaves, rows = (int(walk[:, k].sum()) for k in range(3))
+    nodes_read, blocks_read = int(visited[0].sum()), visited[1]
+    if name == "trace":
+        node_bytes = nodes_read * 9 * 4  # box, skip, count, first
+        block_bytes = int(blocks_read.sum()) * 10 * 4  # v0, e1, e2, index
+        ops = pops * FLOPS_PER_NODE + rows * FLOPS_PER_ROW
+    else:
+        node_bytes = nodes_read * (48 + 9) * 4  # 48 plane bounds, 8 codes, leaf mask
+        blk = tables[-1]
+        if name == "wide8":
+            valid_rows = int((blk[blocks_read, 9, :] > 0.0).sum())
+            attrs, per_hit = 10, winners  # v0 / e1 / e2, valid; the winners' slots
+            node_bytes += tables[2].shape[0] * 6 * 4  # the cluster boxes
+            ops = (pops * 8 + leaves) * FLOPS_PER_NODE + rows * FLOPS_PER_ROW
+        else:
+            valid_rows = int((blk[blocks_read, 3, 6 * 128:7 * 128] >= 0.0).sum())
+            attrs, per_hit = 22, 0  # o' 12, d' 9, slot
+            ops = pops * 8 * FLOPS_PER_NODE + rows * FLOPS_PER_WOOP_ROW
+        pad_rows = int(blocks_read.sum()) * 128 - valid_rows
+        block_bytes = (valid_rows * attrs + pad_rows + per_hit) * 4
+    nbytes = n * (32 + out) + node_bytes + block_bytes
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_abs_diff(torch, outs_k, outs_p):
+    """The largest |kernel - plain| over every output's lanes: 0 where both
+    are the same infinity, inf where only one is finite."""
+    worst = 0.0
+    for a, b in zip(outs_k, outs_p):
+        a, b = a.double(), b.double()
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        if bool((~same & ~fin).any()):
+            return math.inf
+        if bool(fin.any()):
+            worst = max(worst, float((a[fin] - b[fin]).abs().max()))
+    return worst
+
+
+def against_cluster(torch, name, kind, kern, ref, rays, tr, flips_out=None):
+    """The tree kernel's answer against the cluster kernel's on the same
+    rays. wide8 and trace: equal slots on every lane but exact ties (both
+    hit, t within 1e-5 relative: two triangles through one point, taken
+    in another order), any-hit equal on every lane; subpacket: the
+    reference's rule for it (tests/test_subpacket_trace.py), with t held on
+    the lanes whose slots agree: where the ray passes within ~1e-5 of an
+    edge shared by two triangles, the Woop test and Moller-Trumbore round
+    differently, and either may take one of the two, or neither and hit a
+    triangle behind (the reference's own kernel does the same on these
+    lanes: tests/subpacket_flips.py; the record gives, for the subpacket
+    winners of such lanes, Moller-Trumbore's least of u, v and 1 - u - v).
+    `flips_out`,
+    a dict, receives subpacket's lanes that differ from the cluster kernel
+    (a hit / miss flip or another slot) as numpy arrays: the rays and both
+    kernels' answers."""
+    if kind == "any":
+        n, differ = kern.numel(), int((kern != ref).sum())
+        check(differ == 0 if name == "wide8" else differ <= 0.002 * n,
+              f"{name}_any: differs from the cluster kernel on {differ} of {n} lanes")
+        return {"lanes": n, "differ": differ, "agree": 1.0 - differ / n}
+    t, slot = kern[0], kern[1]
+    t_c, slot_c = ref[0], ref[1]
+    hit, hit_c = slot >= 0, slot_c >= 0
+    flips = int((hit != hit_c).sum())
+    both = hit & hit_c
+    rel = ((t - t_c).abs() / t_c.abs().clamp(min=1e-30))[both]
+    diff = both & (slot != slot_c)
+    rec = {"lanes": int(slot.numel()), "hit_miss_flips": flips,
+           "slot_differs": int(diff.sum()),
+           "max_rel_dt": float(rel.max()) if both.any() else 0.0}
+    if name == "subpacket":
+        from luisarender_tpu_torch.accel.traverse import intersect_tri
+
+        n = slot.numel()
+        same = both & ~diff
+        ok_t = bool(((t - t_c).abs() <= 1e-4 + 2e-4 * t_c.abs())[same].all())
+        rec["max_rel_dt_same_slot"] = float(rel[~diff[both]].max()) if same.any() else 0.0
+        agree = 1.0 - rec["slot_differs"] / max(1, int(both.sum()))
+        rec["slot_agree"] = agree
+        if flips_out is not None:
+            lanes = torch.nonzero((hit != hit_c) | diff).squeeze(1)
+            named = {"lane": lanes, "o": rays[0][lanes], "d": rays[1][lanes],
+                     "t_min": rays[2][lanes], "t_max": rays[3][lanes], "t": t[lanes],
+                     "slot": slot[lanes], "cluster_t": t_c[lanes],
+                     "cluster_slot": slot_c[lanes], "cluster_u": ref[2][lanes],
+                     "cluster_v": ref[3][lanes]}
+            flips_out.update({k: v.cpu().numpy() for k, v in named.items()})
+        if diff.any():
+            s = slot[diff].long()
+            _, _, u, v = intersect_tri(rays[0][diff], rays[1][diff], tr["tri_v0"][s],
+                                       tr["tri_e1"][s], tr["tri_e2"][s])
+            margin = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+            rec["winner_flip_rel_dt"] = rel[diff[both]][:20].tolist()
+            rec["winner_flip_mt_margin"] = margin[:20].tolist()
+        check(flips < 0.005 * n and ok_t and agree > 0.995,
+              f"subpacket_closest against the cluster kernel: {rec}")
+    else:
+        ties = ((t - t_c).abs() <= 1e-5 * t_c.abs())[diff]
+        rec["ties"] = int(ties.sum())
+        check(flips == 0 and bool(ties.all()) and bool(torch.equal(t[both & ~diff],
+                                                                   t_c[both & ~diff])),
+              f"{name}_closest against the cluster kernel: {rec}")
+    return rec
+
+
+def phase_tree_kernels(torch, mods, device, compiled, cap):
+    """The wide8, subpacket and trace kernels against their plain versions
+    on the mesh-heavy inputs of the cluster phase and a random 8,000-triangle
+    soup (every output bit for bit, the walk counts too), and against the
+    cluster kernel on the same rays; times on the camera and bounce-1
+    inputs (the plain versions timed on their compare run, which marks the
+    nodes and clusters it reads). Subpacket's closest hits that differ from
+    the cluster kernel's are written, with their rays and a digest of the
+    tables, to chiprun_out/subpacket_flips.npz (tests/subpacket_flips.py
+    holds them against the reference's kernel)."""
+    import hashlib
+
+    cluster, subpacket = mods["cluster"], mods["subpacket"]
+    tr = compiled.arrays["trace"]
+    meta8 = tr["cluster_meta8"]
+    shape = {"n8": int(meta8.shape[0]), "bvh8_depth": subpacket.bvh8_depth(meta8.cpu().numpy()),
+             "stack8": subpacket.stack8_need(meta8.cpu().numpy()),
+             "stack_binary": None, "clusters": int(tr["cluster_tris"].shape[0]),
+             "woop_mb": tr["cluster_woop"].numel() * 4 / 1e6,
+             "binary_nodes": int(tr["aabb_min"].shape[0])}
+    check(shape["n8"] <= subpacket.MAX_SLAB8_NODES, f"mesh_heavy 8-wide tree: {shape}")
+    soup_rays, soup_tr = soup_case(torch, cluster, device, 8000, 100_003, seed=6, trees=True)
+    soup_rays = soup_rays[:4]
+    leaf_size = compiled.plan.bvh_leaf_size
+    check(compiled.plan.bvh8_stack == shape["stack8"],
+          f"the plan's 8-wide stack bound {compiled.plan.bvh8_stack}: {shape}")
+    flips = {}
+    results = {}
+    for name, kinds, _ in TREE_KERNELS:
+        for kind in kinds:
+            any_hit = kind == "any"
+            key = f"{name}_{kind}"
+            cases = {"camera": (cap[kind][0][:4], tr), "bounce1": (cap[kind][1][:4], tr),
+                     "soup8000": (soup_rays, soup_tr)}
+            rec = {"errors": {}, "hit_fraction": {}, "walk": {}, "vs_cluster": {}, "times": {}}
+            for case, (rays, ctr) in cases.items():
+                tables, launch, plain, masks, stack = tree_call(mods, name, ctr, leaf_size)
+                if name == "trace" and case == "camera":
+                    shape["stack_binary"] = stack
+                n = rays[0].shape[0]
+                err = torch.zeros(1, dtype=torch.int32, device=device)
+                stats_k = torch.zeros((n, 3), dtype=torch.int32, device=device)
+                out_k = launch(rays, any_hit, err, stats_k)
+                torch.cuda.synchronize()
+                check(int(err.item()) == 0, f"{key} {case}: error word {int(err.item())}")
+                visited = masks(device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out_p, stats_p = plain(rays, any_hit, visited)
+                end.record()
+                end.synchronize()
+                plain_ms = start.elapsed_time(end)
+                check(torch.equal(stats_k, stats_p),
+                      f"{key} {case}: walk counts differ on "
+                      f"{int((stats_k != stats_p).any(1).sum())} lanes")
+                if any_hit:
+                    occ_k = out_k > 0
+                    check(torch.equal(occ_k, out_p),
+                          f"{key} {case}: occlusion differs on {int((occ_k != out_p).sum())}")
+                    rec["errors"][case] = [max_abs_diff(torch, (occ_k,), (out_p,))]
+                    rec["hit_fraction"][case] = float(occ_k.float().mean())
+                    ref = cluster.any_hit(*rays, ctr["cluster_nodes"], ctr["cluster_tris"])
+                    rec["vs_cluster"][case] = against_cluster(torch, name, kind, occ_k, ref,
+                                                              rays, ctr)
+                    winners = 0
+                else:
+                    for j, (a, b) in enumerate(zip(out_k, out_p)):
+                        check(torch.equal(a, b), f"{key} {case}: output {j} differs on "
+                                                 f"{int((a != b).sum())} lanes")
+                    rec["errors"][case] = [max_abs_diff(torch, out_k, out_p)]
+                    rec["hit_fraction"][case] = float((out_k[1] >= 0).float().mean())
+                    ref = cluster.closest(*rays, ctr["cluster_nodes"], ctr["cluster_tris"])
+                    dump = {} if name == "subpacket" else None
+                    rec["vs_cluster"][case] = against_cluster(torch, name, kind, out_k, ref,
+                                                              rays, ctr, dump)
+                    if dump:
+                        flips.update({f"{case}/{k}": v for k, v in dump.items()})
+                    hit_k = out_k[1] >= 0
+                    winners = int(torch.unique(out_k[1][hit_k]).numel())
+                rec["walk"][case] = walk_summary(stats_k)
+                if case == "soup8000":
+                    continue
+                ms = device_ms(torch, lambda: launch(rays, any_hit, err, None), iters=20)
+                check(int(err.item()) == 0, f"{key}: error word while timing")
+                bound_ms, bound_by = tree_bound(name, kind, tables, rays, stats_k, visited,
+                                                winners)
+                rec["times"][case] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                      "bound_by": bound_by,
+                                      "nodes_read": int(visited[0].sum()),
+                                      "blocks_read": int(visited[1].sum())}
+            rec["max_abs_err"] = max(max(v) for v in rec["errors"].values())
+            check(rec["max_abs_err"] == 0.0, f"{key}: kernel and plain version differ")
+            results[key] = rec
+            emit({"phase": "kernels", "kernel": key, "n": cap["closest"][0][0].shape[0],
+                  "tables": shape, **rec})
+    for case, ctr in (("camera", tr), ("soup8000", soup_tr)):
+        for k in ("cluster_slab8", "cluster_meta8", "cluster_woop"):
+            digest = hashlib.sha256(ctr[k].cpu().numpy().tobytes()).hexdigest()
+            flips[f"{case}/sha256_{k}"] = np.array(digest)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    np.savez(out / "subpacket_flips.npz", **flips)
     return results
 
 
@@ -708,6 +1074,53 @@ def phase_main(torch, lt, brute, fp, device):
                           "bounces": integ.bounces_run, "launches": counts,
                           "image_mean": float(img.mean())}
     emit(recs["mesh_heavy"])
+    recs.update(phase_routes(torch, lt, brute, fp, device, img))
+    return recs
+
+
+def phase_routes(torch, lt, brute, fp, device, img):
+    """testing.mesh_heavy, nothing cut but as phase 4's, on the opt-in
+    routes: wide8 for both traces, then subpacket closest hits with cluster
+    any-hit; each image against the cluster route's (`img`) under the image
+    rule."""
+    from luisarender_tpu_torch import testing
+
+    recs = {}
+    w, h = MESH_HEAVY["res"]
+    for route, flags, want in (
+        ("wide8", {"wide": True}, {"wide8_closest": 1, "wide8_any": 1}),
+        ("subpacket", {"sub": True}, {"subpacket_closest": 1, "cluster_any": 1}),
+    ):
+        with routes(**flags):
+            scene = lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY))
+            cam, integ = scene.cameras[0], scene.integrator
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lt.compile_scene(scene, device=device)
+            torch.cuda.synchronize()
+            compile_seconds = time.perf_counter() - t0
+            rimg, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+        check_image(rimg, w, h, f"mesh_heavy {route}")
+        others = {k: v for k, v in counts.items() if k not in want}
+        check(integ.bounces_run > 0
+              and all(counts[k] == integ.bounces_run for k in want)
+              and not any(others.values()),
+              f"mesh_heavy {route}: launches {counts}, bounces {integ.bounces_run}")
+        off = frac_off(rimg, img)
+        rel = float(rimg.mean() / img.mean() - 1.0)
+        recs[f"mesh_heavy_{route}"] = {
+            "phase": "main", "scene": "testing.mesh_heavy", "route": route,
+            "triangles": 512_004, "resolution": [w, h], "depth": integ.max_depth,
+            "spp": cam.spp, "cut": "checkerboard Kd constant, no environment",
+            "seconds": seconds, "compile_seconds": compile_seconds,
+            "rays": integ.rays_traced, "mray_per_s": integ.rays_traced / seconds / 1e6,
+            "bounces": integ.bounces_run, "launches": counts,
+            "image_mean": float(rimg.mean()), "frac_pixels_off_cluster_route": off,
+            "mean_rel_diff_cluster_route": rel}
+        emit(recs[f"mesh_heavy_{route}"])
+        check(off < 0.02 and abs(rel) < 0.005,
+              f"mesh_heavy {route}: {off:.4f} of pixels off the cluster route's image, "
+              f"mean off by {rel:.5f}")
     return recs
 
 
@@ -857,26 +1270,36 @@ def phase_golden(torch, lt, device):
     from luisarender_tpu_torch.ops import brute
     from luisarender_tpu_torch.ops import fused_path as fp
 
-    sscene = lt.Scene.from_dict(testing.cornell_sphere(resolution=(48, 48), spp=8, depth=5))
-    reset_counts(brute, fp)
-    simg = lt.render(sscene, device=device)["cornell.exr"]
-    scounts = read_counts(brute, fp)
-    check(scounts["cluster_closest"] == sscene.integrator.bounces_run > 0
-          and scounts["brute_closest"] == 0, f"sphere golden: launches {scounts}")
+    # above 512 triangles: the cluster kernels, and the opt-in routes
     sref = imageio.load_exr(str(SPHERE_GOLDEN))
-    sfrac = frac_off(simg, sref)
-    srel = float(simg.mean() / sref.mean() - 1.0)
+    sphere = {}
+    for route, flags, key in (("cluster", {}, "cluster_closest"),
+                              ("wide8", {"wide": True}, "wide8_closest"),
+                              ("subpacket", {"sub": True}, "subpacket_closest")):
+        with routes(**flags):
+            sscene = lt.Scene.from_dict(testing.cornell_sphere(resolution=(48, 48), spp=8,
+                                                               depth=5))
+            reset_counts(brute, fp)
+            simg = lt.render(sscene, device=device)["cornell.exr"]
+            scounts = read_counts(brute, fp)
+        check(scounts[key] == sscene.integrator.bounces_run > 0
+              and scounts["brute_closest"] == 0, f"sphere golden {route}: launches {scounts}")
+        sphere[route] = (frac_off(simg, sref), float(simg.mean() / sref.mean() - 1.0))
     emit({"phase": "golden", "cornell_fused_frac_pixels_off": frac_off(img, ref),
           "cornell_fused_mean_rel_diff": rel, "cornell_per_sample_frac_off": per_sample,
           "cornell_general_frac_pixels_off": frac_general,
           "materials_general_frac_pixels_off": mfrac, "materials_mean_rel_diff": mrel,
-          "cornell_sphere_frac_pixels_off": sfrac, "cornell_sphere_mean_rel_diff": srel})
+          **{f"cornell_sphere{'' if r == 'cluster' else '_' + r}_frac_pixels_off": v[0]
+             for r, v in sphere.items()},
+          **{f"cornell_sphere{'' if r == 'cluster' else '_' + r}_mean_rel_diff": v[1]
+             for r, v in sphere.items()}})
     check(abs(rel) < 0.005, f"golden: image mean off by {rel:.5f}")
     check(frac_general < 0.02, f"golden: general fork {frac_general:.4f} of pixels off")
     check(mfrac < 0.02 and abs(mrel) < 0.005,
           f"materials golden: {mfrac:.4f} of pixels off, mean off by {mrel:.5f}")
-    check(sfrac < 0.02 and abs(srel) < 0.005,
-          f"cornell_sphere golden: {sfrac:.4f} of pixels off, mean off by {srel:.5f}")
+    for route, (sfrac, srel) in sphere.items():
+        check(sfrac < 0.02 and abs(srel) < 0.005, f"cornell_sphere golden ({route} route): "
+              f"{sfrac:.4f} of pixels off, mean off by {srel:.5f}")
 
 
 def main():
@@ -887,14 +1310,14 @@ def main():
     sys.path.insert(0, str(ROOT))
     import luisarender_tpu_torch as lt
     from luisarender_tpu_torch.accel import native
-    from luisarender_tpu_torch.ops import brute, build, cluster
+    from luisarender_tpu_torch.ops import brute, build, cluster, subpacket, trace, wide8
     from luisarender_tpu_torch.ops import fused_path as fp
 
     device = torch.device("cuda:0")
-    kind = torch.cuda.get_device_name(0)
+    card_kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
-    emit({"phase": "card", "kind": kind, "count": count, "nvidia_smi": smi,
+    emit({"phase": "card", "kind": card_kind, "count": count, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
@@ -910,7 +1333,12 @@ def main():
 
     brute_k = phase_brute_kernels(torch, lt, brute, device)
     fused_k = phase_fused_kernel(torch, lt, fp, device)
-    cluster_k = phase_cluster_kernels(torch, lt, cluster, device)
+    compiled_mh, cap_mh = mesh_heavy_inputs(torch, lt, cluster, device)
+    cluster_k = phase_cluster_kernels(torch, cluster, device, compiled_mh, cap_mh)
+    mods = {"cluster": cluster, "wide8": wide8, "subpacket": subpacket, "trace": trace}
+    tree_k = phase_tree_kernels(torch, mods, device, compiled_mh, cap_mh)
+    del compiled_mh, cap_mh
+    torch.cuda.empty_cache()
     main_recs = phase_main(torch, lt, brute, fp, device)
     general = phase_general(torch, lt, brute, fp, device)
     phase_profile(torch, lt, device)
@@ -955,9 +1383,24 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
+    for name, modes, replaces in TREE_KERNELS:
+        for mode in modes:
+            key = f"{name}_{mode}"
+            t = tree_k[key]["times"]["bounce1"]
+            # launches on the renders of the scene on the route that takes it
+            # (the trace kernel is on no render's route, as in the reference)
+            route = main_recs.get(f"mesh_heavy_{name}", main_recs["mesh_heavy"])
+            entries.append({
+                "name": key, "route": "cuda",
+                "source": f"luisarender_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": route["launches"][key],
+                "max_abs_err": tree_k[key]["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+            })
     emit({"kernels": entries})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": card_kind, "count": count}})
 
 
 if __name__ == "__main__":

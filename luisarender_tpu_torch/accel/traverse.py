@@ -1,14 +1,19 @@
 """Ray intersection: the routing of closest / any-hit traces.
 
 Counterpart of luisarender_tpu/accel/traverse.py (`trace_closest` /
-`trace_any`). A scene whose compiled tables carry the cluster kernel's
-(the scene compiler builds them above brute.MAX_TRIS triangles, as the
-reference does) traces with ops/cluster.py, any other with the
-brute-force kernels of ops/brute.py. Analytic spheres are exact quadrics
+`trace_any`), routed as the reference routes (traverse.py:472-540). A scene
+without the cluster kernel's tables (the scene compiler builds them above
+brute.MAX_TRIS triangles) traces with the brute-force kernels of
+ops/brute.py. Above that, closest hits go to ops/subpacket.py when its
+route is enabled (`LR_SUBPACKET=1`) and the scene has its 8-wide tables,
+else to ops/wide8.py when that route is enabled (`LR_WIDE8=1`) and the
+tables are there, else to ops/cluster.py; any-hit traces go to wide8 on
+the same condition, else to cluster. Analytic spheres are exact quadrics
 tested before the triangles, whose trace they clip.
 
 Hit.prim is the triangle's slot in the scene's SAH order (the row of the
-shade table), P + s for sphere s (P = the triangle rows); -1 = miss.
+shade table), P + s for sphere s (P = the triangle rows); -1 = miss. A
+subpacket hit carries bary = NaN: scene/geometry.py recomputes (u, v).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.types import Hit
-from ..ops import brute, cluster
+from ..ops import brute, cluster, subpacket, wide8
 
 
 class TraceGeometry(NamedTuple):
@@ -29,9 +34,49 @@ class TraceGeometry(NamedTuple):
     # ops/cluster.py tables; None for a brute-force scene
     cluster_nodes: Optional[torch.Tensor] = None  # (N, 8) float32
     cluster_tris: Optional[torch.Tensor] = None  # (C, 16, 128) float32
+    # the 8-wide tables of ops/subpacket.py and ops/wide8.py; None unless an
+    # opt-in route asked for them at compile
+    cluster_woop: Optional[torch.Tensor] = None  # (C, 8, 1024) float32
+    cluster_slab8: Optional[torch.Tensor] = None  # (N8, 8, 128) float32
+    cluster_meta8: Optional[torch.Tensor] = None  # (N8, 16) float32
+    cluster_cboxes: Optional[torch.Tensor] = None  # (C, 8) float32
+    # the 8-wide walk's stack bound (ops/subpacket.py stack8_need); None:
+    # computed from cluster_meta8 at each trace
+    stack8: Optional[int] = None
     # analytic spheres (S, 16): 0:3 center, 3 radius, 4:13 rotation
     # (row-major), 13 instance id, 14 opaque; None without spheres
     sph: Optional[torch.Tensor] = None
+    # the binary SAH tree (accel/bvh.py BVHArrays layout) and the triangle
+    # rows in its order, which ops/trace.py pack_tables reads
+    tri_v0: Optional[torch.Tensor] = None  # (P, 3) float32
+    tri_e1: Optional[torch.Tensor] = None  # (P, 3) float32
+    tri_e2: Optional[torch.Tensor] = None  # (P, 3) float32
+    prim_index: Optional[torch.Tensor] = None  # (P,) int, -1 for padding
+    aabb_min: Optional[torch.Tensor] = None  # (N, 3) float32
+    aabb_max: Optional[torch.Tensor] = None  # (N, 3) float32
+    skip: Optional[torch.Tensor] = None  # (N,) int32
+    node_first: Optional[torch.Tensor] = None  # (N,) int32
+    node_count: Optional[torch.Tensor] = None  # (N,) int32
+    leaf_size: int = 4
+
+
+def _use_subpacket(geom) -> bool:
+    return (subpacket.ENABLED and geom.cluster_woop is not None
+            and geom.cluster_slab8 is not None)
+
+
+def _use_wide8(geom) -> bool:
+    return (wide8.ENABLED and geom.cluster_slab8 is not None
+            and geom.cluster_cboxes is not None)
+
+
+def intersect_tri(o, d, v0, e1, e2):
+    """Moller-Trumbore of rays against triangles, all (..., 3), in the
+    reference's order (its jnp.cross and three-term sums): (valid, t, u,
+    v)."""
+    big_det, inside, t, u, v = brute.mt_uvt(*v0.unbind(-1), *e1.unbind(-1), *e2.unbind(-1),
+                                            *o.unbind(-1), *d.unbind(-1))
+    return big_det & inside, t, u, v
 
 
 def _sphere_roots(row, o, d):
@@ -91,6 +136,13 @@ def _ray_args(rays):
 def _trace_closest_tris(geom, rays) -> Hit:
     if geom.cluster_nodes is None:
         t, slot, u, v = brute.closest(*_ray_args(rays), geom.tri_table)
+    elif _use_subpacket(geom):
+        t, slot, u, v = subpacket.closest(*_ray_args(rays), geom.cluster_slab8,
+                                          geom.cluster_meta8, geom.cluster_woop, geom.stack8)
+    elif _use_wide8(geom):
+        t, slot, u, v = wide8.closest(*_ray_args(rays), geom.cluster_slab8,
+                                      geom.cluster_meta8, geom.cluster_cboxes,
+                                      geom.cluster_tris, geom.stack8)
     else:
         t, slot, u, v = cluster.closest(*_ray_args(rays), geom.cluster_nodes,
                                         geom.cluster_tris)
@@ -127,6 +179,9 @@ def trace_any(geom: TraceGeometry, rays):
         rays = rays._replace(t_max=torch.where(occ, 0.0, rays.t_max))
     if geom.cluster_nodes is None:
         tri = brute.any_hit(*_ray_args(rays), geom.tri_table)
+    elif _use_wide8(geom):
+        tri = wide8.any_hit(*_ray_args(rays), geom.cluster_slab8, geom.cluster_meta8,
+                            geom.cluster_cboxes, geom.cluster_tris, geom.stack8)
     else:
         tri = cluster.any_hit(*_ray_args(rays), geom.cluster_nodes, geom.cluster_tris)
     return tri if occ is None else occ | tri

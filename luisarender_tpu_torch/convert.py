@@ -5,7 +5,9 @@ takes luisarender_tpu's `CompiledScene.arrays` as numpy (a nested dict, as
 `jax.device_get` returns it) and produces the port's tables; `convert` puts
 them on a device as a CompiledScene the port's integrators render. Only the
 keys the port reads are used: trace.{tri_v0, tri_e1, tri_e2, prim_index,
-tri_opaque, shade_table, sph, cluster_nodes, cluster_tris}, instances.*,
+tri_opaque, shade_table, sph, the binary SAH tree (aabb_min, aabb_max,
+skip, node_first, node_count), cluster_nodes, cluster_tris and the 8-wide
+tables (cluster_woop, cluster_slab8, cluster_meta8, cluster_cboxes)}, instances.*,
 light_entries.*, the light alias tables and light-triangle rows, the
 surface / light rows with their constant textures, and the fused tables.
 
@@ -22,12 +24,17 @@ from __future__ import annotations
 import numpy as np
 
 from .core.device import resolve_device
+from .ops import subpacket
 from .scene.compiler import (
     INT_INSTANCE_KEYS, CompiledScene, ScenePlan, tables_to_device,
 )
 from .scene.node import SceneNodeTag
 from .scene.registry import lookup
 
+TRACE_KEYS = ("tri_v0", "tri_e1", "tri_e2", "prim_index", "tri_opaque", "shade_table",
+              "sph", "aabb_min", "aabb_max", "skip", "node_first", "node_count",
+              "cluster_nodes", "cluster_tris", "cluster_woop", "cluster_slab8",
+              "cluster_meta8", "cluster_cboxes")
 # wrapper-feature textures the port does not support
 _UNSUPPORTED_TEXTURES = ("normal_map", "alpha")
 
@@ -70,11 +77,12 @@ def _convert_rows(table, cls, const):
     return out
 
 
-def convert_tables(arrays, surface_types, light_types):
+def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4):
     """numpy reference tables -> (the port's numpy tables, ScenePlan).
 
     surface_types / light_types: impl names in the reference plan's tag order
-    (`[c.impl_names[0] for c in plan.surface_types]`)."""
+    (`[c.impl_names[0] for c in plan.surface_types]`); bvh_leaf_size: the
+    reference plan's."""
     surf_cls = tuple(lookup(SceneNodeTag.SURFACE, n) for n in surface_types)
     light_cls = tuple(lookup(SceneNodeTag.LIGHT, n) for n in light_types)
     const = arrays.get("textures", {}).get("constant", {}).get("value")
@@ -83,8 +91,7 @@ def convert_tables(arrays, surface_types, light_types):
     tr = arrays["trace"]
     trace = {
         k: np.asarray(tr[k])
-        for k in ("tri_v0", "tri_e1", "tri_e2", "prim_index", "tri_opaque",
-                  "shade_table", "sph", "cluster_nodes", "cluster_tris") if k in tr
+        for k in TRACE_KEYS if k in tr
     }
     out = {
         "instances": {
@@ -113,16 +120,20 @@ def convert_tables(arrays, surface_types, light_types):
         num_tris=int(np.sum(trace["prim_index"] >= 0)),
         num_spheres=int(trace["sph"].shape[0]) if "sph" in trace else 0,
         fused_path="fused" in out,
+        bvh_leaf_size=int(bvh_leaf_size),
+        bvh8_stack=(subpacket.stack8_need(trace["cluster_meta8"])
+                    if "cluster_meta8" in trace else 0),
     )
     return out, plan
 
 
-def convert(arrays, surface_types, light_types, scene, device=None) -> CompiledScene:
+def convert(arrays, surface_types, light_types, scene, device=None,
+            bvh_leaf_size=4) -> CompiledScene:
     """The reference's compiled tables as a port CompiledScene on `device`
     (default: the first CUDA card); `scene` is the port's Scene of the same
     file, whose cameras and integrator render it."""
     dev = resolve_device(device)
-    tables, plan = convert_tables(arrays, surface_types, light_types)
+    tables, plan = convert_tables(arrays, surface_types, light_types, bvh_leaf_size)
     return CompiledScene(
         arrays=tables_to_device(tables, dev),
         plan=plan,

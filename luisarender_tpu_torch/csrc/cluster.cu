@@ -38,75 +38,20 @@
 // (ops/cluster.py walk_plain) then does the same IEEE operations in the same
 // per-lane order and the two agree bit for bit.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "trace_common.cuh"
 
 namespace {
 
+using lrt::kBig;
+using lrt::kCluster;
+using lrt::kErrIndex;
+using lrt::kErrStack;
+using lrt::kErrSteps;
+using lrt::kTriCols;
+using lrt::Ray;
+
 constexpr int kThreads = 128;
 constexpr int kStack = 64;
-constexpr int kCluster = 128;
-constexpr int kTriCols = 16;
-constexpr float kBig = 3.0e38f;
-constexpr int kErrStack = 1, kErrSteps = 2, kErrIndex = 4;
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
-};
-
-__device__ __forceinline__ float safe_inv(float v) {
-  const float tiny = 1e-12f;
-  return 1.0f / (fabsf(v) < tiny ? (v < 0.0f ? -tiny : tiny) : v);
-}
-
-// Node row = (a, b): a = (min.x, min.y, min.z, max.x), b = (max.y, max.z,
-// right child + hint, leaf cluster id).
-__device__ __forceinline__ bool slab(const float4 a, const float4 b,
-                                     const Ray& r, float t_far) {
-  const float t0x = (a.x - r.ox) * r.ix;
-  const float t1x = (a.w - r.ox) * r.ix;
-  const float t0y = (a.y - r.oy) * r.iy;
-  const float t1y = (b.x - r.oy) * r.iy;
-  const float t0z = (a.z - r.oz) * r.iz;
-  const float t1z = (b.y - r.oz) * r.iz;
-  const float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fmaxf(fminf(t0z, t1z), r.tmin));
-  const float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                          fminf(fmaxf(t0z, t1z), t_far));
-  return near <= far;
-}
-
-// Row j of a block against the ray; true when the hit lies inside the
-// triangle (the t-range test is the caller's).
-__device__ __forceinline__ bool moller_trumbore(const float* __restrict__ blk,
-                                                int j, const Ray& r, float& t,
-                                                float& u, float& v) {
-  const float v0x = __ldg(blk + 0 * kCluster + j);
-  const float v0y = __ldg(blk + 1 * kCluster + j);
-  const float v0z = __ldg(blk + 2 * kCluster + j);
-  const float e1x = __ldg(blk + 3 * kCluster + j);
-  const float e1y = __ldg(blk + 4 * kCluster + j);
-  const float e1z = __ldg(blk + 5 * kCluster + j);
-  const float e2x = __ldg(blk + 6 * kCluster + j);
-  const float e2y = __ldg(blk + 7 * kCluster + j);
-  const float e2z = __ldg(blk + 8 * kCluster + j);
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
-  const float tx = r.ox - v0x;
-  const float ty = r.oy - v0y;
-  const float tz = r.oz - v0z;
-  u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
-}
 
 // One ray's walk; the two kernels below are its two modes.
 template <bool kAny>
@@ -118,17 +63,7 @@ __device__ __forceinline__ void walk(
     int* __restrict__ slot_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ occ_out,
     int* __restrict__ stats, int* __restrict__ err) {
-  Ray r;
-  r.ox = o[3 * i];
-  r.oy = o[3 * i + 1];
-  r.oz = o[3 * i + 2];
-  r.dx = d[3 * i];
-  r.dy = d[3 * i + 1];
-  r.dz = d[3 * i + 2];
-  r.ix = safe_inv(r.dx);
-  r.iy = safe_inv(r.dy);
-  r.iz = safe_inv(r.dz);
-  r.tmin = t_min[i];
+  const Ray r = lrt::load_ray(i, o, d, t_min);
   const float tmx = t_max[i];
   float best_t = tmx < kBig ? tmx : kBig;
   int best_s = -1;
@@ -150,7 +85,7 @@ __device__ __forceinline__ void walk(
       const int node = stack[--sp];
       const float4 a = __ldg(nodes + 2 * node);
       const float4 b = __ldg(nodes + 2 * node + 1);
-      if (!slab(a, b, r, best_t)) continue;
+      if (!lrt::slab(a, b, r, best_t)) continue;
       const float rf = floorf(b.z);
       const int first = static_cast<int>(b.w);
       if (first >= 0) {  // leaf: its block's rows, in order
@@ -165,7 +100,7 @@ __device__ __forceinline__ void walk(
           if (!(__ldg(blk + 9 * kCluster + j) > 0.0f)) continue;  // padding
           ++rows;
           float t, u, v;
-          const bool inside = moller_trumbore(blk, j, r, t, u, v);
+          const bool inside = lrt::block_row_mt(blk, j, r, t, u, v);
           if (!(inside && t > r.tmin && t < best_t)) continue;
           if (kAny) {
             if (__ldg(blk + 10 * kCluster + j) > 0.0f) {
@@ -251,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
              nullptr, nullptr, nullptr, occ_out, stats, err);
 }
 
-int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+int blocks_for(int n) { return lrt::blocks_for(n, kThreads); }
 
 }  // namespace
 

@@ -45,16 +45,18 @@ def make_tri_table(tri_v0, tri_e1, tri_e2, prim_index, tri_opaque):
 # ---------------------------------------------------------------------------
 
 
-def moller_trumbore(r, ox, oy, oz, dx, dy, dz):
-    """Table row(s) r (16 tensors: one row's 0-dim entries, or (P,) columns
-    against (N, 1) rays) against the rays. Returns (ok, t, u, v); ok
-    excludes the t-range test."""
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = r[:9]
+def mt_uvt(v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, ox, oy, oz, dx, dy, dz):
+    """Moller-Trumbore of rays against triangles (broadcasting tensors), in
+    the reference's order of operations, shared by every plain version and
+    the (u, v) recompute of scene/geometry.py: (big_det, inside, t, u, v).
+    big_det is |det| > 1e-12 (else 1 / det is taken as 0); inside is
+    u, v >= 0 and u + v <= 1. The t-range test is the caller's."""
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
     det = e1x * px + e1y * py + e1z * pz
-    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
+    big_det = torch.abs(det) > 1e-12
+    inv_det = torch.where(big_det, 1.0 / det, 0.0)
     tx = ox - v0x
     ty = oy - v0y
     tz = oz - v0z
@@ -64,8 +66,15 @@ def moller_trumbore(r, ox, oy, oz, dx, dy, dz):
     qz = tx * e1y - ty * e1x
     v = (dx * qx + dy * qy + dz * qz) * inv_det
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-    ok = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (r[9] > 0.0)
-    return ok, t, u, v
+    return big_det, (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0), t, u, v
+
+
+def moller_trumbore(r, ox, oy, oz, dx, dy, dz):
+    """Table row(s) r (16 tensors: one row's 0-dim entries, or (P,) columns
+    against (N, 1) rays) against the rays. Returns (ok, t, u, v); ok
+    excludes the t-range test."""
+    _, inside, t, u, v = mt_uvt(*r[:9], ox, oy, oz, dx, dy, dz)
+    return inside & (r[9] > 0.0), t, u, v
 
 
 def table_rows(table):

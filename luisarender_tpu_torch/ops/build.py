@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library
 with a plain C interface and loaded with ctypes. The library goes into
 `luisarender_tpu_torch/_build/` (git-ignored) under a name that carries a
-hash of its source and flags, so an edited source is rebuilt and a fresh
+hash of its source, the shared headers `csrc/*.cuh` and the flags, so an
+edited source or header is rebuilt and a fresh
 checkout builds at first use. Nothing is built when a module is imported:
 `load_library` runs at the first launch on a CUDA tensor.
 """
@@ -43,7 +44,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every source's key
+    src = b"".join(p.read_bytes() for p in [CSRC_DIR / f"{name}.cu",
+                                            *sorted(CSRC_DIR.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
@@ -67,6 +70,25 @@ def compile_library(name: str) -> Path:
     return out
 
 
+def _kernel_name(mangled: str) -> str:
+    """The kernel's own name in a mangled `_ZN<len><name>...E...` name: the
+    last of its length-prefixed identifiers (the anonymous namespace's
+    comes first), with the integer arguments of a template as `<128>`."""
+    import re
+
+    names, rest = [], mangled[3 if mangled.startswith("_ZN") else 2:]
+    while rest and rest[0].isdigit():
+        n = re.match(r"\d+", rest).group(0)
+        names.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
+    if not names:
+        return mangled
+    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    if args:
+        return f"{names[-1]}<{','.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+    return names[-1]
+
+
 def ptxas_report(name: str) -> dict:
     """ptxas's report of csrc/<name>.cu's last build, per kernel: {kernel:
     {registers, stack_bytes, spill_stores, spill_loads, smem_bytes}}."""
@@ -77,7 +99,7 @@ def ptxas_report(name: str) -> dict:
     for line in path.read_text().splitlines() if path.exists() else []:
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            kernel = re.findall(r"[a-z_]+_kernel", m.group(1))[-1]
+            kernel = _kernel_name(m.group(1))
             report[kernel] = {}
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)

@@ -35,6 +35,8 @@ import math
 import numpy as np
 import torch
 
+from .brute import mt_uvt
+
 CLUSTER = 128  # triangles a leaf block
 TRI_COLS = 16
 NODE_COLS = 8
@@ -152,6 +154,33 @@ def build_cluster_tables(positions, triangles, opaque_orig, canon_of_orig):
     return node, tri
 
 
+def stack_need(children) -> int:
+    """Entries a one-pop depth-first walk's stack can hold at most over a
+    tree whose node i, when popped, pushes the children `children[i]` ((N,
+    K) node indices, -1 for none): 1 + the largest sum, over the paths from
+    the root, of each node's pushes less one (the popped node itself), every
+    child taken. Each node of a tree is pushed at most once, so this is at
+    most N. Children out of range are left out (the walks raise on them);
+    the sums are followed for at most N levels, so a loop, which the walks
+    stop by their pop cap, ends it too."""
+    ch = np.asarray(children, np.int64)
+    n = ch.shape[0]
+    ok = (ch >= 0) & (ch < n)
+    pushes = ok.sum(axis=1)
+    level, held = np.zeros(1, np.int64), pushes[:1]  # held: after the pushes
+    need = 1
+    for _ in range(n):
+        if level.size == 0:
+            break
+        need = max(need, int(held.max()))
+        kids = ch[level][ok[level]]
+        best = np.full(n, -1, np.int64)
+        np.maximum.at(best, kids, np.repeat(held - 1, ok[level].sum(axis=1)) + pushes[kids])
+        level = np.unique(kids)
+        held = best[level]
+    return need
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version: a batched walk with a stack per lane, one pop per
 # live lane an iteration, in the kernel's per-lane order and arithmetic
@@ -182,26 +211,50 @@ def slab(row, ox, oy, oz, ix, iy, iz, t_min, t_far):
 def _leaf_tests(blk, ox, oy, oz, dx, dy, dz, t_min, best_t, any_hit):
     """Every row of k leaf blocks (k, 12, 128) against k rays ((k, 1)
     each): (ok (k, 128), t, u, v), Moller-Trumbore in the kernel's order."""
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, valid, opaque, _slot = blk.unbind(1)
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
-    tx = ox - v0x
-    ty = oy - v0y
-    tz = oz - v0z
-    u = (tx * px + ty * py + tz * pz) * inv_det
-    qx = ty * e1z - tz * e1y
-    qy = tz * e1x - tx * e1z
-    qz = tx * e1y - ty * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv_det
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-    ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (valid > 0.0)
-          & (t > t_min) & (t < best_t))
+    attrs = blk.unbind(1)  # v0 / e1 / e2, valid, opaque, slot
+    _, inside, t, u, v = mt_uvt(*attrs[:9], ox, oy, oz, dx, dy, dz)
+    ok = inside & (attrs[9] > 0.0) & (t > t_min) & (t < best_t)
     if any_hit:
-        ok = ok & (opaque > 0.0)
+        ok = ok & (attrs[10] > 0.0)
     return ok, t, u, v
+
+
+def leaf_blocks_plain(blk12, lanes, blks, ray, best, stats, any_hit):
+    """Every row of the leaf blocks `blks` ((k,) ids into blk12, the
+    (C, 12, 128) attributes 0-11 of the triangle blocks) against the rays
+    `lanes` (k,), LEAF_CHUNK lanes at a time, as a kernel tests a leaf.
+    `ray` = (ox, oy, oz, dx, dy, dz, t_min) of every ray. Closest: the first
+    row of least t updates best = (best_t, best_s, best_u, best_v) in place
+    (the kernel's in-order strict t < best_t). Any-hit: returns the lanes
+    that found an occluder (the kernel stops at the first). Adds a leaf
+    visit and the valid rows tested to stats (N, 3) columns 1 and 2."""
+    ox, oy, oz, dx, dy, dz, t_min = ray
+    best_t, best_s, best_u, best_v = best
+    occluded = [lanes[:0]]
+    for c in range(0, lanes.numel(), LEAF_CHUNK):
+        lc, fc = lanes[c:c + LEAF_CHUNK], blks[c:c + LEAF_CHUNK]
+        blk = blk12[fc]
+        ok, t, u, v = _leaf_tests(
+            blk, ox[lc, None], oy[lc, None], oz[lc, None], dx[lc, None],
+            dy[lc, None], dz[lc, None], t_min[lc, None], best_t[lc, None], any_hit)
+        valid = blk[:, 9, :] > 0.0
+        stats[lc, 1] += 1
+        found = ok.any(dim=1)
+        if any_hit:
+            j = torch.argmax(ok.to(torch.int32), dim=1)
+            upto = torch.arange(CLUSTER, device=t.device)[None, :] <= j[:, None]
+            tested = torch.where(found[:, None], valid & upto, valid)
+            stats[lc, 2] += tested.sum(dim=1).to(torch.int32)
+            occluded.append(lc[found])
+            continue
+        stats[lc, 2] += valid.sum(dim=1).to(torch.int32)
+        j = torch.argmin(torch.where(ok, t, math.inf), dim=1, keepdim=True)
+        fl = lc[found]
+        best_t[fl] = t.gather(1, j)[found, 0]
+        best_u[fl] = u.gather(1, j)[found, 0]
+        best_v[fl] = v.gather(1, j)[found, 0]
+        best_s[fl] = blk[:, 11, :].gather(1, j)[found, 0].to(torch.int32)
+    return torch.cat(occluded)
 
 
 def _raise(err, name):
@@ -273,33 +326,10 @@ def walk_plain(o, d, t_min, t_max, nodes, tris, any_hit, visited=None):
             _raise(ERR_INDEX, name)
         if visited is not None:
             visited[lfirst] = True
-        for c in range(0, ll.numel(), LEAF_CHUNK):
-            lc, fc = ll[c:c + LEAF_CHUNK], lfirst[c:c + LEAF_CHUNK]
-            blk = blk12[fc]
-            ok, t, u, v = _leaf_tests(
-                blk, ox[lc, None], oy[lc, None], oz[lc, None], dx[lc, None],
-                dy[lc, None], dz[lc, None], t_min[lc, None], best_t[lc, None], any_hit)
-            valid = blk[:, 9, :] > 0.0
-            stats[lc, 1] += 1
-            found = ok.any(dim=1)
-            if any_hit:
-                # the kernel stops at the first occluder and leaves the walk
-                j = torch.argmax(ok.to(torch.int32), dim=1)
-                upto = torch.arange(CLUSTER, device=dev)[None, :] <= j[:, None]
-                tested = torch.where(found[:, None], valid & upto, valid)
-                stats[lc, 2] += tested.sum(dim=1).to(torch.int32)
-                hit_l = lc[found]
-                occ[hit_l] = True
-                sp[hit_l] = 0
-                continue
-            stats[lc, 2] += valid.sum(dim=1).to(torch.int32)
-            # the first row of least t: the kernel's in-order strict t < best_t
-            j = torch.argmin(torch.where(ok, t, math.inf), dim=1, keepdim=True)
-            fl = lc[found]
-            best_t[fl] = t.gather(1, j)[found, 0]
-            best_u[fl] = u.gather(1, j)[found, 0]
-            best_v[fl] = v.gather(1, j)[found, 0]
-            best_s[fl] = blk[:, 11, :].gather(1, j)[found, 0].to(torch.int32)
+        hit_l = leaf_blocks_plain(blk12, ll, lfirst, (ox, oy, oz, dx, dy, dz, t_min),
+                                 (best_t, best_s, best_u, best_v), stats, any_hit)
+        occ[hit_l] = True
+        sp[hit_l] = 0  # an occluded ray leaves the walk
         lanes = torch.nonzero(sp > 0).squeeze(1)
 
     found = best_s >= 0

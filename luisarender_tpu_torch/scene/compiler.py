@@ -11,7 +11,13 @@ leaf size 4), as in the reference: row r of the trace and shade tables is
 original triangle `prim_index[r]`, and a hit's slot is its row. Scenes
 above BRUTE_FORCE_MAX_TRIS triangles also get the cluster kernel's tables
 (`cluster_nodes`, `cluster_tris`; ops/cluster.py build_cluster_tables),
-whose blocks carry each triangle's slot. Spheres that qualify
+whose blocks carry each triangle's slot, and when an opt-in route asks
+for them (ops/subpacket.py and ops/wide8.py ENABLED) and the 8-wide tree
+has at most MAX_SLAB8_NODES nodes, as in the reference, the 8-wide tables
+(`cluster_slab8`, `cluster_meta8`, `cluster_woop`, `cluster_cboxes`).
+Every scene keeps the binary SAH tree (`aabb_min`, `aabb_max`, `skip`,
+`node_first`, `node_count`; `bvh_leaf_size` on the plan), the tree of
+ops/trace.py. Spheres that qualify
 (`analytic_sphere`) are exact quadrics in their own table instead of
 triangles. A scene the fused kernel covers also gets its per-instance
 tables (`arrays["fused"]`, see ops/fused_path.py build_fused_pack).
@@ -30,8 +36,10 @@ from ..accel.native import build_bvh_sah
 from ..accel.traverse import TraceGeometry
 from ..core.device import resolve_device
 from ..core.sampling import build_alias_table
-from ..ops import brute
+from ..ops import brute, subpacket, wide8
 from ..ops.cluster import build_cluster_tables
+from ..ops.subpacket import build_bvh8, build_slab_meta, build_woop_table
+from ..ops.wide8 import build_cluster_boxes
 from ..ops.fused_path import build_fused_pack
 from ..shapes.base import compute_vertex_normals
 from .geometry import build_shade_table
@@ -50,6 +58,8 @@ class ScenePlan:
     spectral_dim: int = 3
     num_spheres: int = 0
     fused_path: bool = False  # the fused kernel covers the scene
+    bvh_leaf_size: int = 4  # triangles a leaf of the binary SAH tree at most
+    bvh8_stack: int = 0  # the 8-wide walk's stack bound; 0 without its tables
 
 
 @dataclass
@@ -68,7 +78,13 @@ class CompiledScene:
         return TraceGeometry(
             num_rows=tr["shade_table"].shape[0],
             tri_table=tr.get("tri_table"), cluster_nodes=tr.get("cluster_nodes"),
-            cluster_tris=tr.get("cluster_tris"), sph=tr.get("sph"),
+            cluster_tris=tr.get("cluster_tris"), cluster_woop=tr.get("cluster_woop"),
+            cluster_slab8=tr.get("cluster_slab8"), cluster_meta8=tr.get("cluster_meta8"),
+            cluster_cboxes=tr.get("cluster_cboxes"), stack8=self.plan.bvh8_stack or None,
+            sph=tr.get("sph"), tri_v0=tr.get("tri_v0"), tri_e1=tr.get("tri_e1"),
+            tri_e2=tr.get("tri_e2"), prim_index=tr.get("prim_index"), aabb_min=tr.get("aabb_min"), aabb_max=tr.get("aabb_max"), skip=tr.get("skip"),
+            node_first=tr.get("node_first"), node_count=tr.get("node_count"),
+            leaf_size=self.plan.bvh_leaf_size,
         )
 
 
@@ -307,8 +323,10 @@ class SceneCompiler:
         inst_blocks = (np.asarray(inst_rows["surface_tag"]) >= 0) | (
             np.asarray(inst_rows["light_tag"]) >= 0
         )
-        # the SAH order of the reference (its builder's default leaf size)
-        prim_index = build_bvh_sah(vertex_p, triangles).prim_index
+        # the SAH order of the reference (its builder's default leaf size);
+        # the tree itself is kept for ops/trace.py, as the reference keeps it
+        bvh = build_bvh_sah(vertex_p, triangles)
+        prim_index = bvh.prim_index
         sorted_tris = triangles[prim_index]
         tv0 = vertex_p[sorted_tris[:, 0]]
         tv1 = vertex_p[sorted_tris[:, 1]]
@@ -337,11 +355,17 @@ class SceneCompiler:
                 "tri_e2": tv2 - tv0,
                 "prim_index": prim_index,
                 "tri_opaque": inst_blocks[tri_inst[prim_index]],
+                "aabb_min": bvh.aabb_min,
+                "aabb_max": bvh.aabb_max,
+                "skip": bvh.skip,
+                "node_first": bvh.node_first,
+                "node_count": bvh.node_count,
                 "shade_table": build_shade_table(
                     vertex_p, vertex_n, vertex_uv, triangles, tri_inst, prim_index
                 ),
             },
         }
+        bvh8_stack = 0
         if num_tris > BRUTE_FORCE_MAX_TRIS:
             canon_of_orig = np.empty(num_tris, np.int64)
             canon_of_orig[prim_index] = np.arange(num_tris)
@@ -350,6 +374,17 @@ class SceneCompiler:
             )
             arrays["trace"]["cluster_nodes"] = nodes
             arrays["trace"]["cluster_tris"] = blocks
+            # the 8-wide tables feed only the opt-in routes, so other renders
+            # skip their build (the Woop blocks are 4x the triangle blocks)
+            table8 = build_bvh8(nodes) if subpacket.ENABLED or wide8.ENABLED else None
+            if table8 is not None and table8.shape[0] <= subpacket.MAX_SLAB8_NODES:
+                slab8, meta8 = build_slab_meta(table8)
+                # at most N8: the kernels' larger stack holds it
+                bvh8_stack = subpacket.stack8_need(meta8)
+                arrays["trace"]["cluster_woop"] = build_woop_table(blocks)
+                arrays["trace"]["cluster_slab8"] = slab8
+                arrays["trace"]["cluster_meta8"] = meta8
+                arrays["trace"]["cluster_cboxes"] = build_cluster_boxes(nodes)
         if sphere_rows:
             # accel/traverse.py sphere table layout
             sph = np.zeros((len(sphere_rows), 16), np.float32)
@@ -375,6 +410,8 @@ class SceneCompiler:
             spectral_dim=self.spectrum.dimension,
             num_spheres=len(sphere_rows),
             fused_path=fused is not None,
+            bvh_leaf_size=int(bvh.leaf_size),
+            bvh8_stack=bvh8_stack,
         )
         return arrays, plan
 

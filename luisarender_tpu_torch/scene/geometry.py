@@ -12,8 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..accel.traverse import intersect_tri
 from ..core import frame as fr
 from ..core.types import Hit, Interaction
+from ..ops import subpacket
 
 # Packed shade-table column layout (SHADE_COLS wide):
 #   0:3   v0        3:6   e1        6:9   e2
@@ -109,6 +111,18 @@ def surface_interaction(arrays, hit: Hit, ray) -> Interaction:
 
     u = hit.bary[..., 0]
     v = hit.bary[..., 1]
+    # The subpacket route (ops/subpacket.py) returns bary = NaN: its Woop
+    # test's u, v are a rearrangement of Moller-Trumbore, so the exact ones
+    # are recomputed here from the winner's shade row, as in the reference,
+    # and only while that route is enabled (every other trace's bary is
+    # exact). Misses and rejected rows get 0, never NaN.
+    if subpacket.ENABLED:
+        recomp = torch.isnan(u)
+        mt_valid, _, u_mt, v_mt = intersect_tri(
+            ray.origin, ray.direction, row[..., 0:3], row[..., 3:6], row[..., 6:9])
+        keep = recomp & valid & mt_valid
+        u = torch.where(recomp, torch.where(keep, u_mt, 0.0), u)
+        v = torch.where(recomp, torch.where(keep, v_mt, 0.0), v)
     w = 1.0 - u - v
     # p = (1-u-v) p0 + u p1 + v p2 = v0 + u e1 + v e2
     p = row[..., 0:3] + u[..., None] * row[..., 3:6] + v[..., None] * row[..., 6:9]

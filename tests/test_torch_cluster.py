@@ -20,19 +20,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import luisarender_tpu as lr
 import luisarender_tpu_torch as lt
-from luisarender_tpu.accel.traverse import TraceGeometry, trace_any_brute, trace_closest_brute
+from luisarender_tpu.accel.traverse import trace_any_brute, trace_closest_brute
 from luisarender_tpu.core.types import Ray
 from luisarender_tpu.ops import cluster_pallas
 from luisarender_tpu_torch import convert, testing
-from luisarender_tpu_torch.accel.native import build_bvh_sah
 from luisarender_tpu_torch.ops import cluster
 from luisarender_tpu_torch.scene.compiler import SceneCompiler, tables_to_device
 
-from torch_parity import require_reference_builder, soup
+from torch_parity import (
+    brute_geom, cluster_case, require_reference_builder, soup_rays, to_torch,
+)
 
 N_RAYS = 1500
 SIZES = [100, 700, 3000]  # one cluster; a small tree; a deeper one
@@ -43,48 +43,9 @@ def reference():
     return require_reference_builder()
 
 
-def _tables(n_tris, seed):
-    """Soup, per-original-triangle opacity, its SAH order (leaf size 4, as
-    the compiler sorts) and the port's cluster tables."""
-    positions, triangles = soup(n_tris, seed)
-    opaque = np.random.default_rng(seed + 6).uniform(size=n_tris) > 0.3
-    order = build_bvh_sah(positions, triangles).prim_index
-    canon = np.empty(n_tris, np.int64)
-    canon[order] = np.arange(n_tris)
-    nodes, tris = cluster.build_cluster_tables(positions, triangles, opaque, canon)
-    return positions, triangles, opaque, order, canon, nodes, tris
-
-
-def _brute_geom(positions, triangles, opaque, order):
-    v0, v1, v2 = (positions[triangles[order, k]] for k in range(3))
-    t = order.shape[0]
-    zero = jnp.zeros(1, jnp.int32)
-    return TraceGeometry(
-        tri_v0=jnp.asarray(v0), tri_e1=jnp.asarray(v1 - v0), tri_e2=jnp.asarray(v2 - v0),
-        prim_index=jnp.arange(t, dtype=jnp.int32), tri_opaque=jnp.asarray(opaque[order]),
-        aabb_min=jnp.zeros((1, 3)), aabb_max=jnp.zeros((1, 3)), skip=zero,
-        node_first=zero, node_count=zero, leaf_size=4, num_tris=t,
-    )
-
-
-def _rays(seed, t_max):
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-0.5, 1.5, (N_RAYS, 3)).astype(np.float32)
-    d = rng.normal(size=(N_RAYS, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    t_min = np.full(N_RAYS, 1e-4, np.float32)
-    t_max = np.full(N_RAYS, t_max, np.float32)
-    t_max[::17] = 0.0  # dead lanes, as the integrators mark them
-    return o, d, t_min, t_max
-
-
-def _torch(*arrays):
-    return [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
-
-
 @pytest.mark.parametrize("n_tris", SIZES)
 def test_cluster_tables_match_reference(reference, n_tris):
-    positions, triangles, opaque, order, canon, nodes, tris = _tables(n_tris, 1)
+    positions, triangles, opaque, order, canon, nodes, tris = cluster_case(n_tris, 1)
     np.testing.assert_array_equal(order, reference.build_bvh_sah(positions, triangles).prim_index)
     ref_nodes, ref_tris = cluster_pallas.build_cluster_tables(positions, triangles, opaque, canon)
     np.testing.assert_array_equal(nodes, ref_nodes)
@@ -96,12 +57,12 @@ def test_cluster_tables_match_reference(reference, n_tris):
 
 @pytest.mark.parametrize("n_tris", SIZES)
 def test_plain_closest_matches_reference_brute(reference, n_tris):
-    positions, triangles, opaque, order, _, nodes, tris = _tables(n_tris, 1)
-    o, d, t_min, t_max = _rays(7, 3e38)
-    ref = trace_closest_brute(_brute_geom(positions, triangles, opaque, order),
+    positions, triangles, opaque, order, _, nodes, tris = cluster_case(n_tris, 1)
+    o, d, t_min, t_max = soup_rays(7, 3e38, N_RAYS)
+    ref = trace_closest_brute(brute_geom(positions, triangles, opaque, order),
                               Ray(*(jnp.asarray(x) for x in (o, d, t_min, t_max))))
     c0 = cluster.closest_launches
-    t, slot, u, v = (x.numpy() for x in cluster.closest(*_torch(o, d, t_min, t_max, nodes, tris)))
+    t, slot, u, v = (x.numpy() for x in cluster.closest(*to_torch(o, d, t_min, t_max, nodes, tris)))
     assert cluster.closest_launches == c0  # CPU tensors: the plain version
     t_ref, bary = np.asarray(ref.t), np.asarray(ref.bary)
     np.testing.assert_array_equal(np.isinf(t), np.isinf(t_ref))
@@ -116,17 +77,17 @@ def test_plain_closest_matches_reference_brute(reference, n_tris):
 
 @pytest.mark.parametrize("n_tris", SIZES)
 def test_plain_any_matches_reference_brute(reference, n_tris):
-    positions, triangles, opaque, order, _, nodes, tris = _tables(n_tris, 2)
-    o, d, t_min, t_max = _rays(9, 1.0)
-    ref = np.asarray(trace_any_brute(_brute_geom(positions, triangles, opaque, order),
+    positions, triangles, opaque, order, _, nodes, tris = cluster_case(n_tris, 2)
+    o, d, t_min, t_max = soup_rays(9, 1.0, N_RAYS)
+    ref = np.asarray(trace_any_brute(brute_geom(positions, triangles, opaque, order),
                                      Ray(*(jnp.asarray(x) for x in (o, d, t_min, t_max)))))
     a0 = cluster.any_launches
-    occ = cluster.any_hit(*_torch(o, d, t_min, t_max, nodes, tris)).numpy()
+    occ = cluster.any_hit(*to_torch(o, d, t_min, t_max, nodes, tris)).numpy()
     assert cluster.any_launches == a0
     np.testing.assert_array_equal(occ, ref)
     assert 0.01 < occ.mean() < 0.9
     # the walk's counts: dead lanes pop nothing, live ones the root at least
-    stats = cluster.walk_plain(*_torch(o, d, t_min, t_max, nodes, tris), True)[5].numpy()
+    stats = cluster.walk_plain(*to_torch(o, d, t_min, t_max, nodes, tris), True)[5].numpy()
     live = t_max > t_min
     assert np.all(stats[~live] == 0) and np.all(stats[live, 0] >= 1)
     assert np.all(stats[:, 2] <= stats[:, 1] * cluster.CLUSTER)
@@ -152,7 +113,7 @@ def _malformed(kind):
 def test_plain_walk_raises_on_malformed_tree(kind, message):
     nodes, tris = _malformed(kind)
     o, d = np.zeros((4, 3), np.float32), np.tile(np.float32([[1.0, 0.0, 0.0]]), (4, 1))
-    args = _torch(o, d, np.zeros(4, np.float32), np.full(4, np.inf, np.float32), nodes, tris)
+    args = to_torch(o, d, np.zeros(4, np.float32), np.full(4, np.inf, np.float32), nodes, tris)
     for fn in (cluster.closest, cluster.any_hit):
         with pytest.raises(RuntimeError, match=message):
             fn(*args)
@@ -172,7 +133,9 @@ def compiled(reference):
     return out
 
 
-TRACE_KEYS = ("prim_index", "tri_v0", "tri_e1", "tri_e2", "tri_opaque", "shade_table")
+# the triangle rows, the shade table and the binary SAH tree (ops/trace.py)
+TRACE_KEYS = ("prim_index", "tri_v0", "tri_e1", "tri_e2", "tri_opaque", "shade_table",
+              "aabb_min", "aabb_max", "skip", "node_first", "node_count")
 
 
 @pytest.mark.parametrize("name,n_tris", [("cornell", 32), ("cornell_sphere", 1312)])
@@ -185,7 +148,7 @@ def test_compiled_scene_matches_reference(compiled, name, n_tris):
     assert plan.num_tris == ref.plan.num_tris == n_tris
     assert plan.fused_path == ref.plan.fused_path == (n_tris <= 64)
     # the reference's tables carried across are the port's own
-    conv, conv_plan = convert.convert_tables(arrays, *names)
+    conv, conv_plan = convert.convert_tables(arrays, *names, ref.plan.bvh_leaf_size)
     assert conv_plan == plan
     for k in keys:
         np.testing.assert_array_equal(conv["trace"][k], port["trace"][k], k)

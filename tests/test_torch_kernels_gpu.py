@@ -1,8 +1,10 @@
 """The CUDA kernels of luisarender_tpu_torch/csrc held against their plain
 PyTorch versions, on a CUDA card: the brute-force traces (brute.cu against
 ops/brute.py), the cluster traces (cluster.cu against ops/cluster.py
-walk_plain) and the fused whole-path kernel (fused_path.cu against
-ops/fused_path.py paths_plain).
+walk_plain), the 8-wide traces (wide8.cu and subpacket.cu against
+ops/wide8.py wide8_plain and ops/subpacket.py subpacket_plain), the
+binary-tree trace (trace.cu against ops/trace.py walk_plain) and the fused
+whole-path kernel (fused_path.cu against ops/fused_path.py paths_plain).
 
 Marked `gpu`; every test skips where no card is present. On a machine with
 a card and without JAX:
@@ -12,10 +14,9 @@ a card and without JAX:
 (--noconftest: tests/conftest.py configures JAX for the CPU suite.)
 
 Kernel and plain version do the same IEEE float32 operations in the same
-order (nvcc --fmad=false, no fast math), so the brute-force and cluster
-traces must agree exactly: slots and occlusion bit for bit, and t / u / v
-bit for bit too (the cluster walk's per-ray pop, leaf and row counts as
-well). The fused kernel also calls sinf / cosf / powf / expf / logf, which
+order (nvcc --fmad=false, no fast math), so the traces must agree
+exactly: slots and occlusion bit for bit, and t / u / v bit for bit too
+(the tree walks' per-ray pop, leaf and row counts as well). The fused kernel also calls sinf / cosf / powf / expf / logf, which
 CUDA and PyTorch need not round alike, so whole paths are held with the
 reference's rule (tests/test_fused_path.py:108-110): ray counts within 4,
 under 2% of lanes off by more than 1e-3.
@@ -249,3 +250,165 @@ def test_fused_wrapper_rejects_bad_inputs(cuda):
         fp.paths(tables._replace(inst=tables.inst.repeat(6, 1)), cam, pxy, 0, **kw)
     rgb, rays = fp.paths(tables, cam, pxy[:0], 0, **kw)
     assert rgb.shape == (0, 3) and rays.shape == (0,)
+
+
+def _bvh8_case(cuda, n_tris, n_rays, seed):
+    """The cluster case's rays and tables with the 8-wide tables beside
+    them: (o, d, t_min, t_max), (slab8, meta8, cboxes, tris, woop)."""
+    from luisarender_tpu_torch.ops import subpacket, wide8
+
+    _, (o, d, t_min, t_max, nodes, tris) = _cluster_case(cuda, n_tris, n_rays, seed)
+    nodes_np, tris_np = nodes.cpu().numpy(), tris.cpu().numpy()
+    slab8, meta8 = subpacket.build_slab_meta(subpacket.build_bvh8(nodes_np))
+    cboxes = wide8.build_cluster_boxes(nodes_np)
+    woop = subpacket.build_woop_table(tris_np)
+    return (o, d, t_min, t_max), (*_to(cuda, slab8, meta8, cboxes), tris, *_to(cuda, woop))
+
+
+def _same_walk(launch, args, any_hit, want, cuda):
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = torch.zeros_like(want)
+    launch(*args, any_hit, err, got)
+    torch.cuda.synchronize()
+    assert int(err.item()) == 0
+    assert torch.equal(got, want)
+
+
+def _deep_case(cuda, n_rays):
+    """torch_parity.deep_bvh8's tree, whose stack bound (141) takes the
+    kernels' larger stack, and rays through it, a fifth with t_max 0.5."""
+    from torch_parity import deep_bvh8, soup_rays
+
+    slab8, meta8, cboxes, tris, woop, _, _ = deep_bvh8()
+    o, d, t_min, t_max = soup_rays(19, 3e38, n_rays)
+    t_max[1::5] = 0.5
+    return _to(cuda, o, d, t_min, t_max), _to(cuda, slab8, meta8, cboxes, tris, woop)
+
+
+@pytest.mark.parametrize("n_tris,n_rays", [(100, 1000), (8000, 100_003), (0, 20_000)],
+                         ids=["one_node", "t8000_ragged", "deep_tree"])
+def test_bvh8_kernels_match_plain(cuda, n_tris, n_rays):
+    from luisarender_tpu_torch.ops import subpacket, wide8
+
+    if n_tris:
+        rays, (slab8, meta8, cboxes, tris, woop) = _bvh8_case(cuda, n_tris, n_rays, 13)
+    else:
+        rays, (slab8, meta8, cboxes, tris, woop) = _deep_case(cuda, n_rays)
+        assert subpacket.stack8_need(meta8.cpu().numpy()) > subpacket.STACKS8[0]
+    w_args = (*rays, slab8, meta8, cboxes, tris)
+    s_args = (*rays, slab8, meta8, woop)
+    counts = (wide8.closest_launches, wide8.any_launches, subpacket.closest_launches,
+              subpacket.any_launches)
+    kern_w = wide8.closest(*w_args)
+    occ_w = wide8.any_hit(*w_args)
+    kern_s = subpacket.closest(*s_args)
+    occ_s = subpacket.any_hit(*s_args)
+    torch.cuda.synchronize()
+    assert (wide8.closest_launches, wide8.any_launches, subpacket.closest_launches,
+            subpacket.any_launches) == tuple(c + 1 for c in counts)
+    st = wide8.wide8_plain(*w_args, False)
+    _assert_same(kern_w, (torch.where(st.best_s >= 0, st.best_t, math.inf), st.best_s,
+                          st.best_u, st.best_v))
+    _same_walk(wide8.launch, w_args, False, st.stats, cuda)
+    st_any = wide8.wide8_plain(*w_args, True)
+    assert torch.equal(occ_w, st_any.occ)
+    _same_walk(wide8.launch, w_args, True, st_any.stats, cuda)
+    t, slot = subpacket.closest_plain(*s_args)
+    assert torch.equal(kern_s[1], slot) and torch.equal(kern_s[0], t)
+    assert bool(torch.isnan(kern_s[2]).all() and torch.isnan(kern_s[3]).all())
+    _same_walk(subpacket.launch, s_args, False, subpacket.subpacket_plain(*s_args, False).stats,
+               cuda)
+    st_any = subpacket.subpacket_plain(*s_args, True)
+    assert torch.equal(occ_s, st_any.occ)
+    _same_walk(subpacket.launch, s_args, True, st_any.stats, cuda)
+    assert 0.01 < (kern_w[1] >= 0).float().mean().item() < 0.95
+    assert 0.01 < occ_w.float().mean().item() < 0.95
+
+
+def test_bvh8_wrappers_raise_on_bad_inputs_and_trees(cuda):
+    from luisarender_tpu_torch.ops import subpacket, wide8
+    from torch_parity import malformed_bvh8
+
+    (o, d, t_min, t_max), (slab8, meta8, cboxes, tris, woop) = _bvh8_case(cuda, 700, 256, 14)
+    for mod, leaf in ((wide8, (cboxes, tris)), (subpacket, (woop,))):
+        with pytest.raises(TypeError):
+            mod.closest(o.double(), d, t_min, t_max, slab8, meta8, *leaf)
+        with pytest.raises(ValueError):
+            mod.any_hit(o, d, t_min, t_max, slab8[:, :6].contiguous(), meta8, *leaf)
+        with pytest.raises(ValueError):
+            mod.closest(o.cpu(), d, t_min, t_max, slab8, meta8, *leaf)
+        out = mod.closest(o[:0], d[:0], t_min[:0], t_max[:0], slab8, meta8, *leaf)
+        assert out[1].shape == (0,)
+    ray = torch.zeros((4, 3), device=cuda)
+    x = torch.tensor([[1.0, 0.0, 0.0]], device=cuda).repeat(4, 1)
+    rays = (ray, x, torch.zeros(4, device=cuda), torch.full((4,), math.inf, device=cuda))
+    for kind, message in (("steps", "pops"), ("stack", "stack deeper"),
+                          ("deep", "stack deeper"), ("index", "out of range")):
+        slab8_bad, meta8_bad, stack = malformed_bvh8(kind)
+        bad = _to(cuda, slab8_bad, meta8_bad)
+        for fn, leaf in ((wide8.closest, (cboxes[:1].contiguous(), tris[:1].contiguous())),
+                         (wide8.any_hit, (cboxes[:1].contiguous(), tris[:1].contiguous())),
+                         (subpacket.closest, (woop[:1].contiguous(),)),
+                         (subpacket.any_hit, (woop[:1].contiguous(),))):
+            with pytest.raises(RuntimeError, match=message):
+                fn(*rays, *bad, *leaf, stack=stack)
+
+
+def _trace_case(cuda, n_tris, n_rays, seed):
+    from luisarender_tpu_torch.accel.native import build_bvh_sah
+    from luisarender_tpu_torch.accel.traverse import TraceGeometry
+    from luisarender_tpu_torch.ops import trace
+    from torch_parity import soup
+
+    positions, triangles = soup(n_tris, seed)
+    bvh = build_bvh_sah(positions, triangles)
+    srt = triangles[bvh.prim_index]
+    v0, v1, v2 = (positions[srt[:, k]] for k in range(3))
+    arrays = {"tri_v0": v0, "tri_e1": v1 - v0, "tri_e2": v2 - v0,
+              "prim_index": bvh.prim_index, "aabb_min": bvh.aabb_min,
+              "aabb_max": bvh.aabb_max, "skip": bvh.skip, "node_first": bvh.node_first,
+              "node_count": bvh.node_count}
+    nodes, tris = trace.pack_tables(TraceGeometry(
+        num_rows=n_tris, **{k: torch.as_tensor(v, device=cuda) for k, v in arrays.items()}))
+    _, (o, d, t_min, t_max, _, _) = _cluster_case(cuda, 100, n_rays, seed)
+    return trace, (o, d, t_min, t_max, nodes, tris, bvh.leaf_size)
+
+
+@pytest.mark.parametrize("n_tris,n_rays", [(100, 1000), (8000, 100_003)],
+                         ids=["small", "t8000_ragged"])
+def test_trace_kernel_matches_plain(cuda, n_tris, n_rays):
+    trace, args = _trace_case(cuda, n_tris, n_rays, 15)
+    l0 = trace.launches
+    kern = trace.closest(*args)
+    torch.cuda.synchronize()
+    assert trace.launches == l0 + 1
+    t, prim, u, v, stats = trace.walk_plain(*args)
+    _assert_same(kern, (t, prim, u, v))
+    assert 0.01 < (kern[1] >= 0).float().mean().item() < 0.95
+    err = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+    got = torch.zeros_like(stats)
+    trace.launch(*args, err, got)
+    torch.cuda.synchronize()
+    assert int(err.item()) == 0 and torch.equal(got, stats)
+
+
+def test_trace_wrapper_raises_on_bad_inputs_and_trees(cuda):
+    from torch_parity import malformed_tree
+
+    trace, (o, d, t_min, t_max, nodes, tris, leaf_size) = _trace_case(cuda, 700, 256, 16)
+    with pytest.raises(TypeError):
+        trace.closest(o.double(), d, t_min, t_max, nodes, tris, leaf_size)
+    with pytest.raises(ValueError):
+        trace.closest(o, d, t_min, t_max, nodes[:, :8].contiguous(), tris, leaf_size)
+    with pytest.raises(ValueError):
+        trace.closest(o.cpu(), d, t_min, t_max, nodes, tris, leaf_size)
+    assert trace.closest(o[:0], d[:0], t_min[:0], t_max[:0], nodes, tris,
+                         leaf_size)[1].shape == (0,)
+    ray = torch.zeros((4, 3), device=cuda)
+    x = torch.tensor([[1.0, 0.0, 0.0]], device=cuda).repeat(4, 1)
+    rays = (ray, x, torch.zeros(4, device=cuda), torch.full((4,), math.inf, device=cuda))
+    for kind, message in (("steps", "pops"), ("stack", "stack deeper"),
+                          ("deep", "stack deeper"), ("index", "out of range")):
+        nodes_bad, tris_bad, stack = malformed_tree(kind)
+        with pytest.raises(RuntimeError, match=message):
+            trace.closest(*rays, *_to(cuda, nodes_bad, tris_bad), 4, stack=stack)

@@ -1,5 +1,7 @@
 """Helpers of the port's parity tests (tests/test_torch_*.py): the
-reference's native SAH builder, and the inputs those tests share.
+reference's native SAH builder, and the inputs those tests share (random
+triangle soups, their cluster tables, rays, and the reference's brute-force
+trace geometry over the same SAH-ordered rows).
 
 Importing it also leaves torch one intra-op thread: the suite runs under
 pytest-xdist with a worker for nearly every core, and torch's threads on
@@ -49,3 +51,174 @@ def soup(n_tris, seed=1):
     idx = np.arange(n_tris)
     triangles = np.stack([idx, idx + n_tris, idx + 2 * n_tris], 1).astype(np.int32)
     return positions, triangles
+
+
+def cluster_case(n_tris, seed):
+    """Soup, per-original-triangle opacity, its SAH order (leaf size 4, as
+    the compiler sorts), each original triangle's slot in it and the port's
+    cluster tables (nodes, blocks)."""
+    from luisarender_tpu_torch.accel.native import build_bvh_sah
+    from luisarender_tpu_torch.ops import cluster
+
+    positions, triangles = soup(n_tris, seed)
+    opaque = np.random.default_rng(seed + 6).uniform(size=n_tris) > 0.3
+    order = build_bvh_sah(positions, triangles).prim_index
+    canon = np.empty(n_tris, np.int64)
+    canon[order] = np.arange(n_tris)
+    nodes, tris = cluster.build_cluster_tables(positions, triangles, opaque, canon)
+    return positions, triangles, opaque, order, canon, nodes, tris
+
+
+def brute_geom(positions, triangles, opaque, order):
+    """The reference's TraceGeometry for its brute-force traces over the
+    rows in SAH order, so that its hit slots are the port's."""
+    import jax.numpy as jnp
+    from luisarender_tpu.accel.traverse import TraceGeometry
+
+    v0, v1, v2 = (positions[triangles[order, k]] for k in range(3))
+    t = order.shape[0]
+    zero = jnp.zeros(1, jnp.int32)
+    return TraceGeometry(
+        tri_v0=jnp.asarray(v0), tri_e1=jnp.asarray(v1 - v0), tri_e2=jnp.asarray(v2 - v0),
+        prim_index=jnp.arange(t, dtype=jnp.int32), tri_opaque=jnp.asarray(opaque[order]),
+        aabb_min=jnp.zeros((1, 3)), aabb_max=jnp.zeros((1, 3)), skip=zero,
+        node_first=zero, node_count=zero, leaf_size=4, num_tris=t,
+    )
+
+
+def soup_rays(seed, t_max, n_rays=1500):
+    """Rays through the soup's cube (o, d, t_min, t_max) as float32 numpy,
+    every 17th lane dead (t_max = 0), as the integrators mark them."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.5, 1.5, (n_rays, 3)).astype(np.float32)
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_min = np.full(n_rays, 1e-4, np.float32)
+    t_max = np.full(n_rays, t_max, np.float32)
+    t_max[::17] = 0.0
+    return o, d, t_min, t_max
+
+
+def reference_ray(o, d, t_min, t_max):
+    import jax.numpy as jnp
+    from luisarender_tpu.core.types import Ray
+
+    return Ray(*(jnp.asarray(x) for x in (o, d, t_min, t_max)))
+
+
+def to_torch(*arrays):
+    return [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
+
+
+def count_calls(monkeypatch, *modules):
+    """Count the calls of each module's `closest` and `any_hit` trace
+    wrappers: {(module name, function): calls}. On the CPU the wrappers run
+    their plain versions and count no launch, so a test reads the route
+    from these."""
+    calls = {}
+    for mod in modules:
+        name = mod.__name__.rsplit(".", 1)[-1]
+        for fn in ("closest", "any_hit"):
+            calls[(name, fn)] = 0
+
+            def counted(*a, _orig=getattr(mod, fn), _key=(name, fn)):
+                calls[_key] += 1
+                return _orig(*a)
+            monkeypatch.setattr(mod, fn, counted)
+    return calls
+
+
+def malformed_bvh8(kind):
+    """8-wide tables (slab8, meta8; ops/subpacket.py) and the stack bound to
+    pass (None: computed from the tree) of a tree that loops (node 1's one
+    child is node 1), one whose walk outgrows the bound it is given (24
+    nodes, all 8 children of node k are node k + 1, a bound of 16 entries
+    where the walk needs 7 D + 1 at depth D), one whose own bound is past
+    the kernels' largest stack (the same shape, 300 nodes: 2,094 entries),
+    and one whose child index is past its end; every box holds the rays."""
+    n8 = {"stack": 24, "deep": 300}.get(kind, 2)
+    slab8 = np.zeros((n8, 8, 128), np.float32)
+    meta8 = np.zeros((n8, 16), np.float32)
+    for a in range(3):
+        slab8[:, a, 16 * a:16 * a + 8] = -10.0  # low planes
+        slab8[:, a, 16 * a + 8:16 * a + 16] = 10.0  # high planes
+        slab8[:, 3 + a, 16 * a:16 * a + 16] = 1.0
+    if kind in ("stack", "deep"):
+        meta8[:-1, 0:8] = np.arange(1, n8, dtype=np.float32)[:, None]
+        meta8[-1, 0] = -1.0  # the last node: one leaf child, cluster 0
+        meta8[-1, 8] = 4.0
+    else:
+        meta8[0, 0] = 1.0
+        meta8[1, 0] = 1.0 if kind == "steps" else 5.0
+    return slab8, meta8, (16 if kind == "stack" else None)
+
+
+def deep_bvh8(levels=20, seed=3):
+    """A deep, bushy 8-wide tree over one triangle a cluster, built with
+    ops/subpacket.py build_slab_meta / build_woop_table: a spine of `levels`
+    nodes, each with the next as a child and 7 twigs beside it (the last
+    with 8), each twig one leaf cluster. Interior boxes hold the whole
+    scene, so a ray that enters pushes every interior child and the walk
+    needs its whole bound, 7 levels + 1 = 141 entries at 20 levels, past
+    the kernels' smaller stack (128). Returns (slab8, meta8, cboxes (C, 8),
+    triangle blocks (C, 16, 128), woop, positions (3C, 3), triangles (C,
+    3)): cluster c holds triangle c, whose slot is c."""
+    from luisarender_tpu_torch.ops import cluster, subpacket
+
+    rng = np.random.default_rng(seed)
+    n_twigs = 7 * (levels - 1) + 8
+    c = rng.uniform(0, 1, (n_twigs, 1, 3)).astype(np.float32)
+    v = (c + rng.normal(0, 0.1, (n_twigs, 3, 3))).astype(np.float32)
+    lo, hi = v.min(1), v.max(1)
+    table8 = np.zeros((levels + n_twigs, 64), np.float32)
+    table8[:, 0::8], table8[:, 3::8] = cluster._BIG, -cluster._BIG  # empty slots
+
+    def child(node, slot, box_lo, box_hi, code):
+        table8[node, 8 * slot:8 * slot + 3] = box_lo
+        table8[node, 8 * slot + 3:8 * slot + 6] = box_hi
+        table8[node, 8 * slot + 6] = code
+
+    twig = 0
+    for s in range(levels):
+        k = 0
+        if s + 1 < levels:
+            child(s, 0, -1.0, 2.0, s + 1)
+            k = 1
+        for slot in range(k, 8):
+            child(s, slot, -1.0, 2.0, levels + twig)
+            child(levels + twig, 0, lo[twig], hi[twig], -twig - 1.0)
+            twig += 1
+    slab8, meta8 = subpacket.build_slab_meta(table8)
+    tris = np.zeros((n_twigs, cluster.TRI_COLS, cluster.CLUSTER), np.float32)
+    tris[:, 0:3, 0] = v[:, 0]
+    tris[:, 3:6, 0] = v[:, 1] - v[:, 0]
+    tris[:, 6:9, 0] = v[:, 2] - v[:, 0]
+    tris[:, 9:11, 0] = 1.0  # valid, opaque
+    tris[:, 11, 0] = np.arange(n_twigs)
+    cboxes = np.zeros((n_twigs, 8), np.float32)
+    cboxes[:, 0:3], cboxes[:, 3:6] = lo, hi
+    positions = v.transpose(1, 0, 2).reshape(-1, 3)
+    idx = np.arange(n_twigs)
+    triangles = np.stack([idx, idx + n_twigs, idx + 2 * n_twigs], 1).astype(np.int32)
+    return (slab8, meta8, cboxes, tris, subpacket.build_woop_table(tris), positions,
+            triangles)
+
+
+def malformed_tree(kind):
+    """ops/trace.py node and triangle tables and the stack bound to pass
+    (None: computed from the tree) of a tree that loops (node 1's right
+    sibling is the root), one whose walk outgrows the bound it is given (a
+    chain of 70 nodes, each pushing its left child twice, and a bound of
+    16), one whose own bound is past the kernel's largest stack (the same
+    chain, 600 nodes), and one whose right child lies past its end; every
+    box holds the rays, one triangle row."""
+    n = {"stack": 70, "deep": 600}.get(kind, 2)
+    nodes = np.zeros((n, 16), np.float32)
+    nodes[:, 0:3], nodes[:, 3:6] = -10.0, 10.0
+    nodes[:, 6] = np.arange(n)  # skip of node k + 1 = k + 1: left = right
+    nodes[-1, 7] = 1.0  # the last node is a leaf of row 0
+    if kind == "steps":
+        nodes[1, 6] = 0.0
+    elif kind == "index":
+        nodes[1, 6] = 5.0
+    return nodes, np.zeros((1, 16), np.float32), (16 if kind == "stack" else None)
