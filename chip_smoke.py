@@ -7,17 +7,24 @@ Phases, one JSON line each; any failure exits non-zero before the result:
   1 card     the device name and count, and nvidia-smi's name and power limit
   2 build    nvcc builds every kernel source of luisarender_tpu_torch/csrc
              (one nvcc per source, all started together, with g++ building
-             the SAH builder beside them)
+             the SAH builder beside them); ptxas's registers, static shared
+             memory and spills per kernel, and the fused kernel's dynamic
+             shared memory (its slot pool) and blocks per SM
   3 kernels  the brute-force traces against their plain PyTorch versions on
              the general fork's inputs (camera rays, one bounce of real rays
              and their shadow rays, 512^2 Cornell) and on a random 512-row
              table with a ragged ray count: slots, occlusion, t, u and v
              bit for bit. The fused kernel against its plain version on one
              512^2 sample of scenes/materials.json (depth 10) and of
-             scenes/cornell.json (depth 8): ray counts within 4, under 2% of
-             lanes off by more than 1e-3 (the share bit-equal reported);
-             its persistent mode (4 samples a launch) equal to the sum of 4
-             one-sample launches within 1e-6. The cluster traces against
+             scenes/cornell.json (depth 8), and on a pass of 4 samples of
+             each (persistent mode): rgb and ray counts bit for bit on every
+             lane, and 20 launches queued back to back equal to the first;
+             the persistent pass within 1e-6 of the sum of 4
+             one-sample launches; its lane use from the kernel's counters
+             beside the path-length SIMT share of one thread a pixel, and
+             its bound with shading counted per surface type and, as this
+             script counted it before, as matte for every lane. The cluster
+             traces against
              their plain version on the full mesh-heavy scene (512,004
              triangles: camera rays, bounce-1 rays and the shadow rays of
              both bounces, 1280 x 720) and on a random 3,000-triangle soup
@@ -115,10 +122,20 @@ FLOPS_PER_NODE = 20
 # ... of one Woop row test (ops/subpacket.py woop_tests), a fused
 # multiply-add counted as 2: o' 3 x 6, d' 3 x 5, t 1, u 2, v 2, u + v 1
 FLOPS_PER_WOOP_ROW = 39
-# float operations of one bounce's shading, counted from the kernel's code on
-# its cheapest surface (matte): interaction, emission, frame, NEE light
-# sample and shadow-ray spawn, two BSDF evaluations, one BSDF sample, the
-# continuation ray, throughput and roulette
+# float operations of one bounce's shading, counted by hand from
+# csrc/fused_path.cu (+, -, *, /, sqrt and each transcendental one
+# operation; where a draw picks one of several lobes, the cheapest): the
+# part every surface type runs (interaction, emission, frame, NEE light
+# sample and shadow-ray spawn, the continuation ray, throughput and
+# roulette), and per type its two BSDF evaluations and one sample
+FLOPS_SHADE_COMMON = 330
+FLOPS_BSDF = {"matte": 70, "mirror": 367, "metal": 511, "plastic": 480, "glass": 703,
+              "disney": 544}
+# the surface types' codes in the instance table (ops/fused_bsdf.py ST_*)
+SURFACE_TYPES = {0: "matte", 1: "mirror", 2: "metal", 3: "plastic", 4: "glass", 6: "disney"}
+# every shaded lane counted as matte (FLOPS_SHADE_COMMON + FLOPS_BSDF["matte"]),
+# the bound this script gave before it counted types; fused_bound reports it
+# beside the typed one, so the two stay comparable
 FLOPS_SHADE_BOUNCE = 400
 # clock cycles of the spin kernel that the timed launches queue behind:
 # ~0.1 s at the H100's 1.98 GHz boost clock
@@ -392,22 +409,39 @@ def phase_brute_kernels(torch, lt, brute, device):
     return results
 
 
+def simt_share(lane_bounces):
+    """The share of lane-slots a one-thread-per-pixel kernel would issue to
+    live paths: lanes in warps of 32 in pixel order, each warp running as
+    many bounce iterations as its longest-running lane."""
+    b = lane_bounces.double()
+    b = np.pad(b.cpu().numpy(), (0, -b.shape[0] % 32)).reshape(-1, 32)
+    return float(b.sum() / (32 * b.max(1).sum()))
+
+
 def fused_work(torch, fp, tables, cam, pxy, n_samples, kw):
     """The plain version's run, timed with CUDA events, with the work the
-    kernel must do counted: closest rays, the lanes shaded, and shadow rays
-    (occluded ones, which the kernel stops at their first occluder, count
-    one row)."""
+    kernel must do counted: closest rays, the lanes shaded (and those at a
+    surface by its type), and shadow rays (occluded ones, which the kernel
+    stops at their first occluder, count one row); and the path-length
+    SIMT share of one thread a pixel in pixel order (simt_share)."""
     counts = {"closest": 0, "shaded": 0, "shadow_open": 0, "shadow_occluded": 0}
+    by_type = torch.zeros(8, dtype=torch.int64, device=pxy.device)
+    lane_bounces = torch.zeros(pxy.shape[0], dtype=torch.int64, device=pxy.device)
     orig_bounce, orig_closest, orig_occ = fp._Plain.bounce, fp._Plain.closest, fp._Plain.occluded
 
     def bounce(self, s, dep, nrays):
         self._active = s["active"]
         counts["closest"] += int(s["active"].sum())
+        lane_bounces.add_(s["active"].long())
         return orig_bounce(self, s, dep, nrays)
 
     def closest(self, o, d, tmin, tmax):
         out = orig_closest(self, o, d, tmin, tmax)
-        counts["shaded"] += int((out[0] & self._active).sum())
+        hit = out[0] & self._active
+        counts["shaded"] += int(hit.sum())
+        rows = tables.inst[out[6].long().clamp(0, tables.inst.shape[0] - 1)]
+        surf = hit & (rows[:, 18] > 0.5)
+        by_type.add_(torch.bincount(rows[surf, 0].long(), minlength=8)[:8])
         return out
 
     def occluded(self, so, sd, s_tmax):
@@ -428,79 +462,127 @@ def fused_work(torch, fp, tables, cam, pxy, n_samples, kw):
         plain_ms = start.elapsed_time(end)
     finally:
         fp._Plain.bounce, fp._Plain.closest, fp._Plain.occluded = orig_bounce, orig_closest, orig_occ
+    counts["shaded_by_type"] = {name: int(by_type[code]) for code, name in SURFACE_TYPES.items()
+                                if int(by_type[code])}
+    counts["simt_share_pixel_order"] = simt_share(lane_bounces)
     return out, counts, plain_ms
 
 
 def fused_bound(tables, counts, n):
-    """(bound_ms, bound_by, flops): operations over fp32 peak; the bytes
-    (pixel ids in, rgb and a ray count out, 24 B a lane) are negligible."""
+    """The least time of the fused kernel's work: operations over fp32 peak
+    (the bytes, pixel ids in and rgb and a ray count out, 24 B a lane, are
+    negligible). Shading is counted per surface type of the shaded lanes
+    (FLOPS_BSDF); `matte_*` counts every shaded lane as matte (the earlier
+    bound). Returns {bound_ms, bound_by, flops, matte_bound_ms, matte_flops}."""
     tri = tables.tri
     rows = int((tri[:, 9] != 0).sum())
     shadow_rows = int(((tri[:, 9] != 0) & (tri[:, 10] != 0)).sum())
     n_sph = tables.sph.shape[0]
-    flops = (counts["closest"] * (rows * FLOPS_PER_ROW + n_sph * FLOPS_PER_SPHERE)
-             + counts["shaded"] * FLOPS_SHADE_BOUNCE
+    trace = (counts["closest"] * (rows * FLOPS_PER_ROW + n_sph * FLOPS_PER_SPHERE)
              + counts["shadow_open"] * (shadow_rows * FLOPS_PER_ROW + n_sph * FLOPS_PER_SPHERE)
              + counts["shadow_occluded"] * FLOPS_PER_ROW)
-    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    flops = trace + sum(k * (FLOPS_SHADE_COMMON + FLOPS_BSDF[name])
+                        for name, k in counts["shaded_by_type"].items())
+    matte = trace + counts["shaded"] * FLOPS_SHADE_BOUNCE
     t_bytes = n * 24 / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("bytes" if t_bytes > t_ops else "operations"), flops
+    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "flops": flops, "matte_bound_ms": max(matte / PEAK_FP32_PER_S * 1e3, t_bytes),
+            "matte_flops": matte}
+
+
+def lane_use(stats):
+    """The fused kernel's counters (ops/fused_path.py STATS) as shares: live
+    lanes of the trace phase's lane-slots, surface-shaded lanes of the shade
+    phase's, and distinct shade keys a warp pass."""
+    from luisarender_tpu_torch.ops.fused_path import STATS
+
+    c = dict(zip(STATS, (int(x) for x in stats.tolist())))
+    c["trace_lane_share"] = c["traced"] / max(c["lane_slots"], 1)
+    c["shade_lane_share"] = c["shaded"] / max(c["shade_slots"], 1)
+    c["keys_per_warp_pass"] = c["keys"] / max(c["shade_slots"] // 32, 1)
+    return c
+
+
+def fused_case(torch, lt, fp, path, depth, device):
+    """(tables, camera parameters, pixel grid, keyword arguments) of one
+    fused scene file at its own resolution and the given depth."""
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+
+    scene = lt.load_scene(str(path))
+    compiled = lt.compile_scene(scene, device=device)
+    check(compiled.plan.fused_path, f"{path.name}: the fused kernel does not cover it")
+    cam = fp.camgen_params(scene.cameras[0], scene.integrator.sampler.seed)
+    w, h = scene.cameras[0].film.resolution
+    kw = dict(max_depth=depth, rr_depth=scene.integrator.rr_depth,
+              rr_threshold=scene.integrator.rr_threshold)
+    return fp.fused_tables(compiled), cam, pixel_grid(w, h, device), kw
+
+
+def bit_equal(torch, what, rgb_k, rays_k, rgb_p, rays_p):
+    """Kernel against plain on every lane: rgb and ray counts bit for bit
+    (both do the same float32 operations in the same order per lane). Returns
+    (share of lanes bit-equal, max |d rgb|, lanes whose ray count differs)."""
+    share = float((rgb_k == rgb_p).all(-1).float().mean())
+    err = float((rgb_k - rgb_p).abs().max())
+    rays_off = int((rays_k != rays_p).sum())
+    check(share == 1.0 and err == 0.0 and rays_off == 0,
+          f"{what}: {share:.6f} of lanes bit-equal, max |d rgb| {err}, "
+          f"{rays_off} lanes with other ray counts")
+    return share, err, rays_off
 
 
 def phase_fused_kernel(torch, lt, fp, device):
-    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
-
+    """The fused kernel on one 512^2 sample of materials (depth 10) and
+    cornell (depth 8), and on a pass of 4 samples (persistent mode): bit for
+    bit against the plain version on every lane, the persistent pass within
+    1e-6 of the sum of 4 one-sample launches; times, bounds (typed and
+    matte-only), and lane use from the kernel's counters beside the
+    path-length SIMT share of one thread a pixel (from the plain version)."""
     results = {}
     for path, depth in ((MATERIALS, 10), (MAIN_SCENE, 8)):
-        scene = lt.load_scene(str(path))
-        compiled = lt.compile_scene(scene, device=device)
-        check(compiled.plan.fused_path, f"{path.name}: the fused kernel does not cover it")
-        tables = fp.fused_tables(compiled)
-        cam = fp.camgen_params(scene.cameras[0], scene.integrator.sampler.seed)
-        w, h = scene.cameras[0].film.resolution
-        pxy = pixel_grid(w, h, device)
-        kw = dict(max_depth=depth, rr_depth=scene.integrator.rr_depth,
-                  rr_threshold=scene.integrator.rr_threshold)
-        rgb_k, rays_k = fp.paths(tables, cam, pxy, 0, 0, **kw)
-        torch.cuda.synchronize()
-        (rgb_p, rays_p), counts, _ = fused_work(torch, fp, tables, cam, pxy, 0, kw)
-        rays_diff = abs(int(rays_k.sum()) - int(rays_p.sum()))
-        off = frac_off(rgb_k.cpu(), rgb_p.cpu())
-        bit_equal = float((rgb_k == rgb_p).all(-1).float().mean())
-        max_err = float((rgb_k - rgb_p).abs().max())
-        check(rays_diff <= 4, f"fused {path.name}: ray counts differ by {rays_diff}")
-        check(off < 0.02, f"fused {path.name}: {off:.4f} of lanes off by more than 1e-3")
-        check(bool(torch.isfinite(rgb_k).all()) and float(rgb_k.mean()) > 0.0,
-              f"fused {path.name}: non-finite or black")
-        ms = device_ms(torch, lambda: fp.paths(tables, cam, pxy, 0, 0, **kw), iters=20)
-        prof = profile_one(torch, lambda: fp.paths(tables, cam, pxy, 0, 0, **kw),
-                           ("fused_path_kernel",), 20)
-        plain_ms = events_ms(torch, lambda: fp.paths_plain(tables, cam, pxy, 0, 0, **kw), iters=1)
-        bound_ms, bound_by, flops = fused_bound(tables, counts, pxy.shape[0])
-
-        # persistent: 4 samples in one launch == the sum of 4 launches
-        tot = sum(fp.paths(tables, cam, pxy, s, 0, **kw)[0] for s in range(4))
-        rgb4, rays4 = fp.paths(tables, cam, pxy, 0, 4, **kw)
-        torch.cuda.synchronize()
-        pers_err = float((rgb4 - tot).abs().max())
-        check(pers_err <= 1e-6, f"persistent {path.name}: off the summed samples by {pers_err}")
-        ms4 = device_ms(torch, lambda: fp.paths(tables, cam, pxy, 0, 4, **kw), iters=10)
-        (rgb4_p, _), counts4, plain4_ms = fused_work(torch, fp, tables, cam, pxy, 4, kw)
-        pers_plain_err = float((rgb4 - rgb4_p).abs().max())
-        bound4_ms, bound4_by, flops4 = fused_bound(tables, counts4, pxy.shape[0])
-        rec = {
-            "phase": "kernels", "kernel": "fused_path", "scene": path.name,
-            "n": pxy.shape[0], "depth": depth, "rays": int(rays_k.sum()),
-            "rays_plain": int(rays_p.sum()), "frac_lanes_off": off,
-            "share_bit_equal": bit_equal, "max_abs_err": max_err, "work": counts,
-            "flops": flops, "ms": ms, "profiler_ms": prof["kernels_ms"],
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "persistent": {"samples": 4, "max_abs_err_vs_sum": pers_err,
-                           "max_abs_err_vs_plain": pers_plain_err,
-                           "ms": ms4, "plain_ms": plain4_ms, "bound_ms": bound4_ms,
-                           "bound_by": bound4_by, "work": counts4, "flops": flops4},
-        }
+        tables, cam, pxy, kw = fused_case(torch, lt, fp, path, depth, device)
+        rec = {"phase": "kernels", "kernel": "fused_path", "scene": path.name,
+               "n": pxy.shape[0], "depth": depth}
+        for mode, ns in (("megapath", 0), ("persistent", 4)):
+            rgb_k, rays_k = fp.paths(tables, cam, pxy, 0, ns, **kw)
+            torch.cuda.synchronize()
+            (rgb_p, rays_p), counts, plain_ms = fused_work(torch, fp, tables, cam, pxy, ns, kw)
+            share, err, _ = bit_equal(torch, f"fused {path.name} {mode}", rgb_k, rays_k,
+                                      rgb_p, rays_p)
+            check(bool(torch.isfinite(rgb_k).all()) and float(rgb_k.mean()) > 0.0,
+                  f"fused {path.name} {mode}: non-finite or black")
+            # launches queued back to back, each with its work counter reset
+            again = [fp.paths(tables, cam, pxy, 0, ns, **kw) for _ in range(20)]
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, rgb_k) and torch.equal(b, rays_k) for a, b in again),
+                  f"fused {path.name} {mode}: back-to-back launches differ")
+            del again
+            stats = torch.zeros(len(fp.STATS), dtype=torch.int64, device=device)
+            fp.paths(tables, cam, pxy, 0, ns, stats=stats, **kw)
+            use = lane_use(stats)
+            check(use["traced"] == counts["closest"],
+                  f"fused {path.name} {mode}: traced {use['traced']} != {counts['closest']}")
+            ms = device_ms(torch, lambda: fp.paths(tables, cam, pxy, 0, ns, **kw),
+                           iters=20 if ns == 0 else 10)
+            m = {"rays": int(rays_k.sum()), "rays_plain": int(rays_p.sum()),
+                 "share_bit_equal": share, "max_abs_err": err, "work": counts,
+                 "ms": ms, "plain_ms": plain_ms, **fused_bound(tables, counts, pxy.shape[0]),
+                 "lane_use": use}
+            if ns:
+                # 4 samples in one launch == the sum of 4 one-sample launches
+                tot = sum(fp.paths(tables, cam, pxy, s, 0, **kw)[0] for s in range(ns))
+                m["max_abs_err_vs_sum"] = float((rgb_k - tot).abs().max())
+                check(m["max_abs_err_vs_sum"] <= 1e-6, f"persistent {path.name}: off the "
+                      f"summed samples by {m['max_abs_err_vs_sum']}")
+                m["samples"] = ns
+                rec["persistent"] = m
+            else:
+                m["profiler_ms"] = profile_one(
+                    torch, lambda: fp.paths(tables, cam, pxy, 0, 0, **kw),
+                    ("fused_path_kernel",), 20)["kernels_ms"]
+                rec.update(m)
         emit(rec)
         results[path.name] = rec
     return results
@@ -1329,7 +1411,9 @@ def main():
             job.result()
     emit({"phase": "build", "sources": sources + ["bvh_builder.cpp"],
           "seconds": time.perf_counter() - t0,
-          "ptxas": {src: build.ptxas_report(src) for src in sources}})
+          "ptxas": {src: build.ptxas_report(src) for src in sources},
+          "fused_path_dynamic_smem_bytes": fp.pool_bytes(),
+          "fused_path_blocks_per_sm": fp.blocks_per_sm(device)})
 
     brute_k = phase_brute_kernels(torch, lt, brute, device)
     fused_k = phase_fused_kernel(torch, lt, fp, device)
@@ -1368,7 +1452,7 @@ def main():
             "source": "luisarender_tpu_torch/csrc/fused_path.cu",
             "replaces": "luisarender_tpu/ops/fused_path.py:742",
             "launches": launches,
-            "max_abs_err": rec.get("max_abs_err", rec.get("max_abs_err_vs_plain")),
+            "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
         })

@@ -1,11 +1,11 @@
 // The fused whole-path kernel for Hopper (sm_90a), called through a plain C
 // interface (ctypes): one launch renders a sample (megapath mode) or a pass
-// of n_samples samples (persistent mode) of every pixel.
+// of n_samples samples (persistent mode) of every pixel of pixel_xy.
 //
 // Replaces the TPU kernel luisarender_tpu/ops/fused_path.py _fused_kernel
 // (fused_path.py:742, pl.pallas_call at :1631) with its BSDF closures from
 // luisarender_tpu/ops/fused_bsdf.py, in its camgen and persistent modes.
-// Each lane: the camera ray and the independent sampler's xxhash seed made
+// Per path: the camera ray and the independent sampler's xxhash seed made
 // in the kernel; per bounce the closest trace over the triangle rows, then
 // the analytic spheres (strict t < best_t, so the lowest row wins an exact
 // tie); the interaction; the emissive-hit MIS; NEE with the uniform light
@@ -16,37 +16,72 @@
 // BSDF math of ops/fused_bsdf.py; both follow the reference's operation
 // order term by term.
 //
-// What bounds it: arithmetic. Every bounce of a live lane tests every
-// triangle row (~46 operations each) and sphere (~17) for its closest hit
-// and again for its shadow ray, and shades (a few hundred operations);
-// device memory traffic is the pixel ids in and 16 B out per lane, and the
-// scene tables (<= ~20 KB) are read from shared memory.
-// Design: one thread per pixel lane, 128 threads a block
-// (__launch_bounds__(128)); each block stages the scene tables into shared
-// memory once, since every lane reads their rows at divergent indices.
-// The tables are data, not compile-time literals as in the reference (a
-// Mosaic workaround, one compile per scene): padding rows (tri[j][9] == 0)
-// and rows that do not block shadow rays (tri[j][10] == 0) are skipped by a
-// runtime test, which gives the reference's static skip. The surface type
-// is a switch per lane where the reference evaluates every present type and
-// selects; per lane the arithmetic is the same. A lane leaves the bounce
-// loop when its path ends: in the reference a dead lane changes no carried
-// value but its RNG state, which it never reads again. In persistent mode a
-// lane loops until it has run n_samples samples, capped at
-// n_samples * max_depth + 8 iterations per lane where the reference caps
-// each 4096-lane block; the cap never binds, since a path takes at most
-// max_depth iterations.
+// What bounds it on the H100: divergence, not the arithmetic at the card's
+// rate nor memory. The work is arithmetic (every bounce tests every
+// triangle row, ~46 operations, and sphere, ~17, for its closest hit and
+// again for its shadow ray, and shades: 400 operations on matte to ~1,000
+// on glass); device memory traffic is the pixel ids in and 16 B out per
+// pixel, and the scene tables (<= 14.2 KB) are read from shared memory.
+// One thread a pixel ran a warp until its longest path ended (a third of
+// its lane-slots carried a live path) and through every surface type its
+// lanes hit (two on average on scenes/materials.json).
+//
+// Design: persistent blocks over a pool of path slots in shared memory.
+// The grid is as many blocks as the card holds at once (the occupancy
+// query times the SM count, capped at what n needs). A block stages the
+// scene tables once, column-major, so that the reads of one column at
+// per-lane rows (the hit's triangle, sphere, instance and light rows) fall
+// in distinct banks; the closest loop's reads at one row are broadcasts.
+// It owns kSlots path slots, structure of arrays in dynamic shared memory:
+// a path's ray, throughput, radiance, pdf, eta scale, RNG state and depth;
+// its pixel, sample, iteration count, running sum and ray count; its
+// closest hit and shade key. A round of the block loop:
+//   1. refill: the empty slots take the next pixels from a global work
+//      counter, one atomicAdd a block, offsets from a block scan;
+//   2. compact: a block scan lists the live slots, so whole warps run on
+//      live paths down to the tail;
+//   3. trace: thread k traces live entries k, k + kThreads, ...: the
+//      closest hit, and the key of what shades it (the hit instance's
+//      surface type, or kKeyEnd for an escape or a hit without surface);
+//   4. group: a counting sort of the live list by key (warp-aggregated
+//      shared-memory atomics), so most warps shade one surface type;
+//   5. shade: the rest of the bounce, on the sorted list;
+//   6. retire: a path that ends adds to its pixel's sum; in persistent mode
+//      the pixel's next sample starts in the same slot, so a pixel's
+//      samples are summed in the plain version's order; a pixel that is
+//      done writes rgb_out and rays_out at its own index and empties its
+//      slot.
+// The block leaves when the counter has passed n and no slot is live.
+// Larger pools group better (more warps per key, the same few warps that
+// straddle two keys): 1,536 slots under 512 threads, one block an SM, the
+// pool 190 KB of its shared memory.
+//
+// Only who computes which path when changes. Every path runs the plain
+// version's arithmetic in its order, its state round-trips through shared
+// memory as bits, and a pixel's result does not depend on the lanes beside
+// it, so each lane stays bit-equal with paths_plain whatever the grouping.
+// The persistent mode's cap of n_samples * max_depth + 8 iterations counts
+// per pixel, as in the plain version (it never binds: a path takes at most
+// max_depth bounces).
+//
+// The work counter is one int of scratch from the caller; fused_path
+// zeroes it with cudaMemsetAsync on the launch's stream before every
+// launch, so launches queued back to back each start from pixel 0.
+//
+// Not used: tensor cores (wgmma), since the work is per-lane scalar fp32
+// whose rounding must match the plain version, not a matrix product; TMA,
+// since the tables are at most 14.2 KB, staged once per persistent block.
 //
 // Build with --fmad=false and without fast math: the arithmetic rounds like
 // the plain version, except the transcendentals (sinf, cosf, powf, expf,
-// logf), which neither side rounds correctly.
+// logf), which neither side rounds correctly; PyTorch's CUDA kernels call
+// the same functions, so on the card the two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kMaxTris = 64;
 constexpr int kMaxSpheres = 16;
 constexpr int kMaxInst = 32;
@@ -84,14 +119,31 @@ struct FusedParams {
 
 namespace {
 
+// The scene tables in shared memory, column-major: column c of row j at
+// [c * rows + j]. A warp whose lanes read one column at per-lane rows
+// (the hit's triangle, sphere, instance or light row) then hits distinct
+// banks; the closest loop's reads at one row for every lane are
+// broadcasts either way.
 struct Smem {
-  float tri[kMaxTris * kRowCols];
-  float shade[kMaxTris * kRowCols];  // ng, n0, n1, n2, tangent, instance
-  float sph[kMaxSpheres * kRowCols];
-  float inst[kMaxInst * kInstCols];
-  float entry[kMaxEntries * kEntryCols];
-  float light[kMaxLightTris * kLightCols];
+  float tri[kRowCols * kMaxTris];
+  float shade[kRowCols * kMaxTris];  // ng, n0, n1, n2, tangent, instance
+  float sph[kRowCols * kMaxSpheres];
+  float inst[kInstCols * kMaxInst];
+  float entry[kEntryCols * kMaxEntries];
+  float light[kLightCols * kMaxLightTris];
 };
+
+// One row of a column-major table: r[c] reads column c.
+template <int kRows>
+struct Row {
+  const float* p;  // the table's first column at this row
+  __device__ __forceinline__ float operator[](int c) const { return p[c * kRows]; }
+};
+using TriRow = Row<kMaxTris>;
+using SphRow = Row<kMaxSpheres>;
+using InstRow = Row<kMaxInst>;
+using EntryRow = Row<kMaxEntries>;
+using LightRow = Row<kMaxLightTris>;
 
 struct V3 {
   float x, y, z;
@@ -291,7 +343,7 @@ struct Inst {
   float c0[3], c1[3], c2[3], c3[3], p0, p1, ax, ay, d[6];
 };
 
-__device__ void load_inst(const float* r, Inst& ic) {
+__device__ void load_inst(InstRow r, Inst& ic) {
   ic.stype = (int)r[0];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -609,12 +661,13 @@ __device__ Sample sample_bsdf(const Inst& ic, V3 wo, float u_lobe, float u0, flo
   return s;
 }
 
+
 // --- traces ------------------------------------------------------------------
 
 // One triangle row against a ray, the reference's fused-kernel formula; ok
 // excludes the t-range test.
-__device__ __forceinline__ bool moller_trumbore(const float* r, V3 o, V3 d, float& t,
-                                                float& u, float& v) {
+__device__ __forceinline__ bool moller_trumbore(TriRow r, V3 o, V3 d, float& t, float& u,
+                                                float& v) {
   const float v0x = r[0], v0y = r[1], v0z = r[2];
   const float e1x = r[3], e1y = r[4], e1z = r[5];
   const float e2x = r[6], e2y = r[7], e2z = r[8];
@@ -635,8 +688,8 @@ __device__ __forceinline__ bool moller_trumbore(const float* r, V3 o, V3 d, floa
   return u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
 }
 
-__device__ __forceinline__ void sphere_roots(const float* r, V3 o, V3 d, float& disc,
-                                             float& t0, float& t1) {
+__device__ __forceinline__ void sphere_roots(SphRow r, V3 o, V3 d, float& disc, float& t0,
+                                             float& t1) {
   const float ocx = o.x - r[0];
   const float ocy = o.y - r[1];
   const float ocz = o.z - r[2];
@@ -650,13 +703,13 @@ __device__ __forceinline__ void sphere_roots(const float* r, V3 o, V3 d, float& 
 
 __device__ bool occluded(const Smem& S, const FusedParams& P, V3 o, V3 d, float t_max) {
   for (int j = 0; j < P.n_tri; ++j) {
-    const float* r = S.tri + j * kRowCols;
+    const TriRow r{S.tri + j};
     if (r[9] == 0.0f || r[10] == 0.0f) continue;
     float t, u, v;
     if (moller_trumbore(r, o, d, t, u, v) && t > 0.0f && t < t_max) return true;
   }
   for (int j = 0; j < P.n_sph; ++j) {
-    const float* r = S.sph + j * kRowCols;
+    const SphRow r{S.sph + j};
     if (r[14] == 0.0f) continue;
     float disc, t0, t1;
     sphere_roots(r, o, d, disc, t0, t1);
@@ -667,9 +720,10 @@ __device__ bool occluded(const Smem& S, const FusedParams& P, V3 o, V3 d, float 
 
 // --- the path ----------------------------------------------------------------
 
+// A path's carried state. Its ray's t range is always (0, kBig): the
+// camera ray and every continuation ray start there.
 struct Path {
   V3 o, d;
-  float tmin, tmax;
   uint32_t st;
   float beta[3], L[3];
   bool active;
@@ -691,8 +745,6 @@ __device__ void gen_from_cam(const FusedParams& P, int px, int py, int si, Path&
                       c[8] * dc.x + c[9] * dc.y + c[10] * dc.z));
   p.o = v3(c[3], c[7], c[11]);
   p.st = st;
-  p.tmin = 0.0f;
-  p.tmax = kBig;
   p.beta[0] = p.beta[1] = p.beta[2] = 1.0f;
   p.L[0] = p.L[1] = p.L[2] = 0.0f;
   p.active = true;
@@ -707,63 +759,89 @@ __device__ __forceinline__ bool side_ok(int stype, float wo_ng, float wo_ns, flo
          stype == ST_DISNEY;
 }
 
-// One bounce of an active path; dep is its bounce depth.
-__device__ void bounce(const Smem& S, const FusedParams& P, Path& p, float dep, int& nrays) {
-  nrays += 1;
-  // closest trace: triangles, then spheres
-  float best_t = p.tmax, best_u = 0.0f, best_v = 0.0f;
-  int best_j = -1;
+// A closest hit: t, barycentrics and the triangle row (tri >= 0) or the
+// sphere (sph >= 0); both -1 when the ray escapes.
+struct Hit {
+  float t, u, v;
+  int tri, sph;
+};
+
+// The closest hit over the triangle rows, then the analytic spheres (strict
+// t < best t, so the lowest row wins an exact tie, a triangle a tie with a
+// sphere).
+__device__ Hit trace_closest(const Smem& S, const FusedParams& P, V3 o, V3 d) {
+  Hit h{kBig, 0.0f, 0.0f, -1, -1};
   for (int j = 0; j < P.n_tri; ++j) {
-    const float* r = S.tri + j * kRowCols;
+    const TriRow r{S.tri + j};
     if (r[9] == 0.0f) continue;
     float t, u, v;
-    if (moller_trumbore(r, p.o, p.d, t, u, v) && t > p.tmin && t < best_t) {
-      best_t = t;
-      best_u = u;
-      best_v = v;
-      best_j = j;
+    if (moller_trumbore(r, o, d, t, u, v) && t > 0.0f && t < h.t) {
+      h.t = t;
+      h.u = u;
+      h.v = v;
+      h.tri = j;
     }
   }
-  int best_s = -1;
   for (int j = 0; j < P.n_sph; ++j) {
-    const float* r = S.sph + j * kRowCols;
+    const SphRow r{S.sph + j};
     float disc, t0, t1;
-    sphere_roots(r, p.o, p.d, disc, t0, t1);
-    const float t = (t0 > p.tmin && t0 < best_t) ? t0 : t1;
-    if (disc > 0.0f && t > p.tmin && t < best_t) {
-      best_t = t;
-      best_s = j;
+    sphere_roots(r, o, d, disc, t0, t1);
+    const float t = (t0 > 0.0f && t0 < h.t) ? t0 : t1;
+    if (disc > 0.0f && t > 0.0f && t < h.t) {
+      h.t = t;
+      h.sph = j;
     }
   }
-  if (best_j < 0 && best_s < 0) {  // the path escapes
+  return h;
+}
+
+// The instance a hit lands on.
+__device__ __forceinline__ int hit_instance(const Smem& S, const Hit& h) {
+  return h.sph >= 0 ? (int)SphRow{S.sph + h.sph}[13] : (int)TriRow{S.shade + h.tri}[15];
+}
+
+// What shades a hit: its instance's surface type (0..6), or kKeyEnd where
+// the path ends at this hit (an escape, or an instance with no surface).
+constexpr int kKeyEnd = 7;
+constexpr int kKeys = 8;
+
+__device__ __forceinline__ int shade_key(const Smem& S, const Hit& h) {
+  if (h.tri < 0 && h.sph < 0) return kKeyEnd;
+  const InstRow irow{S.inst + hit_instance(S, h)};
+  return irow[18] > 0.5f ? (int)irow[0] : kKeyEnd;
+}
+
+// The rest of one bounce of an active path at its closest hit h: the
+// interaction, the emissive-hit MIS, NEE and its shadow ray, BSDF sampling
+// and roulette; dep is its bounce depth. Counts the shadow ray in nrays.
+__device__ void shade(const Smem& S, const FusedParams& P, Path& p, const Hit& h, float dep,
+                      int& nrays) {
+  if (h.tri < 0 && h.sph < 0) {  // the path escapes
     p.active = false;
     return;
   }
 
   // interaction (scene/geometry.py surface_interaction)
   V3 pos, ng, ns, tg;
-  int inst;
-  if (best_s >= 0) {
-    const float* r = S.sph + best_s * kRowCols;
+  if (h.sph >= 0) {
+    const SphRow r{S.sph + h.sph};
     const float rad = fmaxf(r[3], 1e-20f);
-    const V3 n = normalize3(v3((p.o.x + best_t * p.d.x - r[0]) / rad,
-                               (p.o.y + best_t * p.d.y - r[1]) / rad,
-                               (p.o.z + best_t * p.d.z - r[2]) / rad));
+    const V3 n = normalize3(v3((p.o.x + h.t * p.d.x - r[0]) / rad,
+                               (p.o.y + h.t * p.d.y - r[1]) / rad,
+                               (p.o.z + h.t * p.d.z - r[2]) / rad));
     pos = v3(r[0] + r[3] * n.x, r[1] + r[3] * n.y, r[2] + r[3] * n.z);
     ng = n;
     ns = n;
     tg = v3(-n.y, n.x, 0.0f);
-    inst = (int)r[13];
   } else {
-    const float* tr = S.tri + best_j * kRowCols;
-    const float* sh = S.shade + best_j * kRowCols;
-    const float u = best_u, v = best_v;
+    const TriRow tr{S.tri + h.tri};
+    const TriRow sh{S.shade + h.tri};
+    const float u = h.u, v = h.v;
     const float w = 1.0f - u - v;
     pos = v3(tr[0] + u * tr[3] + v * tr[6], tr[1] + u * tr[4] + v * tr[7],
              tr[2] + u * tr[5] + v * tr[8]);
     ng = v3(sh[0], sh[1], sh[2]);
     tg = v3(sh[12], sh[13], sh[14]);
-    inst = (int)sh[15];
     if (P.flat_normals) {
       ns = ng;
     } else {
@@ -778,7 +856,7 @@ __device__ void bounce(const Smem& S, const FusedParams& P, Path& p, float dep, 
     }
   }
   const V3 wo = neg3(p.d);
-  const float* irow = S.inst + inst * kInstCols;
+  const InstRow irow{S.inst + hit_instance(S, h)};
 
   // emissive hit
   if (irow[19] > 0.5f) {
@@ -825,13 +903,13 @@ __device__ void bounce(const Smem& S, const FusedParams& P, Path& p, float dep, 
     const float ne = (float)P.n_entry;
     const float u_rel = clampf(u_sel, 0.0f, kOneMinusEps);
     const int e = (int)fminf(floorf(u_rel * ne), ne - 1.0f);
-    const float* erow = S.entry + e * kEntryCols;
+    const EntryRow erow{S.entry + e};
     const float al_off = erow[0], tri_cnt = erow[1], tot_area = erow[2];
     const float ux = u_l0 * tri_cnt;
     const float i0 = fmaxf(fminf(floorf(ux), tri_cnt - 1.0f), 0.0f);
     const float up = ux - i0;
-    const float* lrow = S.light + (int)(al_off + i0) * kLightCols;
-    if (up >= lrow[18]) lrow = S.light + (int)(al_off + lrow[19]) * kLightCols;
+    LightRow lrow{S.light + (int)(al_off + i0)};
+    if (up >= lrow[18]) lrow = LightRow{S.light + (int)(al_off + lrow[19])};
     const float su = sqrtf(fmaxf(up, 0.0f));
     const float b0 = 1.0f - su;
     const float b1 = u_l1 * su;
@@ -892,8 +970,6 @@ __device__ void bounce(const Smem& S, const FusedParams& P, Path& p, float dep, 
   p.o = v3(offset1(pos.x, sgn_r * ng.x), offset1(pos.y, sgn_r * ng.y),
            offset1(pos.z, sgn_r * ng.z));
   p.d = nw;
-  p.tmin = 0.0f;
-  p.tmax = kBig;
   p.pdf_bsdf = fs.pdf;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -919,73 +995,389 @@ __device__ void bounce(const Smem& S, const FusedParams& P, Path& p, float dep, 
   p.active = active && dep + 1.0f < (float)P.max_depth;
 }
 
-__device__ void stage(const float* src, float* dst, int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+// Copies a row-major (rows, cols) table into its column-major place.
+template <int kRows>
+__device__ void stage(const float* src, float* dst, int rows, int cols) {
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x)
+    dst[(i % cols) * kRows + i / cols] = src[i];
+}
+
+__device__ void stage_tables(Smem& S, const FusedParams& P, const float* tri,
+                             const float* shade, const float* sph, const float* inst,
+                             const float* entry, const float* light) {
+  stage<kMaxTris>(tri, S.tri, P.n_tri, kRowCols);
+  stage<kMaxTris>(shade, S.shade, P.n_tri, kRowCols);
+  stage<kMaxSpheres>(sph, S.sph, P.n_sph, kRowCols);
+  stage<kMaxInst>(inst, S.inst, P.n_inst, kInstCols);
+  stage<kMaxEntries>(entry, S.entry, P.n_entry > 0 ? P.n_entry : 1, kEntryCols);
+  stage<kMaxLightTris>(light, S.light, P.n_light_tri, kLightCols);
+}
+
+// Per-launch counters (optional; null on the main path), summed over the
+// grid: the scheduler's lane use and the shade phase's divergence.
+enum {
+  STAT_LANE_SLOTS,   // 32 x warp passes of the trace phase
+  STAT_TRACED,       // paths traced (bounces)
+  STAT_SHADED,       // paths shaded at a surface (key != kKeyEnd)
+  STAT_SHADE_SLOTS,  // 32 x warp passes of the shade phase
+  STAT_KEYS,         // distinct keys summed over the shade phase's warp passes
+  STAT_ROUNDS,       // rounds of the block loop, summed over blocks
+  STAT_FETCHES,      // atomics on the work counter
+  kStats
+};
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  return (1u << (threadIdx.x & 31)) - 1u;
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// --- the scheduler: persistent blocks over a pool of path slots ------------
+
+constexpr int kThreads = 512;
+constexpr int kSlots = 1536;  // a multiple of kThreads
+constexpr int kWarps = kThreads / 32;
+constexpr int kPasses = kSlots / kThreads;
+
+// A slot's words, structure of arrays: word w of slot s at [w * kSlots + s].
+// Floats are kept as their bits (__float_as_uint), so a path's state
+// round-trips exactly.
+enum {
+  W_OX, W_OY, W_OZ, W_DX, W_DY, W_DZ, W_BETA0, W_BETA1, W_BETA2, W_L0, W_L1, W_L2,
+  W_PDF, W_ETA, W_ST, W_DEP,                 // the path
+  W_PIX, W_SAMP, W_ITER, W_ACC0, W_ACC1, W_ACC2, W_NRAYS,  // its pixel (W_PIX -1: empty)
+  W_HT, W_HU, W_HV, W_HTRI, W_HSPH, W_KEY,   // its closest hit and shade key
+  kWords
+};
+constexpr int kPoolBytes = (kWords + 2) * kSlots * 4;  // the words, the live and sorted lists
+
+struct Pool {
+  uint32_t* w;
+  __device__ __forceinline__ uint32_t& u(int word, int s) const {
+    return w[word * kSlots + s];
+  }
+  __device__ __forceinline__ float f(int word, int s) const {
+    return __uint_as_float(u(word, s));
+  }
+  __device__ __forceinline__ void set(int word, int s, float x) const {
+    u(word, s) = __float_as_uint(x);
+  }
+  __device__ __forceinline__ int i(int word, int s) const { return (int)u(word, s); }
+  __device__ __forceinline__ void seti(int word, int s, int x) const {
+    u(word, s) = (uint32_t)x;
+  }
+};
+
+__device__ void store_path(const Pool& q, int s, const Path& p, float dep, int nrays) {
+  q.set(W_OX, s, p.o.x);
+  q.set(W_OY, s, p.o.y);
+  q.set(W_OZ, s, p.o.z);
+  q.set(W_DX, s, p.d.x);
+  q.set(W_DY, s, p.d.y);
+  q.set(W_DZ, s, p.d.z);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    q.set(W_BETA0 + k, s, p.beta[k]);
+    q.set(W_L0 + k, s, p.L[k]);
+  }
+  q.set(W_PDF, s, p.pdf_bsdf);
+  q.set(W_ETA, s, p.eta_scale);
+  q.u(W_ST, s) = p.st;
+  q.set(W_DEP, s, dep);
+  q.seti(W_NRAYS, s, nrays);
+}
+
+__device__ void load_path(const Pool& q, int s, Path& p) {
+  p.o = v3(q.f(W_OX, s), q.f(W_OY, s), q.f(W_OZ, s));
+  p.d = v3(q.f(W_DX, s), q.f(W_DY, s), q.f(W_DZ, s));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p.beta[k] = q.f(W_BETA0 + k, s);
+    p.L[k] = q.f(W_L0 + k, s);
+  }
+  p.pdf_bsdf = q.f(W_PDF, s);
+  p.eta_scale = q.f(W_ETA, s);
+  p.st = q.u(W_ST, s);
+  p.active = true;
+}
+
+// Exclusive prefix sum of v over the block's threads in thread order; every
+// thread calls it, and gets the block's sum in `total`.
+__device__ int block_scan(int v, int* warp_sums, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) {
+    const int t = warp_sums[k];
+    before += k < warp ? t : 0;
+    sum += t;
+  }
+  __syncthreads();
+  total = sum;
+  return before + x - v;
+}
+
+// Slot s takes pixel k: its first sample's camera ray. A megapath pixel at
+// depth 0 is done at once (black, no ray) and leaves the slot empty.
+__device__ void start_pixel(const Pool& q, const FusedParams& P, const int* pixel_xy,
+                            float* rgb_out, int* rays_out, int s, int k) {
+  if (P.n_samples == 0 && P.max_depth == 0) {
+    rgb_out[3 * k] = rgb_out[3 * k + 1] = rgb_out[3 * k + 2] = 0.0f;
+    rays_out[k] = 0;
+    return;
+  }
+  Path p;
+  gen_from_cam(P, pixel_xy[2 * k], pixel_xy[2 * k + 1], P.sample_index, p);
+  store_path(q, s, p, 0.0f, 0);
+  q.seti(W_PIX, s, k);
+  q.seti(W_SAMP, s, 0);
+  q.seti(W_ITER, s, 0);
+  q.set(W_ACC0, s, 0.0f);
+  q.set(W_ACC1, s, 0.0f);
+  q.set(W_ACC2, s, 0.0f);
+}
+
+// One bounce's shading of the path in slot s, then its bookkeeping: a path
+// that ends adds to its pixel's sum and, in persistent mode, starts the
+// pixel's next sample; a pixel that is done writes its outputs and empties
+// the slot.
+__device__ void shade_slot(const Smem& S, const Pool& q, const FusedParams& P,
+                           const int* pixel_xy, float* rgb_out, int* rays_out, int s) {
+  Path p;
+  load_path(q, s, p);
+  const Hit h{q.f(W_HT, s), q.f(W_HU, s), q.f(W_HV, s), q.i(W_HTRI, s), q.i(W_HSPH, s)};
+  float dep = q.f(W_DEP, s);
+  int nrays = q.i(W_NRAYS, s) + 1;  // the closest ray
+  shade(S, P, p, h, dep, nrays);
+  const int i = q.i(W_PIX, s);
+  if (P.n_samples == 0) {
+    if (!p.active) {
+      rgb_out[3 * i] = p.L[0];
+      rgb_out[3 * i + 1] = p.L[1];
+      rgb_out[3 * i + 2] = p.L[2];
+      rays_out[i] = nrays;
+      q.seti(W_PIX, s, -1);
+      return;
+    }
+    dep = dep + 1.0f;
+  } else {
+    const int it = q.i(W_ITER, s) + 1;
+    float acc[3] = {q.f(W_ACC0, s), q.f(W_ACC1, s), q.f(W_ACC2, s)};
+    if (p.active) {
+      dep = dep + 1.0f;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc[k] = acc[k] + p.L[k];
+      const int samp = q.i(W_SAMP, s) + 1;
+      q.seti(W_SAMP, s, samp);
+      if (samp < P.n_samples) {
+        gen_from_cam(P, pixel_xy[2 * i], pixel_xy[2 * i + 1], P.sample_index + samp, p);
+        dep = 0.0f;
+      }
+    }
+    if (!p.active || it >= P.n_samples * P.max_depth + 8) {
+      rgb_out[3 * i] = acc[0];
+      rgb_out[3 * i + 1] = acc[1];
+      rgb_out[3 * i + 2] = acc[2];
+      rays_out[i] = nrays;
+      q.seti(W_PIX, s, -1);
+      return;
+    }
+    q.seti(W_ITER, s, it);
+    q.set(W_ACC0, s, acc[0]);
+    q.set(W_ACC1, s, acc[1]);
+    q.set(W_ACC2, s, acc[2]);
+  }
+  store_path(q, s, p, dep, nrays);
 }
 
 __global__ void __launch_bounds__(kThreads)
     fused_path_kernel(const FusedParams P, const int* __restrict__ pixel_xy,
-                      const float* __restrict__ tri, const float* __restrict__ shade,
+                      const float* __restrict__ tri, const float* __restrict__ shade_t,
                       const float* __restrict__ sph, const float* __restrict__ inst,
                       const float* __restrict__ entry, const float* __restrict__ light,
-                      float* __restrict__ rgb_out, int* __restrict__ rays_out) {
+                      float* __restrict__ rgb_out, int* __restrict__ rays_out,
+                      int* __restrict__ work, unsigned long long* __restrict__ stats) {
   __shared__ Smem S;
-  stage(tri, S.tri, P.n_tri * kRowCols);
-  stage(shade, S.shade, P.n_tri * kRowCols);
-  stage(sph, S.sph, P.n_sph * kRowCols);
-  stage(inst, S.inst, P.n_inst * kInstCols);
-  stage(entry, S.entry, (P.n_entry > 0 ? P.n_entry : 1) * kEntryCols);
-  stage(light, S.light, P.n_light_tri * kLightCols);
+  __shared__ int warp_sums[kWarps];
+  __shared__ int fetched, count[kKeys], start[kKeys];
+  extern __shared__ uint32_t pool_words[];
+  const Pool q{pool_words};
+  int* live = reinterpret_cast<int*>(pool_words + kWords * kSlots);
+  int* order = live + kSlots;
+  const int tid = threadIdx.x, lane = tid & 31;
+
+  stage_tables(S, P, tri, shade_t, sph, inst, entry, light);
+  for (int s = tid; s < kSlots; s += kThreads) q.seti(W_PIX, s, -1);
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n) return;
-  const int px = pixel_xy[2 * i];
-  const int py = pixel_xy[2 * i + 1];
-  Path p;
-  gen_from_cam(P, px, py, P.sample_index, p);
-  int nrays = 0;
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  if (P.n_samples == 0) {
-    for (int k = 0; k < P.max_depth && p.active; ++k) bounce(S, P, p, (float)k, nrays);
-    acc[0] = p.L[0];
-    acc[1] = p.L[1];
-    acc[2] = p.L[2];
-  } else {
-    // persistent: regenerate the pixel's next sample when a path ends
-    const int max_iters = P.n_samples * P.max_depth + 8;
-    int samp = 0;
-    float dep = 0.0f;
-    for (int it = 0; it < max_iters && p.active; ++it) {
-      bounce(S, P, p, dep, nrays);
-      if (p.active) {
-        dep = dep + 1.0f;
-        continue;
-      }
+  unsigned long long st[kStats] = {};
+  bool exhausted = false;  // the same in every thread of the block
+  for (;;) {
+    // 1. refill: the empty slots take the next pixels, one atomicAdd a block
+    if (!exhausted) {
+      int empty[kPasses], n_empty = 0;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) acc[k] = acc[k] + p.L[k];
-      samp += 1;
-      if (samp < P.n_samples) {
-        gen_from_cam(P, px, py, P.sample_index + samp, p);
-        dep = 0.0f;
+      for (int k = 0; k < kPasses; ++k) {
+        empty[k] = q.i(W_PIX, kPasses * tid + k) < 0;
+        n_empty += empty[k];
+      }
+      int total;
+      int rank = block_scan(n_empty, warp_sums, total);
+      if (total) {
+        if (tid == 0) fetched = atomicAdd(work, total);
+        __syncthreads();
+        const int base = fetched;
+        st[STAT_FETCHES] += tid == 0;
+#pragma unroll
+        for (int k = 0; k < kPasses; ++k) {
+          if (empty[k] && base + rank < P.n)
+            start_pixel(q, P, pixel_xy, rgb_out, rays_out, kPasses * tid + k, base + rank);
+          rank += empty[k];
+        }
+        exhausted = base + total >= P.n;
       }
     }
+    // 2. compact: the live slots, in slot order
+    int alive[kPasses], n_alive = 0;
+#pragma unroll
+    for (int k = 0; k < kPasses; ++k) {
+      alive[k] = q.i(W_PIX, kPasses * tid + k) >= 0;
+      n_alive += alive[k];
+    }
+    int n_live;
+    int rank = block_scan(n_alive, warp_sums, n_live);
+#pragma unroll
+    for (int k = 0; k < kPasses; ++k) {
+      if (alive[k]) live[rank] = kPasses * tid + k;
+      rank += alive[k];
+    }
+    if (n_live == 0) {
+      if (exhausted) break;
+      continue;
+    }
+    if (tid == 0) {
+      st[STAT_ROUNDS] += 1;
+      st[STAT_TRACED] += n_live;
+      st[STAT_LANE_SLOTS] += 32 * ((n_live + 31) / 32);
+    }
+    if (tid < kKeys) count[tid] = 0;
+    __syncthreads();
+
+    // 3. trace: entry e of the live list on thread e mod kThreads
+    for (int e = tid; e < n_live; e += kThreads) {
+      const int s = live[e];
+      const Hit h = trace_closest(S, P, v3(q.f(W_OX, s), q.f(W_OY, s), q.f(W_OZ, s)),
+                                  v3(q.f(W_DX, s), q.f(W_DY, s), q.f(W_DZ, s)));
+      q.set(W_HT, s, h.t);
+      q.set(W_HU, s, h.u);
+      q.set(W_HV, s, h.v);
+      q.seti(W_HTRI, s, h.tri);
+      q.seti(W_HSPH, s, h.sph);
+      q.seti(W_KEY, s, shade_key(S, h));
+    }
+    __syncthreads();
+
+    // 4. group: a counting sort of the live list by key (warp-aggregated
+    // shared-memory atomics; the order within a key does not matter)
+    int key[kPasses], pos[kPasses];
+#pragma unroll
+    for (int k = 0; k < kPasses; ++k) {
+      const int e = k * kThreads + tid;
+      key[k] = e < n_live ? q.i(W_KEY, live[e]) : -1;
+      const unsigned same = __match_any_sync(kFull, key[k]);
+      const int leader = __ffs(same) - 1;
+      int off = 0;
+      if (lane == leader && key[k] >= 0) off = atomicAdd(&count[key[k]], __popc(same));
+      pos[k] = __shfl_sync(kFull, off, leader) + __popc(same & lanemask_lt());
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int a = 0;
+#pragma unroll
+      for (int k = 0; k < kKeys; ++k) {
+        start[k] = a;
+        a += count[k];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPasses; ++k)
+      if (key[k] >= 0) order[start[key[k]] + pos[k]] = live[k * kThreads + tid];
+    __syncthreads();
+
+    // 5. shade the sorted list; 6. retire finished pixels
+    for (int base = 0; base < n_live; base += kThreads) {
+      const int e = base + tid;
+      const bool on = e < n_live;
+      const unsigned lanes = __ballot_sync(kFull, on);
+      if (!lanes) break;
+      if (stats && on) {
+        const int k = q.i(W_KEY, order[e]);
+        const unsigned same = __match_any_sync(lanes, k);
+        const unsigned first = __ballot_sync(lanes, (same & lanemask_lt()) == 0);
+        if (lane == 0) {
+          st[STAT_KEYS] += __popc(first);
+          st[STAT_SHADE_SLOTS] += 32;
+        }
+        st[STAT_SHADED] += k != kKeyEnd;
+      }
+      if (on) shade_slot(S, q, P, pixel_xy, rgb_out, rays_out, order[e]);
+    }
+    __syncthreads();
   }
-  rgb_out[3 * i] = acc[0];
-  rgb_out[3 * i + 1] = acc[1];
-  rgb_out[3 * i + 2] = acc[2];
-  rays_out[i] = nrays;
+  if (stats) {
+#pragma unroll
+    for (int k = 0; k < kStats; ++k) {
+      unsigned long long v = st[k];
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
+      if (lane == 0 && v) atomicAdd(stats + k, v);
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
+// Blocks of fused_path_kernel resident on one SM of `device`, queried once
+// (after raising the kernel's dynamic shared memory limit to its pool).
+int fused_path_blocks_per_sm(int device) {
+  static int cached[64] = {};
+  if (device < 0 || device >= 64) return 0;
+  if (!cached[device]) {
+    if (cudaSetDevice(device) != cudaSuccess) return 0;
+    if (cudaFuncSetAttribute(fused_path_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kPoolBytes) != cudaSuccess)
+      return 0;
+    int nb = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fused_path_kernel, kThreads,
+                                                      kPoolBytes) != cudaSuccess)
+      return 0;
+    cached[device] = nb;
+  }
+  return cached[device];
+}
+
+// Bytes of dynamic shared memory a block of fused_path_kernel takes (its
+// slot pool; ptxas reports only the static tables).
+int fused_path_pool_bytes() { return kPoolBytes; }
+
 // Launches on `stream` of device `device`, does not synchronise, and returns
-// cudaGetLastError() after the launch (0 = success).
+// the first CUDA error (0 = success). `work` is one int of device scratch,
+// zeroed here on the stream before the launch; `stats`, when not null,
+// kStats uint64 counters the kernel adds to.
 int fused_path(const FusedParams* params, const int* pixel_xy, const float* tri,
                const float* shade, const float* sph, const float* inst,
                const float* entry, const float* light, float* rgb_out, int* rays_out,
-               int device, void* stream) {
+               int* work, unsigned long long* stats, int device, void* stream) {
   const FusedParams& P = *params;
   if (P.n_tri < 1 || P.n_tri > kMaxTris || P.n_sph < 0 || P.n_sph > kMaxSpheres ||
       P.n_inst < 1 || P.n_inst > kMaxInst || P.n_entry < 0 || P.n_entry > kMaxEntries ||
@@ -995,9 +1387,18 @@ int fused_path(const FusedParams* params, const int* pixel_xy, const float* tri,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (P.n == 0) return 0;
-  const int blocks = (P.n + kThreads - 1) / kThreads;
-  fused_path_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, pixel_xy, tri, shade, sph, inst, entry, light, rgb_out, rays_out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(work, 0, sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_sm = fused_path_blocks_per_sm(device);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int need = (P.n + kThreads - 1) / kThreads;
+  const int blocks = need < per_sm * sms ? need : per_sm * sms;
+  fused_path_kernel<<<blocks, kThreads, kPoolBytes, s>>>(
+      P, pixel_xy, tri, shade, sph, inst, entry, light, rgb_out, rays_out, work, stats);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,19 +55,24 @@ def compile_library(name: str) -> Path:
     """Compile csrc/<name>.cu unless an up-to-date library exists; returns
     its path."""
     out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    if not out.exists():
+        compile_source(CSRC_DIR / f"{name}.cu", out)
+    return out
+
+
+def compile_source(src: Path, out: Path) -> None:
+    """nvcc `src` into the shared library `out` with NVCC_FLAGS, ptxas's
+    report beside it (`out` with the suffix .ptxas.txt)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
     out.with_suffix(".ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
-    return out
 
 
 def _kernel_name(mangled: str) -> str:
@@ -89,14 +94,13 @@ def _kernel_name(mangled: str) -> str:
     return names[-1]
 
 
-def ptxas_report(name: str) -> dict:
-    """ptxas's report of csrc/<name>.cu's last build, per kernel: {kernel:
-    {registers, stack_bytes, spill_stores, spill_loads, smem_bytes}}."""
+def parse_ptxas(text: str) -> dict:
+    """ptxas's -v report, per kernel: {kernel: {registers, stack_bytes,
+    spill_stores, spill_loads, smem_bytes}}."""
     import re
 
-    path = library_path(name).with_suffix(".ptxas.txt")
     report, kernel = {}, None
-    for line in path.read_text().splitlines() if path.exists() else []:
+    for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             kernel = _kernel_name(m.group(1))
@@ -112,6 +116,12 @@ def ptxas_report(name: str) -> dict:
             report[kernel].update(registers=int(m.group(1)),
                                   smem_bytes=int(smem.group(1)) if smem else 0)
     return report
+
+
+def ptxas_report(name: str) -> dict:
+    """ptxas's report of csrc/<name>.cu's last build (see parse_ptxas)."""
+    path = library_path(name).with_suffix(".ptxas.txt")
+    return parse_ptxas(path.read_text()) if path.exists() else {}
 
 
 def load_library(name: str) -> ctypes.CDLL:

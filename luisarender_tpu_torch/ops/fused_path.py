@@ -22,6 +22,21 @@ operation order (ops/fused_bsdf.py holds its BSDF math). There is no
 fallback: a CUDA tensor launches the kernel or raises. `launches` and
 `persistent_launches` count kernel launches of the two modes.
 
+The kernel schedules paths, it does not change them. What bounds it on the
+H100 is divergence: with one thread a pixel, a warp ran until its longest
+path ended and through every surface type its lanes hit. So it runs
+persistent blocks, each over a pool of path slots in shared memory; a
+round refills the empty slots from a work counter, compacts the live ones,
+traces them, groups them by the surface type they hit and shades them in
+that order (see the source's note). A pixel's rgb and ray count depend on
+the pixel alone (tests/test_torch_fused.py holds the plain version to
+that), and every path keeps the plain version's arithmetic, so kernel and
+plain version agree bit for bit on every lane. The wrapper passes one int
+of scratch for the work counter, which the C function zeroes on the
+launch's stream before every launch; `stats` receives the kernel's
+counters (STATS: lane-slots, paths traced and shaded, distinct surface
+types a warp shades).
+
 The environment inputs of the reference's kernel (pre-sampled NEE
 candidates and the deferred miss pass) and its ray-input entry
 `trace_paths_fused` are not ported: the port has no environments and no
@@ -766,6 +781,9 @@ class _Params(ctypes.Structure):
 
 _LIB = None
 
+# the kernel's optional counters (csrc/fused_path.cu STAT_*), in order
+STATS = ("lane_slots", "traced", "shaded", "shade_slots", "keys", "rounds", "fetches")
+
 
 def _library():
     global _LIB
@@ -774,10 +792,25 @@ def _library():
 
         lib = load_library("fused_path")
         ptr = ctypes.c_void_p
-        lib.fused_path.argtypes = [ptr] * 10 + [ctypes.c_int, ptr]
+        lib.fused_path.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
         lib.fused_path.restype = ctypes.c_int
+        lib.fused_path_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.fused_path_blocks_per_sm.restype = ctypes.c_int
+        lib.fused_path_pool_bytes.argtypes = []
+        lib.fused_path_pool_bytes.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def blocks_per_sm(device) -> int:
+    """Blocks of the kernel resident on one SM of a CUDA device, as the
+    occupancy query gives it (the launch sizes its grid from it)."""
+    return _library().fused_path_blocks_per_sm(torch.device(device).index or 0)
+
+
+def pool_bytes() -> int:
+    """Dynamic shared memory of one block of the kernel: its slot pool."""
+    return _library().fused_path_pool_bytes()
 
 
 def _check(t: FusedTables, pixel_xy):
@@ -805,21 +838,9 @@ def _check(t: FusedTables, pixel_xy):
         raise ValueError("tri and shade tables differ in rows")
 
 
-def paths(t: FusedTables, cam, pixel_xy, sample_index, n_samples=0, *,
-          max_depth, rr_depth, rr_threshold):
-    """The fused kernel on CUDA tensors, its plain version on CPU tensors:
-    (rgb (N, 3) float32, rays (N,) int32); see paths_plain."""
-    global launches, persistent_launches
-    _check(t, pixel_xy)
-    kw = dict(max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
-    if pixel_xy.device.type == "cpu":
-        return paths_plain(t, cam, pixel_xy, sample_index, n_samples, **kw)
-    dev = pixel_xy.device
-    n = pixel_xy.shape[0]
-    rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    rays = torch.empty((n,), dtype=torch.int32, device=dev)
-    if n == 0:
-        return rgb, rays
+def params(t: FusedTables, cam, n, sample_index, n_samples, max_depth, rr_depth,
+           rr_threshold) -> _Params:
+    """The kernel's FusedParams for n lanes."""
     prm = _Params()
     for k, name in enumerate(f"c{r}{c}" for r in range(3) for c in range(4)):
         prm.cam[k] = cam[name]
@@ -833,12 +854,43 @@ def paths(t: FusedTables, cam, pixel_xy, sample_index, n_samples=0, *,
     prm.n_tri, prm.n_sph, prm.n_inst = t.tri.shape[0], t.sph.shape[0], t.inst.shape[0]
     prm.n_entry, prm.n_light_tri = t.n_entry, t.light.shape[0]
     prm.flat_normals = int(t.flat_normals)
+    return prm
+
+
+def table_ptrs(t: FusedTables):
+    """The six tables' device pointers, in the C function's order."""
     # a zero-row table still needs a valid pointer
     sph = t.sph if t.sph.shape[0] else t.sph.new_zeros((1, 16))
+    return (t.tri.data_ptr(), t.shade.data_ptr(), sph.data_ptr(), t.inst.data_ptr(),
+            t.entry.data_ptr(), t.light.data_ptr()), sph
+
+
+def paths(t: FusedTables, cam, pixel_xy, sample_index, n_samples=0, *,
+          max_depth, rr_depth, rr_threshold, stats=None):
+    """The fused kernel on CUDA tensors, its plain version on CPU tensors:
+    (rgb (N, 3) float32, rays (N,) int32); see paths_plain. `stats`, a
+    CUDA int64 tensor of len(STATS), receives the kernel's counters (added
+    to it)."""
+    global launches, persistent_launches
+    _check(t, pixel_xy)
+    kw = dict(max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
+    if pixel_xy.device.type == "cpu":
+        return paths_plain(t, cam, pixel_xy, sample_index, n_samples, **kw)
+    dev = pixel_xy.device
+    n = pixel_xy.shape[0]
+    rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    rays = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return rgb, rays
+    if stats is not None and (stats.device != dev or stats.dtype != torch.int64
+                              or stats.shape != (len(STATS),) or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous int64 ({len(STATS)},) tensor on {dev}")
+    prm = params(t, cam, n, sample_index, n_samples, **kw)
+    ptrs, _sph = table_ptrs(t)
+    work = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the C function
     err = _library().fused_path(
-        ctypes.addressof(prm), pixel_xy.data_ptr(), t.tri.data_ptr(), t.shade.data_ptr(),
-        sph.data_ptr(), t.inst.data_ptr(), t.entry.data_ptr(), t.light.data_ptr(),
-        rgb.data_ptr(), rays.data_ptr(), dev.index or 0,
+        ctypes.addressof(prm), pixel_xy.data_ptr(), *ptrs, rgb.data_ptr(), rays.data_ptr(),
+        work.data_ptr(), None if stats is None else stats.data_ptr(), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

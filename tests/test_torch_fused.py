@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import luisarender_tpu as lr
 import luisarender_tpu_torch as lt
@@ -174,3 +175,26 @@ def test_opt_out_takes_the_general_fork(monkeypatch):
     monkeypatch.setenv("LUISARENDER_TPU_NO_FUSED", "1")
     lt.render(scene, device="cpu")
     assert scene.integrator.fused_passes == 0 and scene.integrator.bounces_run >= 1
+
+
+@pytest.mark.parametrize("n_samples", [0, 3], ids=["megapath", "persistent"])
+@pytest.mark.parametrize("name", ["cornell", "materials"])
+def test_plain_lanes_do_not_depend_on_order_or_count(name, n_samples):
+    """The contract the kernel's scheduler relies on: a pixel's rgb and ray
+    count depend on the pixel alone, not on which lanes run beside it or in
+    what order, so lanes may be taken from a work counter, regrouped by
+    surface type and retired in any order. The plain version on a permuted
+    pixel list and on ragged subsets gives the permuted or subset rows of
+    the run over the whole grid, bit for bit."""
+    scene = lt.Scene.from_dict(_scene(name))
+    tables = tfused.fused_tables(lt.compile_scene(scene, device="cpu"))
+    cam = tfused.camgen_params(scene.cameras[0], scene.integrator.sampler.seed)
+    pxy = pixel_grid(RES, RES, "cpu")
+    rgb, rays = tfused.paths_plain(tables, cam, pxy, 2, n_samples, **KW)
+    assert rgb.abs().sum() > 0.0
+    rs = np.random.RandomState(7)
+    for idx in (rs.permutation(pxy.shape[0]), *(rs.choice(pxy.shape[0], k, replace=False)
+                                                for k in (1, 37, 129))):
+        idx = torch.as_tensor(idx)
+        rgb_i, rays_i = tfused.paths_plain(tables, cam, pxy[idx].contiguous(), 2, n_samples, **KW)
+        assert torch.equal(rgb_i, rgb[idx]) and torch.equal(rays_i, rays[idx])

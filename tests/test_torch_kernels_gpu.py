@@ -16,10 +16,10 @@ a card and without JAX:
 Kernel and plain version do the same IEEE float32 operations in the same
 order (nvcc --fmad=false, no fast math), so the traces must agree
 exactly: slots and occlusion bit for bit, and t / u / v bit for bit too
-(the tree walks' per-ray pop, leaf and row counts as well). The fused kernel also calls sinf / cosf / powf / expf / logf, which
-CUDA and PyTorch need not round alike, so whole paths are held with the
-reference's rule (tests/test_fused_path.py:108-110): ray counts within 4,
-under 2% of lanes off by more than 1e-3.
+(the tree walks' per-ray pop, leaf and row counts as well). The fused
+kernel's paths too: rgb and ray counts bit for bit on every lane (its
+sinf / cosf / powf / expf / logf are the same CUDA functions that PyTorch's
+kernels call on the card).
 """
 
 import math
@@ -221,23 +221,59 @@ def _fused_case(cuda, path, res, depth):
     return fused_path, fused_path.fused_tables(compiled), cam, pxy, kw
 
 
+def _equal_to_plain(fp, tables, cam, pxy, si, ns, kw):
+    rgb, rays = fp.paths(tables, cam, pxy, si, ns, **kw)
+    torch.cuda.synchronize()
+    rgb_p, rays_p = fp.paths_plain(tables, cam, pxy, si, ns, **kw)
+    assert torch.equal(rgb, rgb_p), ((rgb != rgb_p).any(-1).float().mean().item(),
+                                     (rgb - rgb_p).abs().max().item())
+    assert torch.equal(rays, rays_p), int((rays != rays_p).sum())
+    return rgb, rays
+
+
 @pytest.mark.parametrize("scene,depth", [("cornell", 8), ("materials", 10)])
 def test_fused_kernel_matches_plain(cuda, scene, depth):
+    """Every lane bit-equal with the plain version, rgb and ray counts, in
+    both modes, on a permuted pixel list; the persistent pass within 1e-6
+    of the sum of its samples' one-sample launches."""
     fp, tables, cam, pxy, kw = _fused_case(cuda, f"scenes/{scene}.json", 128, depth)
+    perm = torch.randperm(pxy.shape[0], generator=torch.Generator().manual_seed(5))
+    pxy = pxy[perm.to(cuda)].contiguous()
     n0, p0 = fp.launches, fp.persistent_launches
-    rgb, rays = fp.paths(tables, cam, pxy, 3, **kw)
-    torch.cuda.synchronize()
-    assert fp.launches == n0 + 1
-    rgb_p, rays_p = fp.paths_plain(tables, cam, pxy, 3, 0, **kw)
-    assert abs(int(rays.sum()) - int(rays_p.sum())) <= 4
-    assert ((rgb - rgb_p).abs().amax(-1) > 1e-3).float().mean().item() < 0.02
+    rgb, _ = _equal_to_plain(fp, tables, cam, pxy, 3, 0, kw)
     assert torch.isfinite(rgb).all() and rgb.mean().item() > 0.0
-
-    tot = sum(fp.paths(tables, cam, pxy, s, **kw)[0] for s in range(4))
-    rgb4, rays4 = fp.paths(tables, cam, pxy, 0, 4, **kw)
-    torch.cuda.synchronize()
-    assert fp.persistent_launches == p0 + 1
+    rgb4, _ = _equal_to_plain(fp, tables, cam, pxy, 3, 4, kw)
+    assert (fp.launches, fp.persistent_launches) == (n0 + 1, p0 + 1)
+    tot = sum(fp.paths(tables, cam, pxy, 3 + s, **kw)[0] for s in range(4))
     assert torch.allclose(rgb4, tot, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 300, 262_144 - 5],
+                         ids=["n1", "n127", "n129", "under_one_pool", "over_one_wave"])
+def test_fused_kernel_ragged_counts(cuda, n):
+    """Lane counts that leave blocks, warps and slot pools part-filled (300:
+    fewer than one block's slots), and more lanes than the card holds slots
+    at once: every lane bit-equal with the plain version in both modes."""
+    fp, tables, cam, pxy, kw = _fused_case(cuda, "scenes/materials.json", 512, 3)
+    idx = torch.randperm(pxy.shape[0], generator=torch.Generator().manual_seed(n))[:n]
+    sub = pxy[idx.to(cuda)].contiguous()
+    for ns in (0, 2):
+        _equal_to_plain(fp, tables, cam, sub, 1, ns, kw)
+
+
+def test_fused_kernel_back_to_back_launches(cuda):
+    """Launches queued on one stream without a synchronise between them give
+    the same lanes: each launch starts its work counter at 0."""
+    fp, tables, cam, pxy, kw = _fused_case(cuda, "scenes/cornell.json", 256, 4)
+    stats = torch.zeros(len(fp.STATS), dtype=torch.int64, device=cuda)
+    outs = [fp.paths(tables, cam, pxy, 1, ns, stats=stats, **kw) for ns in (0, 0, 2, 2)]
+    torch.cuda.synchronize()
+    for a, b in ((outs[0], outs[1]), (outs[2], outs[3])):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    rgb_p, rays_p = fp.paths_plain(tables, cam, pxy, 1, 0, **kw)
+    assert torch.equal(outs[0][0], rgb_p) and torch.equal(outs[0][1], rays_p)
+    c = dict(zip(fp.STATS, stats.tolist()))
+    assert 0 < c["shaded"] <= c["traced"] <= c["lane_slots"] and c["rounds"] > 0
 
 
 def test_fused_wrapper_rejects_bad_inputs(cuda):
@@ -248,6 +284,8 @@ def test_fused_wrapper_rejects_bad_inputs(cuda):
         fp.paths(tables, cam, pxy.cpu(), 0, **kw)
     with pytest.raises(ValueError):
         fp.paths(tables._replace(inst=tables.inst.repeat(6, 1)), cam, pxy, 0, **kw)
+    with pytest.raises(ValueError):
+        fp.paths(tables, cam, pxy, 0, stats=torch.zeros(len(fp.STATS), device=cuda), **kw)
     rgb, rays = fp.paths(tables, cam, pxy[:0], 0, **kw)
     assert rgb.shape == (0, 3) and rays.shape == (0,)
 
