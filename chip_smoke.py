@@ -24,12 +24,18 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              beside the path-length SIMT share of one thread a pixel, and
              its bound with shading counted per surface type and, as this
              script counted it before, as matte for every lane. The cluster
-             traces against
-             their plain version on the full mesh-heavy scene (512,004
-             triangles: camera rays, bounce-1 rays and the shadow rays of
-             both bounces, 1280 x 720) and on a random 3,000-triangle soup
-             with a ragged 100,003 rays: t, slot, u, v, occlusion and the
-             per-ray node pops, leaf visits and rows tested bit for bit.
+             traces against their plain version on the full mesh-heavy
+             scene (512,004 triangles: camera rays, bounce-1 rays and the
+             shadow rays of both bounces, 1280 x 720), on a random
+             3,000-triangle soup and on a soup of 60 triangles 200 times
+             each (exact ties in t, inside and across clusters), each with
+             a ragged 100,003 rays, launched in caller order and through
+             the reference's ray sort (launch_sorted below): t,
+             slot, u, v, occlusion and the per-ray node pops, leaf visits
+             and rows tested bit for bit; the kernel's time on caller-order
+             and on sorted rays, the sorted wrapper's and the sort's alone
+             (keys, sort, gathers, scatters; CUDA events around the calls,
+             host dispatch included) and the kernel's lane counters.
              The wide8, subpacket and trace kernels against their plain
              versions on the same mesh-heavy rays (the scene compiled with
              the 8-wide tables) and on a random 8,000-triangle soup with a
@@ -588,19 +594,24 @@ def phase_fused_kernel(torch, lt, fp, device):
     return results
 
 
-def soup_case(torch, cluster, device, n_tris, n_rays, seed, trees=False):
+def soup_case(torch, cluster, device, n_tris, n_rays, seed, trees=False, copies=1):
     """A random soup of small triangles in the unit cube, its cluster tables
     as the scene compiler builds them, and rays through it: a tenth dead
-    (t_max = 0), a third with a finite t_max. Returns (o, d, t_min, t_max,
-    nodes, tris); with `trees`, also the soup's 8-wide tables and its
-    binary SAH tree's trace arrays, as the compiler keeps them ({name:
-    tensor}, keys of arrays["trace"])."""
+    (t_max = 0), a third with a finite t_max. With `copies` > 1 every
+    triangle is there that many times (the same vertices, so hits tie
+    exactly, across clusters where a triangle's copies fill more than one)
+    and half the rays aim at a triangle. Returns (o, d, t_min, t_max, nodes,
+    tris); with `trees`, also the soup's 8-wide tables and its binary SAH
+    tree's trace arrays, as the compiler keeps them ({name: tensor}, keys of
+    arrays["trace"])."""
     rs = np.random.RandomState(seed)
     c = rs.uniform(0.0, 1.0, (n_tris, 1, 3))
     verts = (c + rs.normal(0.0, 0.05, (n_tris, 3, 3))).astype(np.float32)
     positions = verts.transpose(1, 0, 2).reshape(-1, 3)
     idx = np.arange(n_tris)
     triangles = np.stack([idx, idx + n_tris, idx + 2 * n_tris], 1).astype(np.int32)
+    triangles = np.repeat(triangles, copies, axis=0)
+    n_tris *= copies
     opaque = rs.rand(n_tris) < 0.7
     canon = rs.permutation(n_tris)
     if trees:  # slots in the SAH order, as the compiler gives them
@@ -611,6 +622,9 @@ def soup_case(torch, cluster, device, n_tris, n_rays, seed, trees=False):
     nodes, tris = cluster.build_cluster_tables(positions, triangles, opaque, canon)
     o = rs.uniform(-0.5, 1.5, (n_rays, 3))
     d = rs.randn(n_rays, 3)
+    if copies > 1:
+        aim = positions[triangles[rs.randint(0, n_tris, n_rays // 2)]].mean(axis=1)
+        d[: n_rays // 2] = aim - o[: n_rays // 2]
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     t_min = np.full(n_rays, 1e-4)
     t_max = np.where(rs.rand(n_rays) < 0.33, rs.rand(n_rays) * 2.0, np.inf)
@@ -633,29 +647,61 @@ def soup_case(torch, cluster, device, n_tris, n_rays, seed, trees=False):
     return args, {k: torch.as_tensor(v, device=device).contiguous() for k, v in tables.items()}
 
 
-def compare_cluster(torch, cluster, any_hit, args):
+def unsort(x, perm):
+    """Outputs of rays taken in the order `perm` (a tensor, or a tuple of
+    them, indexed by ray along dimension 0) back in caller order."""
+    if isinstance(x, tuple):
+        return tuple(unsort(y, perm) for y in x)
+    out = x.new_empty(x.shape)
+    out[perm] = x
+    return out
+
+
+def launch_sorted(o, d, t_min, t_max, nodes, tris, any_hit, err, stats=None):
+    """The route of the reference's wrapper for 32,768 rays or more, around
+    the cluster kernel: ops/cluster.py launch on the rays in coherence_order,
+    its outputs (and `stats`) scattered back to caller order. Measured here;
+    the port's wrappers launch in caller order."""
+    from luisarender_tpu_torch.ops import cluster
+
+    perm = cluster.coherence_order(o, d, t_min, t_max, nodes)
+    rays = [x.index_select(0, perm) for x in (o, d, t_min, t_max)]
+    walk = None if stats is None else stats.new_empty(stats.shape)
+    out = cluster.launch(*rays, nodes, tris, any_hit, err, walk)
+    if stats is not None:
+        stats[perm] = walk
+    return unsort(out, perm)
+
+
+def compare_cluster(torch, cluster, any_hit, args, plain=None, launch=None):
     """Kernel against plain on one input set; built to do the same IEEE
     operations in the same per-lane order, so every output and every walk
-    count must agree bit for bit. Returns ([max |dt|, |du|, |dv|] or
-    [max |d occ|], the hit fraction, the kernel's (N, 3) walk counts, the
-    (C,) bool mask of clusters some ray tested, the distinct rows that won
-    a closest hit (0 for any-hit))."""
-    what = "cluster_any" if any_hit else "cluster_closest"
+    count must agree bit for bit. `launch` is cluster.launch (caller order)
+    or launch_sorted; `plain`, walk_plain's answer when already
+    computed. Returns ([max |dt|, |du|, |dv|] or [max |d occ|], the hit
+    fraction, the kernel's (N, 3) walk counts, the (C,) bool mask of
+    clusters some ray tested, the distinct rows that won a closest hit (0
+    for any-hit), walk_plain's answer)."""
+    launch = launch or cluster.launch
+    what = ("cluster_any" if any_hit else "cluster_closest") + (
+        ", sorted" if launch is launch_sorted else "")
     n = args[0].shape[0]
     err = torch.zeros(1, dtype=torch.int32, device=args[0].device)
     walk_k = torch.zeros((n, 3), dtype=torch.int32, device=args[0].device)
-    out_k = cluster.launch(*args, any_hit, err, walk_k)
+    out_k = launch(*args, any_hit, err, walk_k)
     torch.cuda.synchronize()
     check(int(err.item()) == 0, f"{what}: error word {int(err.item())}")
-    visited = torch.zeros(args[5].shape[0], dtype=torch.bool, device=args[0].device)
-    t, slot, u, v, occ, walk_p = cluster.walk_plain(*args, any_hit, visited)
+    if plain is None:
+        visited = torch.zeros(args[5].shape[0], dtype=torch.bool, device=args[0].device)
+        plain = cluster.walk_plain(*args, any_hit, visited) + (visited,)
+    t, slot, u, v, occ, walk_p, visited = plain
     check(torch.equal(walk_k, walk_p), f"{what}: the walk's counts differ from the plain "
                                        f"version on {int((walk_k != walk_p).any(1).sum())} lanes")
     if any_hit:
         occ_k = out_k > 0
         diff = float((occ_k.long() - occ.long()).abs().max())
         check(diff == 0.0, f"{what}: occlusion differs on {int((occ_k != occ).sum())} lanes")
-        return [diff], float(occ_k.float().mean()), walk_k, visited, 0
+        return [diff], float(occ_k.float().mean()), walk_k, visited, 0, plain
     kt, ks, ku, kv = out_k
     check(torch.equal(ks, slot), f"{what}: slots differ on {int((ks != slot).sum())} lanes")
     hit = ks >= 0
@@ -664,7 +710,8 @@ def compare_cluster(torch, cluster, any_hit, args):
             float((ku - u).abs().max()), float((kv - v).abs().max())]
     check(max(errs) == 0.0 and torch.equal(kt, t),
           f"{what}: t, u, v differ from the plain version: {errs}")
-    return errs, float(hit.float().mean()), walk_k, visited, int(torch.unique(ks[hit]).numel())
+    return (errs, float(hit.float().mean()), walk_k, visited, int(torch.unique(ks[hit]).numel()),
+            plain)
 
 
 def cluster_bound(kind, args, walk, visited, winners):
@@ -716,31 +763,66 @@ def mesh_heavy_inputs(torch, lt, cluster, device):
     return compiled, cap
 
 
+def cluster_lanes(torch, cluster, run, device):
+    """The cluster kernel's counters on one launch, `run(counters)`
+    (ops/cluster.py COUNTERS), and the shares they give: the walk's live
+    lanes of its lane-slots, the leaf stage's tested rows of its row-slots,
+    parked lanes and block loads a leaf round."""
+    ctr = torch.zeros(len(cluster.COUNTERS), dtype=torch.int64, device=device)
+    run(ctr)
+    torch.cuda.synchronize()
+    c = dict(zip(cluster.COUNTERS, (int(x) for x in ctr.tolist())))
+    rounds = max(c["rounds"], 1)
+    c.update(walk_lane_share=c["pops"] / max(c["pop_slots"], 1),
+             leaf_lane_share=c["rows"] / max(c["row_slots"], 1),
+             parked_per_round=c["parked"] / rounds, loads_per_round=c["loads"] / rounds,
+             rows_per_round=c["rows"] / rounds)
+    return c
+
+
 def phase_cluster_kernels(torch, cluster, device, compiled, cap):
     """The cluster traces on the mesh-heavy scene's general-fork inputs and
-    on a random soup; times on the camera and bounce-1 inputs."""
+    on two random soups (one with every triangle 200 times), in caller
+    order and through the sorted launch; times, lane counters and the
+    sort's cost on the camera and bounce-1 inputs."""
     tr = compiled.arrays["trace"]
     n_main = cap["closest"][0][0].shape[0]
-    soup = soup_case(torch, cluster, device, 3000, 100_003, seed=5)
+    soups = {"soup3000": soup_case(torch, cluster, device, 3000, 100_003, seed=5),
+             "coincident": soup_case(torch, cluster, device, 60, 100_003, seed=7, copies=200)}
     results = {}
     for kind in ("closest", "any"):
         any_hit = kind == "any"
-        cases = {"camera": cap[kind][0], "bounce1": cap[kind][1], "soup3000": soup}
+        cases = {"camera": cap[kind][0], "bounce1": cap[kind][1], **soups}
         errs, fracs, walks, times = {}, {}, {}, {}
         for name, args in cases.items():
-            errs[name], fracs[name], walk, visited, winners = compare_cluster(
+            errs[name], fracs[name], walk, visited, winners, plain = compare_cluster(
                 torch, cluster, any_hit, args)
+            compare_cluster(torch, cluster, any_hit, args, plain, launch_sorted)
+            del plain
             walks[name] = walk_summary(walk)
-            if name == "soup3000":
+            if name in soups:
                 continue
             err = torch.zeros(1, dtype=torch.int32, device=device)
+            perm = cluster.coherence_order(*args[:5])
+            srt = [x.index_select(0, perm) for x in args[:4]] + list(args[4:])
             ms = device_ms(torch, lambda: cluster.launch(*args, any_hit, err), iters=20)
+            ms_sorted = device_ms(torch, lambda: cluster.launch(*srt, any_hit, err), iters=20)
+            # the sort's own tensor operations keep the host from queueing
+            # far ahead of the card: events around the calls, host included
+            wrapper_ms = events_ms(torch, lambda: launch_sorted(*args, any_hit, err),
+                                   iters=20)
+            sort_ms = events_ms(torch, lambda: cluster.coherence_order(*args[:5]), iters=20)
             check(int(err.item()) == 0, f"cluster_{kind}: error word while timing")
             plain_ms = events_ms(torch, lambda: cluster.walk_plain(*args, any_hit), iters=1)
             bound_ms, bound_by = cluster_bound(kind, args, walk, visited, winners)
-            times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                           "bound_by": bound_by,
-                           "clusters_tested": int(visited.sum())}
+            # without the sort the wrapper is the kernel: ms
+            times[name] = {"ms": ms, "ms_sorted": ms_sorted, "wrapper_ms": wrapper_ms,
+                           "sort_ms": sort_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "clusters_tested": int(visited.sum())}
+            for key, rays in (("lanes", args), ("lanes_sorted", srt)):
+                times[name][key] = cluster_lanes(
+                    torch, cluster,
+                    lambda ctr: cluster.launch(*rays, any_hit, err, counters=ctr), device)
         results[kind] = {"errors": errs, "hit_fraction": fracs, "walk": walks, "times": times,
                          "max_abs_err": max(max(v) for v in errs.values())}
         emit({"phase": "kernels", "kernel": f"cluster_{kind}", "n": n_main,

@@ -8,35 +8,60 @@
 // same node table (N, 8) (box, right child with the near-child hint in its
 // fraction, leaf cluster id) and triangle blocks (C, 16, 128)
 // (attribute-major v0 / e1 / e2, valid, opaque, slot), the same slab test
-// and safe inverse, the same Moller-Trumbore, t_max clamped to 3e38, a leaf's
-// rows tested in order with a strict t < best_t (so ties inside a cluster
-// resolve as the reference's), a hit's slot read from the block, and a miss
-// returning t = inf, slot = -1, u = v = 0.
+// and safe inverse, the same Moller-Trumbore, t_max clamped to 3e38, the
+// first row of least t in a leaf winning (the reference's in-order strict
+// t < best_t), a hit's slot read from the block, and a miss returning
+// t = inf, slot = -1, u = v = 0. The reference's wrapper sorts the rays into
+// coherent packets before the launch; ops/cluster.py ports its keys
+// (coherence_order). This kernel walks each ray on its own and gives the
+// same answer in any order, and its wrappers launch in caller order: on the
+// H100 it is slower on sorted closest-hit rays and gains at most 12 us on
+// sorted shadow rays (PERF.md).
 //
-// What bounds it: the triangle rows. A ray pops ~20-60 nodes (~20 float
+// What bounds it: the triangle rows. A ray pops ~10-60 nodes (~20 float
 // operations each) and visits a few leaves of up to 128 rows (46 operations
 // a row). At the main path's shapes (921,600 rays, 512k triangles) those
-// operations and the bytes the walk must move (rays in and hits out, 48 B a
-// ray, the 0.4 MB node table, and the attributes it reads of the blocks some
-// ray visits, read once) would take the card about the same least time;
-// this simple kernel, in divergent per-ray loops, takes far longer (its
-// times and bounds are in PERF.md).
-// Design, per thread where the TPU kernel worked per packet: one thread a
-// ray, 128 threads a block; a per-thread stack of 64 ints in local memory
-// (the TPU kernel shared one SMEM stack across a 2048-ray packet, a
-// speculative-packet mechanism); the node table and blocks read from global
-// memory through the read-only cache (a node row is two float4 loads; the
-// node table stays in L2, the blocks do not fit shared memory); near child
-// first along the ray's own direction (the TPU kernel used the packet's
-// mean direction); padding rows skipped. The walk stops at a stack deeper
-// than 64 or after 4 N + 64 pops, and sets a bit of the error word, which
-// the wrapper reads and raises on: neither happens on a well-formed tree.
-// The TPU kernel's ray sort, DMA pipeline and speculative packets are TPU
-// mechanics and are not carried over.
+// operations and the bytes the walk must move (rays in and hits out, the
+// 0.4 MB node table, and the columns it reads of the blocks some ray
+// visits, once) take the card ~15-20 us; the times are in PERF.md.
+// One thread walking a leaf's 128 rows in a serial loop (the first port of
+// this kernel) left that far behind: a warp's lanes reach their leaves at
+// different pops, each lane read its own 5 KB block one word at a time,
+// and the lanes that were not in a leaf waited for the slowest loop.
+//
+// Design: Aila & Laine's "while-while" loop with the leaf stage done by the
+// whole warp. Each lane walks its own ray's coarse tree (a per-lane stack
+// of 64 ints, the near child first along the ray's own direction, the slab
+// test against the lane's own best_t) until its pop hits a leaf; there it
+// parks with the leaf's cluster id. When every lane of the warp has parked
+// or finished, the warp serves the parked lanes: lane k loads rows k, k+32,
+// k+64 and k+96 of the block into registers (an attribute column of 128
+// floats is four coalesced 128-byte loads), then for each parked lane whose
+// leaf it is the warp receives that lane's ray and best_t by __shfl_sync,
+// tests its four rows, and reduces with __shfl_xor_sync to the least t,
+// the lowest row on a tie (= the serial loop's strict t < best_t), or, for
+// any-hit, takes the first occluder from a ballot. Parked lanes that share
+// a cluster (__match_any_sync) are served from one load of its rows. A
+// lane resumes its walk only after its leaf was served, so every pop culls
+// against the best_t the serial walk had there: the outputs and the
+// per-ray walk counts equal walk_plain's. All 32 lanes stay in the loop
+// until the warp is done (no early return before a *_sync call). The walk
+// stops at a stack deeper than 64 or after 4 N + 64 pops and sets a bit of
+// the error word, which the wrapper reads and raises on: neither happens on
+// a well-formed tree. A walk is a chain of dependent node loads, so the
+// kernel wants many warps in flight: its launch bounds ask for six
+// 128-thread blocks an SM (80 registers, a few bytes of spill), and the
+// blocks' rows, read once into registers, go through L2 only and leave L1
+// to the node table and the stacks. The lane counters are built into
+// separate kernels, taken only when a caller asks for them.
 //
 // Build with --fmad=false and without fast math: the plain PyTorch version
 // (ops/cluster.py walk_plain) then does the same IEEE operations in the same
 // per-lane order and the two agree bit for bit.
+//
+// Designs measured against this one and dropped (persistent warps, a block
+// load per parked lane, the top of the tree in shared memory, more registers
+// a thread, blocks through L1) are in PERF.md with their times.
 
 #include "trace_common.cuh"
 
@@ -52,177 +77,374 @@ using lrt::Ray;
 
 constexpr int kThreads = 128;
 constexpr int kStack = 64;
+constexpr int kBlocksPerSm = 6;  // resident blocks an SM asked of ptxas
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGroups = kCluster / 32;  // rows lane + 32 k, k < kGroups
 
-// One ray's walk; the two kernels below are its two modes.
+// Per-launch counters (optional; null on the main path), summed over the
+// grid: lane use of the walk and of the leaf stage.
+enum {
+  CTR_ROUNDS,     // leaf rounds: a warp's ballots with some lane parked
+  CTR_PARKED,     // parked lanes, summed over the rounds
+  CTR_LOADS,      // block loads (clusters served; one per parked lane
+                  // unless lanes share a cluster)
+  CTR_ROWS,       // valid rows tested, summed over the served lanes
+  CTR_ROW_SLOTS,  // 32 x row groups a warp tested, over the served lanes
+  CTR_POPS,       // node pops
+  CTR_POP_SLOTS,  // 32 x the longest run of pops in a warp, per round
+  kCounters
+};
+
+struct Args {
+  const float* __restrict__ o;
+  const float* __restrict__ d;
+  const float* __restrict__ t_min;
+  const float* __restrict__ t_max;
+  const float4* __restrict__ nodes;
+  const float* __restrict__ tris;
+  float* __restrict__ t_out;
+  int* __restrict__ slot_out;
+  float* __restrict__ u_out;
+  float* __restrict__ v_out;
+  int* __restrict__ occ_out;
+  int* __restrict__ stats;
+  unsigned long long* __restrict__ counters;
+  int* __restrict__ err;
+  int n_nodes, n_clusters, n;
+};
+
+// The counters are warp-uniform: every lane keeps them, lane 0 adds them.
+// A launch without them runs a build of the kernel that has none (kOn is
+// a template argument), so they take no registers there.
+template <bool kOn>
+struct Counters {
+  static constexpr bool on = kOn;
+  unsigned long long c[kCounters];
+};
+
+// One lane's walk of one ray, but for its stack (kept apart, so that these
+// stay in registers while the stack is in local memory).
+struct Walk {
+  Ray r;
+  float best_t, best_u, best_v;
+  int best_s, occ, pops, leaves, rows, sp;
+  bool live;  // the walk has pops left (or a parked leaf)
+};
+
+// A word of a triangle block, through L2 only: a block's rows are read
+// once a leaf round, and L1 is left to the node table and the stacks.
+__device__ __forceinline__ float block_word(const float* p) { return __ldcg(p); }
+
+__device__ __forceinline__ void begin(Walk& w, int* stack, int i, const Args& a) {
+  w.r = lrt::load_ray(i, a.o, a.d, a.t_min);
+  const float tmx = a.t_max[i];
+  w.best_t = tmx < kBig ? tmx : kBig;
+  w.best_s = -1;
+  w.best_u = w.best_v = 0.0f;
+  w.occ = w.pops = w.leaves = w.rows = w.sp = 0;
+  w.live = w.r.tmin < w.best_t;  // rays dead on entry never pop
+  if (w.live) stack[w.sp++] = 0;
+}
+
+// A lane without a ray: it only takes part in the warp's leaf stage.
+__device__ __forceinline__ void idle(Walk& w) {
+  w.r = Ray{};
+  w.best_t = w.best_u = w.best_v = 0.0f;
+  w.best_s = -1;
+  w.occ = w.pops = w.leaves = w.rows = w.sp = 0;
+  w.live = false;
+}
+
 template <bool kAny>
-__device__ __forceinline__ void walk(
-    int i, const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ t_min, const float* __restrict__ t_max,
-    const float4* __restrict__ nodes, int n_nodes,
-    const float* __restrict__ tris, int n_clusters, float* __restrict__ t_out,
-    int* __restrict__ slot_out, float* __restrict__ u_out,
-    float* __restrict__ v_out, int* __restrict__ occ_out,
-    int* __restrict__ stats, int* __restrict__ err) {
-  const Ray r = lrt::load_ray(i, o, d, t_min);
-  const float tmx = t_max[i];
-  float best_t = tmx < kBig ? tmx : kBig;
-  int best_s = -1;
-  float best_u = 0.0f, best_v = 0.0f;
-  int occ = 0;
-  int pops = 0, leaves = 0, rows = 0;
-  const int max_steps = 4 * n_nodes + 64;
+__device__ __forceinline__ void write(const Walk& w, int i, const Args& a) {
+  if (kAny) {
+    a.occ_out[i] = w.occ;
+  } else {
+    a.t_out[i] = w.best_s >= 0 ? w.best_t : __int_as_float(0x7f800000);
+    a.slot_out[i] = w.best_s;
+    a.u_out[i] = w.best_u;
+    a.v_out[i] = w.best_v;
+  }
+  if (a.stats != nullptr) {
+    a.stats[3 * i] = w.pops;
+    a.stats[3 * i + 1] = w.leaves;
+    a.stats[3 * i + 2] = w.rows;
+  }
+}
 
-  if (r.tmin < best_t) {  // lanes dead on entry leave at once
-    int stack[kStack];
-    int sp = 0;
-    stack[sp++] = 0;
-    while (sp > 0) {
-      if (pops >= max_steps) {
-        atomicOr(err, kErrSteps);
+// Pops until a leaf's box is hit (returns its cluster: the lane parks) or
+// the walk ends (returns -1, w.live false).
+__device__ __forceinline__ int to_leaf(Walk& w, int* stack, const Args& a) {
+  const int max_steps = 4 * a.n_nodes + 64;
+  while (w.live) {
+    if (w.sp == 0) break;
+    if (w.pops >= max_steps) {
+      atomicOr(a.err, kErrSteps);
+      break;
+    }
+    ++w.pops;
+    const int node = stack[--w.sp];
+    const float4 na = __ldg(a.nodes + 2 * node);
+    const float4 nb = __ldg(a.nodes + 2 * node + 1);
+    if (!lrt::slab(na, nb, w.r, w.best_t)) continue;
+    const float rf = floorf(nb.z);
+    const int first = static_cast<int>(nb.w);
+    if (first >= 0) {
+      if (first >= a.n_clusters) {
+        atomicOr(a.err, kErrIndex);
         break;
       }
-      ++pops;
-      const int node = stack[--sp];
-      const float4 a = __ldg(nodes + 2 * node);
-      const float4 b = __ldg(nodes + 2 * node + 1);
-      if (!lrt::slab(a, b, r, best_t)) continue;
-      const float rf = floorf(b.z);
-      const int first = static_cast<int>(b.w);
-      if (first >= 0) {  // leaf: its block's rows, in order
-        if (first >= n_clusters) {
-          atomicOr(err, kErrIndex);
-          break;
+      ++w.leaves;
+      return first;
+    }
+    // interior: push the far child, then the near one
+    const int right = static_cast<int>(rf);
+    const int left = node + 1;
+    if (right < 0 || right >= a.n_nodes || left >= a.n_nodes) {
+      atomicOr(a.err, kErrIndex);
+      break;
+    }
+    if (w.sp + 2 > kStack) {
+      atomicOr(a.err, kErrStack);
+      break;
+    }
+    const float frac4 = (nb.z - rf) * 4.0f;
+    const float axf = floorf(frac4 + 0.25f);
+    const bool left_high = (frac4 - axf) > 0.125f;
+    const int axis = static_cast<int>(axf);
+    const float dax = axis == 0 ? w.r.dx : (axis == 1 ? w.r.dy : w.r.dz);
+    const bool left_near = (dax >= 0.0f) != left_high;
+    stack[w.sp] = left_near ? right : left;
+    stack[w.sp + 1] = left_near ? left : right;
+    w.sp += 2;
+  }
+  w.live = false;
+  return -1;
+}
+
+__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
+  Ray q;
+  q.ox = __shfl_sync(kFull, r.ox, src);
+  q.oy = __shfl_sync(kFull, r.oy, src);
+  q.oz = __shfl_sync(kFull, r.oz, src);
+  q.dx = __shfl_sync(kFull, r.dx, src);
+  q.dy = __shfl_sync(kFull, r.dy, src);
+  q.dz = __shfl_sync(kFull, r.dz, src);
+  q.ix = q.iy = q.iz = 0.0f;  // Moller-Trumbore reads no inverse
+  q.tmin = __shfl_sync(kFull, r.tmin, src);
+  return q;
+}
+
+// One round of the warp: every lane walks to its next leaf or its end, then
+// the warp tests the parked lanes' leaves. Returns false, having changed
+// nothing, when no lane parked. Called by all 32 lanes.
+template <bool kAny, class Ctr>
+__device__ __forceinline__ bool warp_round(Walk& w, int* stack, const Args& a, Ctr& ctr) {
+  const int lane = threadIdx.x & 31;
+  const int pops0 = w.pops;
+  const int cl = to_leaf(w, stack, a);
+  unsigned parked = __ballot_sync(kFull, cl >= 0);
+  if (ctr.on) {
+    const unsigned run = __reduce_max_sync(kFull, static_cast<unsigned>(w.pops - pops0));
+    ctr.c[CTR_POP_SLOTS] += 32ull * run;
+  }
+  if (!parked) return false;
+  if (ctr.on) {
+    ++ctr.c[CTR_ROUNDS];
+    ctr.c[CTR_PARKED] += __popc(parked);
+  }
+  const unsigned same = __match_any_sync(kFull, cl);  // lanes of one cluster
+  while (parked) {
+    const int first_src = __ffs(parked) - 1;
+    const unsigned group = __shfl_sync(kFull, same, first_src);
+    parked &= ~group;
+    // rows lane + 32 k of the group's block, into registers
+    const int c = __shfl_sync(kFull, cl, first_src);
+    const float* blk = a.tris + static_cast<size_t>(c) * (kTriCols * kCluster);
+    float attr[kGroups][9];
+    bool valid[kGroups];
+    unsigned vb[kGroups];
+    int n_valid = 0;
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      const int j = lane + 32 * k;
+      valid[k] = block_word(blk + 9 * kCluster + j) > 0.0f;
+#pragma unroll
+      for (int q = 0; q < 9; ++q) attr[k][q] = block_word(blk + q * kCluster + j);
+      vb[k] = __ballot_sync(kFull, valid[k]);
+      n_valid += __popc(vb[k]);
+    }
+    if (ctr.on) ++ctr.c[CTR_LOADS];
+
+    for (unsigned g = group; g; g &= g - 1) {  // each lane of the group
+      const int src = __ffs(g) - 1;
+      const Ray q = shfl_ray(w.r, src);
+      const float bt = __shfl_sync(kFull, w.best_t, src);
+      if (kAny) {
+        // the valid rows up to and including the first occluder
+        int tested = n_valid, groups = kGroups, before = 0;
+        bool found = false;
+#pragma unroll
+        for (int k = 0; k < kGroups; ++k) {
+          bool hit = false;
+          if (valid[k]) {
+            float t, u, v;
+            bool big_det;
+            const bool inside = lrt::moller_trumbore(
+                attr[k][0], attr[k][1], attr[k][2], attr[k][3], attr[k][4], attr[k][5],
+                attr[k][6], attr[k][7], attr[k][8], q, t, u, v, big_det);
+            hit = inside && t > q.tmin && t < bt &&
+                  block_word(blk + 10 * kCluster + lane + 32 * k) > 0.0f;
+          }
+          const unsigned hb = __ballot_sync(kFull, hit);
+          if (hb) {
+            tested = before + __popc(vb[k] & ((2u << (__ffs(hb) - 1)) - 1u));
+            groups = k + 1;
+            found = true;
+            break;
+          }
+          before += __popc(vb[k]);
         }
-        ++leaves;
-        const float* blk =
-            tris + static_cast<size_t>(first) * (kTriCols * kCluster);
-        for (int j = 0; j < kCluster; ++j) {
-          if (!(__ldg(blk + 9 * kCluster + j) > 0.0f)) continue;  // padding
-          ++rows;
-          float t, u, v;
-          const bool inside = lrt::block_row_mt(blk, j, r, t, u, v);
-          if (!(inside && t > r.tmin && t < best_t)) continue;
-          if (kAny) {
-            if (__ldg(blk + 10 * kCluster + j) > 0.0f) {
-              occ = 1;
-              break;
-            }
-          } else {
-            best_t = t;
-            best_s = static_cast<int>(__ldg(blk + 11 * kCluster + j));
-            best_u = u;
-            best_v = v;
+        if (lane == src) {
+          w.rows += tested;
+          if (found) {
+            w.occ = 1;
+            w.live = false;  // an occluded ray leaves the walk
           }
         }
-        if (kAny && occ) break;
-      } else {  // interior: push the far child, then the near one
-        const int right = static_cast<int>(rf);
-        const int left = node + 1;
-        if (right < 0 || right >= n_nodes || left >= n_nodes) {
-          atomicOr(err, kErrIndex);
-          break;
+        if (ctr.on) {
+          ctr.c[CTR_ROWS] += tested;
+          ctr.c[CTR_ROW_SLOTS] += 32ull * groups;
         }
-        if (sp + 2 > kStack) {
-          atomicOr(err, kErrStack);
-          break;
+      } else {
+        // this lane's first row of least t, then the warp's
+        float wt = __int_as_float(0x7f800000), wu = 0.0f, wv = 0.0f;
+        int wrow = kCluster;
+#pragma unroll
+        for (int k = 0; k < kGroups; ++k) {
+          if (!valid[k]) continue;
+          float t, u, v;
+          bool big_det;
+          const bool inside = lrt::moller_trumbore(
+              attr[k][0], attr[k][1], attr[k][2], attr[k][3], attr[k][4], attr[k][5],
+              attr[k][6], attr[k][7], attr[k][8], q, t, u, v, big_det);
+          if (inside && t > q.tmin && t < bt && t < wt) {
+            wt = t;
+            wu = u;
+            wv = v;
+            wrow = lane + 32 * k;
+          }
         }
-        const float frac4 = (b.z - rf) * 4.0f;
-        const float axf = floorf(frac4 + 0.25f);
-        const bool left_high = (frac4 - axf) > 0.125f;
-        const int axis = static_cast<int>(axf);
-        const float dax = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-        const bool left_near = (dax >= 0.0f) != left_high;
-        stack[sp] = left_near ? right : left;
-        stack[sp + 1] = left_near ? left : right;
-        sp += 2;
+        if (lane == src) w.rows += n_valid;
+        if (__any_sync(kFull, wrow < kCluster)) {  // some row beat best_t
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            const float ot = __shfl_xor_sync(kFull, wt, off);
+            const int orow = __shfl_xor_sync(kFull, wrow, off);
+            if (ot < wt || (ot == wt && orow < wrow)) {
+              wt = ot;
+              wrow = orow;
+            }
+          }
+          const float bu = __shfl_sync(kFull, wu, wrow & 31);
+          const float bv = __shfl_sync(kFull, wv, wrow & 31);
+          if (lane == src) {
+            w.best_t = wt;
+            w.best_s = static_cast<int>(block_word(blk + 11 * kCluster + wrow));
+            w.best_u = bu;
+            w.best_v = bv;
+          }
+        }
+        if (ctr.on) {
+          ctr.c[CTR_ROWS] += n_valid;
+          ctr.c[CTR_ROW_SLOTS] += 32ull * kGroups;
+        }
       }
     }
   }
-  if (kAny) {
-    occ_out[i] = occ;
+  return true;
+}
+
+template <bool kAny, bool kCount>
+__device__ __forceinline__ void trace(const Args& a) {
+  const int lane = threadIdx.x & 31;
+  Counters<kCount> ctr = {};
+  Walk w;
+  int stack[kStack];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < a.n) {
+    begin(w, stack, i, a);
   } else {
-    t_out[i] = best_s >= 0 ? best_t : __int_as_float(0x7f800000);
-    slot_out[i] = best_s;
-    u_out[i] = best_u;
-    v_out[i] = best_v;
+    idle(w);
   }
-  if (stats != nullptr) {
-    stats[3 * i] = pops;
-    stats[3 * i + 1] = leaves;
-    stats[3 * i + 2] = rows;
+  while (warp_round<kAny>(w, stack, a, ctr)) {
+  }
+  if (i < a.n) write<kAny>(w, i, a);
+  if (kCount) {
+    ctr.c[CTR_POPS] += __reduce_add_sync(kFull, static_cast<unsigned>(i < a.n ? w.pops : 0));
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kCounters; ++k)
+        if (ctr.c[k]) atomicAdd(a.counters + k, ctr.c[k]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    cluster_closest_kernel(const float* __restrict__ o,
-                           const float* __restrict__ d,
-                           const float* __restrict__ t_min,
-                           const float* __restrict__ t_max,
-                           const float4* __restrict__ nodes, int n_nodes,
-                           const float* __restrict__ tris, int n_clusters,
-                           int n, float* __restrict__ t_out,
-                           int* __restrict__ slot_out,
-                           float* __restrict__ u_out,
-                           float* __restrict__ v_out, int* __restrict__ stats,
-                           int* __restrict__ err) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  walk<false>(i, o, d, t_min, t_max, nodes, n_nodes, tris, n_clusters, t_out,
-              slot_out, u_out, v_out, nullptr, stats, err);
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) cluster_closest_kernel(const Args a) {
+  trace<false, false>(a);
+}
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) cluster_any_kernel(const Args a) {
+  trace<true, false>(a);
+}
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) cluster_closest_counted_kernel(const Args a) {
+  trace<false, true>(a);
+}
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) cluster_any_counted_kernel(const Args a) {
+  trace<true, true>(a);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    cluster_any_kernel(const float* __restrict__ o,
-                       const float* __restrict__ d,
-                       const float* __restrict__ t_min,
-                       const float* __restrict__ t_max,
-                       const float4* __restrict__ nodes, int n_nodes,
-                       const float* __restrict__ tris, int n_clusters, int n,
-                       int* __restrict__ occ_out, int* __restrict__ stats,
-                       int* __restrict__ err) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  walk<true>(i, o, d, t_min, t_max, nodes, n_nodes, tris, n_clusters, nullptr,
-             nullptr, nullptr, nullptr, occ_out, stats, err);
+int launch(void (*kernel)(Args), const Args& a, int device, void* stream) {
+  if (a.n <= 0 || a.n_nodes <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<lrt::blocks_for(a.n, kThreads), kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
-
-int blocks_for(int n) { return lrt::blocks_for(n, kThreads); }
 
 }  // namespace
 
 extern "C" {
 
+// The number of uint64 counters a launch adds to when `counters` is given.
+int cluster_counters() { return kCounters; }
+
 // Both entry points launch on `stream` of device `device`, do not
 // synchronise, and return cudaGetLastError() after the launch (0 = success).
-// `stats` may be null; `err` is one int on the card that the walk ORs its
-// error bits into.
+// `stats` (N, 3) int32 and `counters` (cluster_counters() uint64) may be
+// null; `err` is one int on the card that the walk ORs its error bits into.
 int cluster_closest(const float* o, const float* d, const float* t_min,
                     const float* t_max, const float* nodes, int n_nodes,
                     const float* tris, int n_clusters, int n, float* t_out,
                     int* slot_out, float* u_out, float* v_out, int* stats,
-                    int* err, int device, void* stream) {
-  if (n <= 0 || n_nodes <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cluster_closest_kernel<<<blocks_for(n), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      o, d, t_min, t_max, reinterpret_cast<const float4*>(nodes), n_nodes,
-      tris, n_clusters, n, t_out, slot_out, u_out, v_out, stats, err);
-  return static_cast<int>(cudaGetLastError());
+                    unsigned long long* counters, int* err, int device,
+                    void* stream) {
+  const Args a = {o, d, t_min, t_max, reinterpret_cast<const float4*>(nodes), tris,
+                  t_out, slot_out, u_out, v_out, nullptr, stats, counters, err, n_nodes,
+                  n_clusters, n};
+  return launch(counters ? cluster_closest_counted_kernel : cluster_closest_kernel, a, device,
+                stream);
 }
 
 int cluster_any(const float* o, const float* d, const float* t_min,
                 const float* t_max, const float* nodes, int n_nodes,
                 const float* tris, int n_clusters, int n, int* occ_out,
-                int* stats, int* err, int device, void* stream) {
-  if (n <= 0 || n_nodes <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cluster_any_kernel<<<blocks_for(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      o, d, t_min, t_max, reinterpret_cast<const float4*>(nodes), n_nodes,
-      tris, n_clusters, n, occ_out, stats, err);
-  return static_cast<int>(cudaGetLastError());
+                int* stats, unsigned long long* counters, int* err, int device,
+                void* stream) {
+  const Args a = {o, d, t_min, t_max, reinterpret_cast<const float4*>(nodes), tris,
+                  nullptr, nullptr, nullptr, nullptr, occ_out, stats, counters, err, n_nodes,
+                  n_clusters, n};
+  return launch(counters ? cluster_any_counted_kernel : cluster_any_kernel, a, device, stream);
 }
 
 }  // extern "C"

@@ -16,12 +16,22 @@ triangles a block, no packing):
   table that a hit indexes).
 
 On CUDA tensors `closest` / `any_hit` launch the hand-written kernel of
-csrc/cluster.cu (one thread a ray, a per-thread stack; the source says why).
-On CPU tensors they run the plain PyTorch versions below, which walk the
-same tree with the same per-lane order and arithmetic. There is no
-fallback: a CUDA tensor launches the kernel or raises. A malformed tree
-(a stack deeper than STACK_DEPTH, more than 4 N + 64 pops for a ray, a
-child or cluster index out of range) raises in both.
+csrc/cluster.cu (a lane a ray, each warp testing its lanes' leaves
+together; the source says why). On CPU tensors they run the plain PyTorch
+versions below, which walk the same tree with the same per-lane order and
+arithmetic. There is no fallback: a CUDA tensor launches the kernel or
+raises. A malformed tree (a stack deeper than STACK_DEPTH, more than
+4 N + 64 pops for a ray, a child or cluster index out of range) raises in
+both.
+
+The reference's wrapper sorts launches of at least 32,768 rays
+(cluster_pallas.py MIN_SORT_RAYS) into coherent packets first.
+`coherence_order` is that order (the reference's `_coherence_keys`, origin
+cell major, direction cell minor, dead rays last). Each ray's walk is its
+own, so the outputs are the same in either order; on the H100 the kernel
+is slower on sorted closest-hit rays and gains at most 12 us on sorted
+shadow rays of the mesh-heavy scene, before the sort's own cost
+(PERF.md), so `closest` / `any_hit` launch in caller order at every size.
 
 `closest_launches` / `any_launches` count kernel launches, so that a run can
 show its main path went through the kernel.
@@ -42,6 +52,8 @@ TRI_COLS = 16
 NODE_COLS = 8
 STACK_DEPTH = 64
 _BIG = 3.0e38
+# the kernel's optional per-launch counters (csrc/cluster.cu CTR_*)
+COUNTERS = ("rounds", "parked", "loads", "rows", "row_slots", "pops", "pop_slots")
 # lanes whose leaf blocks are gathered at once by the plain version:
 # (LEAF_CHUNK, 12, 128) float32 is 100 MB
 LEAF_CHUNK = 16384
@@ -257,6 +269,39 @@ def leaf_blocks_plain(blk12, lanes, blks, ray, best, stats, any_hit):
     return torch.cat(occluded)
 
 
+def _spread(x):
+    """Every third bit of a 10-bit int64 (Morton part1by2)."""
+    x = (x | (x << 16)) & 0xFF0000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def _morton(q):
+    return _spread(q[:, 0]) | (_spread(q[:, 1]) << 1) | (_spread(q[:, 2]) << 2)
+
+
+def coherence_keys(o, d, t_min, t_max, lo, ext):
+    """The reference's sort keys (cluster_pallas.py _coherence_keys, mode 0),
+    bit for bit: the origin's 6-bit cell a dimension in the box (lo, lo +
+    ext), Morton-interleaved, major; the direction's 4-bit cell over [-1, 1]
+    minor; 0x40000000 for dead rays (t_max <= t_min). float32 arithmetic in
+    the reference's order; int64 keys (torch's CPU uint32 has no shifts)."""
+    ext = torch.clamp_min(ext, 1e-12)
+    qo = torch.clamp((o - lo) / ext * 63.0, 0.0, 63.0).to(torch.int64)
+    qd = torch.clamp((d * 0.5 + 0.5) * 15.0, 0.0, 15.0).to(torch.int64)
+    key = (_morton(qo) << 12) | _morton(qd)
+    return torch.where(t_max <= t_min, 0x40000000, key)
+
+
+def coherence_order(o, d, t_min, t_max, nodes):
+    """The rays' order by coherence_keys over the root box of the node table
+    (stable: rays of one key keep caller order), as int64 indices."""
+    lo = nodes[0, 0:3]
+    key = coherence_keys(o, d, t_min, t_max, lo, nodes[0, 3:6] - lo)
+    return torch.sort(key.to(torch.int32), stable=True).indices
+
+
 def _raise(err, name):
     msgs = [m for bit, m in _ERRORS.items() if err & bit]
     raise RuntimeError(f"{name}: malformed cluster tree: {', '.join(msgs)}")
@@ -363,10 +408,15 @@ def _library():
         lib = load_library("cluster")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         args = [ptr] * 5 + [i32, ptr, i32, i32]
-        lib.cluster_closest.argtypes = args + [ptr] * 6 + [i32, ptr]
+        # outputs, stats, counters and the error word; device and stream
+        lib.cluster_closest.argtypes = args + [ptr] * 7 + [i32, ptr]
         lib.cluster_closest.restype = i32
-        lib.cluster_any.argtypes = args + [ptr] * 3 + [i32, ptr]
+        lib.cluster_any.argtypes = args + [ptr] * 4 + [i32, ptr]
         lib.cluster_any.restype = i32
+        lib.cluster_counters.restype = i32
+        if lib.cluster_counters() != len(COUNTERS):
+            raise RuntimeError(f"csrc/cluster.cu keeps {lib.cluster_counters()} counters, "
+                               f"ops/cluster.py names {len(COUNTERS)}")
         _LIB = lib
     return _LIB
 
@@ -397,20 +447,28 @@ def _check(o, d, t_min, t_max, nodes, tris):
         raise ValueError("the node table must be 16-byte aligned (float4 loads)")
 
 
-def launch(o, d, t_min, t_max, nodes, tris, any_hit, err, stats=None):
+def launch(o, d, t_min, t_max, nodes, tris, any_hit, err, stats=None, counters=None):
     """Queue one kernel launch on the current stream and return its outputs
     without waiting: closest (t, slot, u, v) or any-hit occlusion (int32).
-    Errors of the walk are OR-ed into `err` (an int32 tensor of one
-    element on the card); `closest` / `any_hit` read it. `stats`, when
-    given, is an (N, 3) int32 tensor that receives pops, leaf visits and
-    rows tested per ray."""
+    The rays are walked in the order given. Errors of the walk are OR-ed
+    into `err` (an int32 tensor of one element on the card); `closest` /
+    `any_hit` read it. `stats`, when given, is an (N, 3) int32 tensor that
+    receives pops, leaf visits and rows tested per ray; `counters`, a
+    contiguous int64 tensor of len(COUNTERS) that the kernel adds its lane
+    counters to."""
     global closest_launches, any_launches
     n = o.shape[0]
     dev = o.device
+    if counters is not None and (counters.device != dev or counters.dtype != torch.int64
+                                 or counters.shape != (len(COUNTERS),)
+                                 or not counters.is_contiguous()):
+        raise ValueError(f"counters must be a contiguous int64 ({len(COUNTERS)},) "
+                         f"tensor on {dev}")
     lib = _library()
     common = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
               nodes.data_ptr(), nodes.shape[0], tris.data_ptr(), tris.shape[0], n)
-    tail = (0 if stats is None else stats.data_ptr(), err.data_ptr(), dev.index or 0,
+    tail = (0 if stats is None else stats.data_ptr(),
+            0 if counters is None else counters.data_ptr(), err.data_ptr(), dev.index or 0,
             torch.cuda.current_stream(dev).cuda_stream)
     if any_hit:
         occ = torch.empty((n,), dtype=torch.int32, device=dev)

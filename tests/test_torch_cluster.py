@@ -14,12 +14,18 @@ accel/traverse.py, scene/compiler.py), on the CPU.
 - Compiled scenes: the port's triangle order, trace, shade and cluster
   tables equal the reference's exactly, and `convert.py` carries them
   across unchanged.
+- The ray sort of the CUDA route: the port's coherence keys equal the
+  reference's `_coherence_keys` bit for bit, and a walk of the sorted rays
+  scattered back equals the walk in caller order. Ties: inside one cluster
+  of coincident triangles the plain walk takes the reference kernel's slot
+  (both take the first row of least t).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import luisarender_tpu as lr
 import luisarender_tpu_torch as lt
@@ -31,7 +37,7 @@ from luisarender_tpu_torch.ops import cluster
 from luisarender_tpu_torch.scene.compiler import SceneCompiler, tables_to_device
 
 from torch_parity import (
-    brute_geom, cluster_case, require_reference_builder, soup_rays, to_torch,
+    brute_geom, cluster_case, require_reference_builder, soup, soup_rays, to_torch,
 )
 
 N_RAYS = 1500
@@ -155,3 +161,94 @@ def test_compiled_scene_matches_reference(compiled, name, n_tris):
     dev = tables_to_device(conv, "cpu")["trace"]
     assert ("tri_table" in dev) == (n_tris <= 512)
     assert ("cluster_nodes" in dev) == (n_tris > 512)
+
+
+def _key_rays(n=3000, seed=21):
+    """Rays for the sort keys: a seventh dead, some along -x and +y exactly,
+    origins inside and outside the box below."""
+    rs = np.random.RandomState(seed)
+    o = (rs.randn(n, 3) * 2.0).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:100] = [-1.0, 0.0, 0.0]
+    d[100:200] = [0.0, 1.0, 0.0]
+    t_min = np.full(n, 1e-4, np.float32)
+    t_max = np.where(rs.rand(n) < 0.5, np.inf, rs.rand(n) * 4.0).astype(np.float32)
+    t_max[::7] = 0.0
+    return o, d, t_min, t_max
+
+
+@pytest.mark.parametrize("hi_y", [2.0, -0.5], ids=["box", "flat_box"])
+def test_coherence_keys_match_reference(hi_y):
+    o, d, t_min, t_max = _key_rays()
+    lo = np.float32([-1.0, -0.5, -1.5])
+    ext = np.float32([1.0, hi_y, 3.0]) - lo  # flat_box: no extent along y
+    ref = np.asarray(cluster_pallas._coherence_keys(
+        *(jnp.asarray(x) for x in (o, d, t_min, t_max, lo, ext))))
+    got = cluster.coherence_keys(*to_torch(o, d, t_min, t_max, lo, ext)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert np.all(got[t_max <= t_min] == 0x40000000)
+    assert np.unique(got).size > 500  # the keys tell the rays apart
+    # the order: keys ascending, dead rays last, caller order within a key
+    nodes = np.zeros((1, cluster.NODE_COLS), np.float32)
+    nodes[0, 0:3], nodes[0, 3:6] = lo, lo + ext
+    perm = cluster.coherence_order(*to_torch(o, d, t_min, t_max, nodes)).numpy()
+    np.testing.assert_array_equal(perm, np.argsort(ref, kind="stable"))
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_sorted_walk_matches_caller_order(reference, any_hit):
+    *_, nodes, tris = cluster_case(700, 3)
+    o, d, t_min, t_max = soup_rays(23, 1.0 if any_hit else 3e38)
+    args = to_torch(o, d, t_min, t_max, nodes, tris)
+    want = cluster.walk_plain(*args, any_hit)
+    perm = cluster.coherence_order(*args[:5])
+    assert not torch.equal(perm, torch.arange(perm.numel()))
+    rays = [x[perm] for x in args[:4]]
+    got = cluster.walk_plain(*rays, *args[4:], any_hit)
+    for g, w in zip(got, want):
+        back = torch.empty_like(g)
+        back[perm] = g  # scattered back to caller order
+        assert torch.equal(back, w)
+
+
+def test_coincident_ties_match_reference_kernel(reference):
+    """One cluster of 40 triangles, each three times (the same vertices),
+    and rays aimed at them: the plain walk's slots equal the reference
+    kernel's (interpret mode), which takes the first row of least t."""
+    from luisarender_tpu_torch.accel.native import build_bvh_sah
+
+    positions, base = soup(40, 31)
+    triangles = np.repeat(base, 3, axis=0)
+    n_tris = triangles.shape[0]
+    order = build_bvh_sah(positions, triangles).prim_index
+    canon = np.empty(n_tris, np.int64)
+    canon[order] = np.arange(n_tris)
+    opaque = np.ones(n_tris, bool)
+    nodes, tris = cluster.build_cluster_tables(positions, triangles, opaque, canon)
+    assert tris.shape[0] == 1
+    rs = np.random.RandomState(32)
+    n = 256
+    o = rs.uniform(-0.5, 1.5, (n, 3)).astype(np.float32)
+    aim = positions[base[rs.randint(0, 40, n)]].mean(axis=1)
+    d = (aim - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_min = np.full(n, 1e-4, np.float32)
+    t_max = np.full(n, 3e38, np.float32)
+    t, slot, _, _, _, _ = cluster.walk_plain(*to_torch(o, d, t_min, t_max, nodes, tris), False)
+    ref = cluster_pallas.trace_closest_cluster(
+        jnp.asarray(nodes), jnp.asarray(tris), Ray(*(jnp.asarray(x) for x in (o, d, t_min, t_max))),
+        interpret=True)
+    slot = slot.numpy()
+    assert (slot >= 0).mean() > 0.8
+    np.testing.assert_array_equal(slot, np.asarray(ref.prim))
+    h = slot >= 0
+    np.testing.assert_array_equal(np.isinf(t.numpy()), ~h)
+    # each hit's slot is the first of its copies in the block's row order
+    rows = tris[0, 11, :].astype(np.int64)
+    first_row = {}
+    for j, sl in enumerate(rows[tris[0, 9, :] > 0]):
+        first_row.setdefault(tuple(tris[0, :9, j]), j)
+    for sl in np.unique(slot[h]):
+        j = int(np.nonzero(rows == sl)[0][0])
+        assert first_row[tuple(tris[0, :9, j])] == j

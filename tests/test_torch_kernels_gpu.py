@@ -16,7 +16,8 @@ a card and without JAX:
 Kernel and plain version do the same IEEE float32 operations in the same
 order (nvcc --fmad=false, no fast math), so the traces must agree
 exactly: slots and occlusion bit for bit, and t / u / v bit for bit too
-(the tree walks' per-ray pop, leaf and row counts as well). The fused
+(the tree walks' per-ray pop, leaf and row counts as well, and the
+cluster walk's in caller order and sorted alike). The fused
 kernel's paths too: rgb and ray counts bit for bit on every lane (its
 sinf / cosf / powf / expf / logf are the same CUDA functions that PyTorch's
 kernels call on the card).
@@ -139,17 +140,25 @@ def test_wrappers_reject_bad_inputs(cuda):
     assert math.isfinite(float(u.sum()))
 
 
-def _cluster_case(cuda, n_tris, n_rays, seed):
+def _cluster_case(cuda, n_tris, n_rays, seed, copies=1):
+    """A soup of n_tris triangles, each `copies` times (the same vertices:
+    exact ties in t, across clusters where a triangle's copies fill more
+    than one), its cluster tables and rays through it."""
     from luisarender_tpu_torch.ops import cluster
     from torch_parity import soup
 
     positions, triangles = soup(n_tris, seed)
+    triangles = np.repeat(triangles, copies, axis=0)
+    n_tris *= copies
     rs = np.random.RandomState(seed)
     opaque = rs.rand(n_tris) < 0.7
     nodes, tris = cluster.build_cluster_tables(positions, triangles, opaque,
                                                rs.permutation(n_tris))
     o = rs.uniform(-0.5, 1.5, (n_rays, 3)).astype(np.float32)
     d = rs.randn(n_rays, 3).astype(np.float32)
+    if copies > 1:  # half the rays aimed at a triangle, so that ties occur
+        aim = positions[triangles[rs.randint(0, n_tris, n_rays // 2)]].mean(axis=1)
+        d[: n_rays // 2] = aim - o[: n_rays // 2]
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     t_min = np.full(n_rays, 1e-4, np.float32)
     t_max = np.where(rs.rand(n_rays) < 0.5, np.inf, rs.rand(n_rays) * 2.0).astype(np.float32)
@@ -157,10 +166,45 @@ def _cluster_case(cuda, n_tris, n_rays, seed):
     return cluster, _to(cuda, o, d, t_min, t_max, nodes, tris)
 
 
-@pytest.mark.parametrize("n_tris,n_rays", [(100, 1000), (3000, 100_003)],
-                         ids=["one_cluster", "t3000_ragged"])
-def test_cluster_kernel_matches_plain(cuda, n_tris, n_rays):
-    cluster, args = _cluster_case(cuda, n_tris, n_rays, 11)
+def _launch_sorted(cluster):
+    """cluster.launch on the rays in the reference's coherence order
+    (cluster.coherence_order), its outputs and walk counts scattered back
+    to caller order: the route of the reference's wrapper."""
+    def launch(o, d, t_min, t_max, nodes, tris, any_hit, err, stats=None):
+        perm = cluster.coherence_order(o, d, t_min, t_max, nodes)
+        rays = [x.index_select(0, perm) for x in (o, d, t_min, t_max)]
+        walk = None if stats is None else torch.empty_like(stats)
+        out = cluster.launch(*rays, nodes, tris, any_hit, err, walk)
+        if stats is not None:
+            stats[perm] = walk
+        back = []
+        for x in out if isinstance(out, tuple) else (out,):
+            y = torch.empty_like(x)
+            y[perm] = x
+            back.append(y)
+        return tuple(back) if isinstance(out, tuple) else back[0]
+    return launch
+
+
+def _cluster_walks_match(cluster, args, cuda, launch, want, any_hit):
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = torch.zeros_like(want)
+    launch(*args, any_hit, err, got)
+    torch.cuda.synchronize()
+    assert int(err.item()) == 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_tris,n_rays,copies", [(100, 1000, 1), (3000, 100_003, 1),
+                                                  (20, 20_000, 6), (60, 100_003, 200)],
+                         ids=["one_cluster", "t3000_ragged", "coincident_one_cluster",
+                              "coincident_across_clusters"])
+def test_cluster_kernel_matches_plain(cuda, n_tris, n_rays, copies):
+    """Both modes bit-equal with walk_plain, the per-ray walk counts too, in
+    caller order (`launch`, the wrappers' route) and in the reference's
+    coherence order (`_launch_sorted`); coincident triangles tie exactly,
+    inside a cluster and across clusters."""
+    cluster, args = _cluster_case(cuda, n_tris, n_rays, 11, copies)
     c0, a0 = cluster.closest_launches, cluster.any_launches
     kern = cluster.closest(*args)
     occ = cluster.any_hit(*args)
@@ -175,12 +219,55 @@ def test_cluster_kernel_matches_plain(cuda, n_tris, n_rays):
     assert 0.01 < occ.float().mean().item() < 0.95
     # the walks themselves: the same pops, leaf visits and rows per ray
     for any_hit, want in ((False, stats), (True, stats_any)):
+        for launch in (cluster.launch, _launch_sorted(cluster)):
+            _cluster_walks_match(cluster, args, cuda, launch, want, any_hit)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    _assert_same(_launch_sorted(cluster)(*args, False, err), (t, slot, u, v))
+    assert torch.equal(_launch_sorted(cluster)(*args, True, err) > 0, occ_p)
+
+
+@pytest.mark.parametrize("n,dead", [(1, None), (45, None), (96, slice(32, 64)),
+                                    (40_000, slice(0, 40_000, 3))],
+                         ids=["one_ray", "n45", "dead_warp", "n40000_third_dead"])
+def test_cluster_kernel_ragged_and_dead(cuda, n, dead):
+    """Ray counts that leave a warp part-filled, a warp whose rays are all
+    dead, a single ray, and more rays than the reference's sort threshold
+    (32,768), in caller order and sorted: every output and walk count
+    bit-equal with walk_plain, one launch a call."""
+    cluster, args = _cluster_case(cuda, 3000, max(n, 64), 17)
+    args = [x[:n].contiguous() for x in args[:4]] + list(args[4:])
+    if dead is not None:
+        args[3][dead] = 0.0
+    c0, a0 = cluster.closest_launches, cluster.any_launches
+    kern = cluster.closest(*args)
+    occ = cluster.any_hit(*args)
+    torch.cuda.synchronize()
+    assert (cluster.closest_launches, cluster.any_launches) == (c0 + 1, a0 + 1)
+    t, slot, u, v, _, stats = cluster.walk_plain(*args, False)
+    _assert_same(kern, (t, slot, u, v))
+    occ_p, stats_any = cluster.walk_plain(*args, True)[4:]
+    assert torch.equal(occ, occ_p)
+    if dead is not None:
+        assert torch.all(stats[dead] == 0) and torch.all(kern[1][dead] == -1)
+    for any_hit, want in ((False, stats), (True, stats_any)):
+        for launch in (cluster.launch, _launch_sorted(cluster)):
+            _cluster_walks_match(cluster, args, cuda, launch, want, any_hit)
+
+
+def test_cluster_kernel_counters(cuda):
+    """The kernel's lane counters agree with the walk counts they sum."""
+    cluster, args = _cluster_case(cuda, 3000, 10_007, 18)
+    for any_hit in (False, True):
         err = torch.zeros(1, dtype=torch.int32, device=cuda)
-        got = torch.zeros_like(want)
-        cluster.launch(*args, any_hit, err, got)
+        stats = torch.zeros((10_007, 3), dtype=torch.int32, device=cuda)
+        ctr = torch.zeros(len(cluster.COUNTERS), dtype=torch.int64, device=cuda)
+        cluster.launch(*args, any_hit, err, stats, ctr)
         torch.cuda.synchronize()
-        assert int(err.item()) == 0
-        assert torch.equal(got, want)
+        c = dict(zip(cluster.COUNTERS, ctr.tolist()))
+        assert c["pops"] == int(stats[:, 0].sum()) <= c["pop_slots"]
+        assert c["parked"] == int(stats[:, 1].sum())
+        assert c["rows"] == int(stats[:, 2].sum()) <= c["row_slots"]
+        assert 0 < c["rounds"] <= c["parked"] and 0 < c["loads"] <= c["parked"]
 
 
 def test_cluster_wrappers_raise_on_bad_inputs_and_trees(cuda):
