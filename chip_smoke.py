@@ -11,11 +11,17 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              memory and spills per kernel, and the fused kernel's dynamic
              shared memory (its slot pool) and blocks per SM
   3 kernels  the brute-force traces against their plain PyTorch versions on
-             the general fork's inputs (camera rays, one bounce of real rays
-             and their shadow rays, 512^2 Cornell) and on a random 512-row
-             table with a ragged ray count: slots, occlusion, t, u and v
-             bit for bit. The fused kernel against its plain version on one
-             512^2 sample of scenes/materials.json (depth 10) and of
+             every input of one sample of the general scene of phase 5 (512^2
+             lanes, 352 rows: 8 bounces of rays and their shadow rays), on two
+             bounces of scenes/cornell.json forced onto the general fork (32
+             rows) and on a random 512-row table with a ragged ray count:
+             slots, occlusion, t, u and v bit for bit; per input the device
+             time, the bound (brute_work: each row test counted to its
+             first failed check, the rays of live lanes only), the live
+             share of lanes and the kernels' lane counters, and the sum
+             over the 16 launches of a sample. The
+             fused kernel against its plain version on one 512^2 sample
+             of scenes/materials.json (depth 10) and of
              scenes/cornell.json (depth 8), and on a pass of 4 samples of
              each (persistent mode): rgb and ray counts bit for bit on every
              lane, and 20 launches queued back to back equal to the first;
@@ -78,9 +84,9 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              time): both brute-force kernels launched once a bounce, the
              fused kernel never
   6 profile  512^2 materials samples on the fused fork, a 512^2 Cornell
-             sample and a 1280 x 720 mesh-heavy sample on the general fork
-             under torch.profiler, per sample: device busy share and the
-             kernels' share of it (not
+             sample, a 512^2 sample of phase 5's scene and a 1280 x 720
+             mesh-heavy sample on the general fork under torch.profiler, per
+             sample: device busy share and the kernels' share of it (not
              measured, and reported as null, if the profiler traces no
              device work)
   7 golden   testing.cornell_box(64^2, 8 spp, depth 5) through render (the
@@ -120,6 +126,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # arithmetic operations (add, sub, mul, div) of one Moller-Trumbore row test
 FLOPS_PER_ROW = 46
+# ... of a test that ends early (chip_smoke.py brute_work): p, det, tvec, the
+# u numerator, 1 / det and u; then q and v; then u + v
+OPS_TO_U, OPS_TO_V, OPS_TO_SUM = 24, 39, 40
 # ... of one ray / sphere quadric test
 FLOPS_PER_SPHERE = 17
 # ... of one node pop of the cluster walk: safe-inverse-scaled slab test
@@ -272,37 +281,62 @@ def events_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def rows_tested_any(torch, brute, o, d, t_min, t_max, table):
-    """Rows the any-hit kernel tests over the live lanes: up to and
-    including the first occluder (it stops there), else all rows."""
+def brute_work(torch, brute, kind, o, d, t_min, t_max, table):
+    """(rows, ops) per lane: the rows the function needs and the arithmetic
+    operations of their tests. A live lane (closest: t_min < min(t_max,
+    3e38); any-hit: t_min < t_max) tests, closest, every valid row; any-hit,
+    the valid opaque rows (the only ones that can occlude) in table order up
+    to and including the first occluder. A row's test ends at its first
+    failed check of the plain arithmetic (ops/brute.py mt_uvt): u outside
+    [0, 1] after OPS_TO_U operations, v < 0 after OPS_TO_V, u + v > 1 after
+    OPS_TO_SUM, else FLOPS_PER_ROW. A dead lane needs none."""
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
-    p = table.shape[0]
-    first = torch.full(t_min.shape, p - 1, dtype=torch.int64, device=o.device)
-    found = torch.zeros(t_min.shape, dtype=torch.bool, device=o.device)
-    for j, r in enumerate(brute.table_rows(table)):
-        ok, t, _, _ = brute.moller_trumbore(r, ox, oy, oz, dx, dy, dz)
-        occ = ok & (t > t_min) & (t < t_max) & (r[10] > 0.0)
-        first = torch.where(occ & ~found, j, first)
-        found = found | occ
-    live = t_min < t_max  # dead lanes skip the row loop
-    return int((first + 1)[live].sum())
-
-
-def kernel_bounds(torch, brute, kind, o, d, t_min, t_max, table):
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over fp32 peak, counting what these inputs need."""
-    n, p = o.shape[0], table.shape[0]
-    out_bytes = 16 if kind == "closest" else 4
-    nbytes = n * (12 + 12 + 4 + 4 + out_bytes) + table.numel() * 4
-    if kind == "closest":
-        best = torch.where(t_max < 3e38, t_max, 3e38)
-        rows = int((t_min < best).sum()) * p  # dead lanes skip the row loop
+    keep = table[:, 9] > 0.0
+    if kind == "any":
+        keep = keep & (table[:, 10] > 0.0)
+        open_ = t_min < t_max
     else:
-        rows = rows_tested_any(torch, brute, o, d, t_min, t_max, table)
+        open_ = t_min < torch.where(t_max < 3e38, t_max, 3e38)
+    rows = torch.zeros(t_min.shape, dtype=torch.int64, device=o.device)
+    ops = torch.zeros_like(rows)
+    for r in brute.table_rows(table[keep]):
+        _, inside, t, u, v = brute.mt_uvt(*r[:9], ox, oy, oz, dx, dy, dz)
+        pu = (u >= 0.0) & (u <= 1.0)
+        pv = pu & (v >= 0.0)
+        ps = pv & (u + v <= 1.0)
+        cost = (OPS_TO_U + (OPS_TO_V - OPS_TO_U) * pu.long() + (OPS_TO_SUM - OPS_TO_V) * pv.long()
+                + (FLOPS_PER_ROW - OPS_TO_SUM) * ps.long())
+        rows += open_.long()
+        ops += torch.where(open_, cost, 0)
+        if kind == "any":
+            open_ = open_ & ~(inside & (t > t_min) & (t < t_max))
+    return rows, ops
+
+
+def kernel_bounds(torch, kind, rows, ops, table):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over fp32 peak, counting what these inputs need (brute_work's
+    rows and ops per lane): t_min, t_max and the outputs of every lane, the
+    rays of live lanes only, the table once."""
+    out_bytes = 16 if kind == "closest" else 1
+    live = int((rows > 0).sum())
+    nbytes = rows.shape[0] * (4 + 4 + out_bytes) + live * (12 + 12) + table.numel() * 4
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = rows * FLOPS_PER_ROW / PEAK_FP32_PER_S * 1e3
+    t_ops = int(ops.sum()) / PEAK_FP32_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def brute_lanes(torch, brute, launch, device):
+    """A brute kernel's lane counters on one launch(counters) (ops/brute.py
+    COUNTERS), with the live share of the row loop's lane-slots and the
+    share of warp row steps that went past the u test."""
+    ctr = torch.zeros(len(brute.COUNTERS), dtype=torch.int64, device=device)
+    launch(ctr)
+    c = dict(zip(brute.COUNTERS, (int(x) for x in ctr.tolist())))
+    c["live_share"] = c["tests"] / max(c["slots"], 1)
+    c["deep_share"] = c["deep_slots"] / max(c["slots"], 1)
+    return c
 
 
 def compare_case(torch, brute, kind, args):
@@ -349,11 +383,12 @@ def random_case(torch, device, p, n, seed):
     return (o.contiguous(), d.contiguous(), t_min, t_max, table.contiguous())
 
 
-def capture_main_path_inputs(torch, brute, compiled, scene):
+def capture_main_path_inputs(torch, brute, compiled, scene, max_depth=2):
     """The trace kernels' inputs on the general fork (`brute` is the trace
     module the scene routes to: ops/brute.py or ops/cluster.py): one sample
-    of every pixel, two bounces; returns {'closest': [camera, bounce-1],
-    'any': [the shadow rays of bounce 0, of bounce 1]}."""
+    of every pixel, `max_depth` bounces; returns {'closest': [camera rays,
+    bounce-1 rays, ...], 'any': [the shadow rays of bounce 0, of bounce 1,
+    ...]}."""
     from luisarender_tpu_torch.integrators.mega_path import (
         general_path_trace_batch, pixel_grid,
     )
@@ -375,43 +410,90 @@ def capture_main_path_inputs(torch, brute, compiled, scene):
     brute.closest, brute.any_hit = rec_closest, rec_any
     try:
         general_path_trace_batch(compiled, scene.cameras[0], integ.sampler,
-                                 integ.light_sampler, pixel_xy, 0, max_depth=2,
+                                 integ.light_sampler, pixel_xy, 0, max_depth=max_depth,
                                  rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
     finally:
         brute.closest, brute.any_hit = orig_closest, orig_any
-    check(len(captured["closest"]) == 2 and len(captured["any"]) == 2,
-          f"expected 2 bounces of inputs, got {len(captured['closest'])}")
+    check(len(captured["closest"]) == max_depth == len(captured["any"]),
+          f"expected {max_depth} bounces of inputs, got {len(captured['closest'])}")
     return captured
 
 
-def phase_brute_kernels(torch, lt, brute, device):
-    scene = lt.load_scene(str(MAIN_SCENE))
+def general_scene(lt):
+    """The general fork's brute-force scene: testing.cornell_box (512^2,
+    depth 8) plus GENERAL_SPHERE, 352 triangles, more than the fused kernel
+    covers and no more than the brute kernels take."""
+    from luisarender_tpu_torch import testing
+
+    d = testing.cornell_box(resolution=(512, 512), spp=32, depth=8)
+    d["render"]["shapes"].append(GENERAL_SPHERE)
+    return lt.Scene.from_dict(d)
+
+
+def general_inputs(torch, lt, brute, device):
+    """The brute kernels' inputs of one sample of the general scene, every
+    bounce: {'closest': [8 inputs], 'any': [8 inputs]}, 512^2 lanes and 352
+    rows each."""
+    scene = general_scene(lt)
     compiled = lt.compile_scene(scene, device=device)
-    cap = capture_main_path_inputs(torch, brute, compiled, scene)
+    check(not compiled.plan.fused_path and compiled.plan.num_tris == 352,
+          f"general scene: fused {compiled.plan.fused_path}, {compiled.plan.num_tris} triangles")
+    return capture_main_path_inputs(torch, brute, compiled, scene, max_depth=8)
+
+
+def phase_brute_kernels(torch, lt, brute, device):
+    """Both brute kernels on every input of one sample of the general scene
+    (8 bounces: 8 closest, 8 any-hit inputs, 352 rows) and, as secondary
+    cases, on two bounces of scenes/cornell.json (32 rows, the size of the
+    golden phase's general-fork tables) and a random 512-row table with a
+    ragged ray count: bit for bit against the plain versions; per 352-row
+    input and 32-row input the device time, the bound, the live share of
+    lanes and the kernel's lane counters beside the share one thread a lane
+    would give (simt_share of the rows each lane needs). The sum over the 16
+    352-row launches is the brute kernels' device time of one sample."""
+    cap = general_inputs(torch, lt, brute, device)
     n_main = cap["closest"][0][0].shape[0]
     check(n_main == 512 * 512, f"main path has {n_main} rays, expected 512^2")
+    scene = lt.load_scene(str(MAIN_SCENE))
+    small = capture_main_path_inputs(torch, brute, lt.compile_scene(scene, device=device),
+                                     scene)
     rnd = random_case(torch, device, p=512, n=512 * 512 - 77, seed=7)
     results = {}
     for kind in ("closest", "any"):
-        cases = {"camera": cap[kind][0], "bounce1": cap[kind][1], "random512": rnd}
-        errs, fracs = {}, {}
-        for name, args in cases.items():
-            errs[name], fracs[name] = compare_case(torch, brute, kind, args)
         fn_k = brute.closest if kind == "closest" else brute.any_hit
         fn_p = brute.closest_plain if kind == "closest" else brute.any_plain
-        times = {}
-        for name in ("camera", "bounce1"):
-            args = cases[name]
-            ms = device_ms(torch, lambda: fn_k(*args))
-            prof = profile_one(torch, lambda: fn_k(*args), (f"{kind}_kernel",), 100)
-            plain_ms = events_ms(torch, lambda: fn_p(*args), iters=3)
-            bound_ms, bound_by = kernel_bounds(torch, brute, kind, *args)
-            times[name] = {"ms": ms, "profiler_ms": prof["kernels_ms"], "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by}
+        cases = {f"bounce{b}": args for b, args in enumerate(cap[kind])}
+        cases.update({"cornell32_camera": small[kind][0], "cornell32_bounce1": small[kind][1],
+                      "random512": rnd})
+        errs, fracs, times = {}, {}, {}
+        for name, args in cases.items():
+            errs[name], fracs[name] = compare_case(torch, brute, kind, args)
+            if name == "random512":
+                continue
+            rows, ops = brute_work(torch, brute, kind, *args)
+            bound_ms, bound_by = kernel_bounds(torch, kind, rows, ops, args[4])
+            times[name] = {"ms": device_ms(torch, lambda: fn_k(*args), iters=20),
+                           "plain_ms": events_ms(torch, lambda: fn_p(*args), iters=2),
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "rows": int(args[4].shape[0]),
+                           "live_share_of_lanes": float((rows > 0).float().mean()),
+                           "lanes": brute_lanes(torch, brute,
+                                                lambda ctr: fn_k(*args, counters=ctr), device),
+                           "simt_share_one_thread_a_lane": simt_share(rows)}
+        args = cases["bounce1"]
+        times["bounce1"]["profiler_ms"] = profile_one(
+            torch, lambda: fn_k(*args), (f"{kind}_kernel",), 100)["kernels_ms"]
+        sample = [times[f"bounce{b}"] for b in range(len(cap[kind]))]
         results[kind] = {"errors": errs, "hit_fraction": fracs, "times": times,
+                         "sample_ms": sum(t["ms"] for t in sample),
+                         "sample_bound_ms": sum(t["bound_ms"] for t in sample),
                          "max_abs_err": max(max(v) for v in errs.values())}
         emit({"phase": "kernels", "kernel": kind, "n": n_main,
               "rows": int(cap[kind][0][4].shape[0]), **results[kind]})
+    emit({"phase": "kernels", "kernel": "brute", "sample_launches": 16,
+          "sample_ms": results["closest"]["sample_ms"] + results["any"]["sample_ms"],
+          "sample_bound_ms": (results["closest"]["sample_bound_ms"]
+                              + results["any"]["sample_bound_ms"])})
     return results
 
 
@@ -1289,11 +1371,7 @@ def phase_routes(torch, lt, brute, fp, device, img):
 
 
 def phase_general(torch, lt, brute, fp, device):
-    from luisarender_tpu_torch import testing
-
-    d = testing.cornell_box(resolution=(512, 512), spp=32, depth=8)
-    d["render"]["shapes"].append(GENERAL_SPHERE)
-    scene = lt.Scene.from_dict(d)
+    scene = general_scene(lt)
     compiled = lt.compile_scene(scene, device=device)
     check(not compiled.plan.fused_path and compiled.plan.num_tris == 352,
           f"general scene: fused {compiled.plan.fused_path}, {compiled.plan.num_tris} triangles")
@@ -1350,7 +1428,8 @@ def profile_one(torch, fn, kernels, samples):
 
 def phase_profile(torch, lt, device):
     """512^2 samples of materials on the fused fork (8, each a few ms), one
-    of Cornell and one of the mesh-heavy scene on the general fork, per
+    of Cornell, one of the general scene (352 triangles, the brute kernels'
+    main path) and one of the mesh-heavy scene on the general fork, per
     sample."""
     from luisarender_tpu_torch import testing
     from luisarender_tpu_torch.integrators.mega_path import (
@@ -1358,14 +1437,18 @@ def phase_profile(torch, lt, device):
     )
 
     recs = {}
-    for label, path, fn_batch, kernels, samples in (
-        ("fused", MATERIALS, path_trace_batch, ("fused_path_kernel",), 8),
-        ("general", MAIN_SCENE, general_path_trace_batch, ("closest_kernel", "any_kernel"), 1),
-        ("general_mesh_heavy", None, general_path_trace_batch,
+    for label, name, make, fn_batch, kernels, samples in (
+        ("fused", MATERIALS.name, lambda: lt.load_scene(str(MATERIALS)), path_trace_batch,
+         ("fused_path_kernel",), 8),
+        ("general", MAIN_SCENE.name, lambda: lt.load_scene(str(MAIN_SCENE)),
+         general_path_trace_batch, ("closest_kernel", "any_kernel"), 1),
+        ("general_352", "testing.cornell_box + icosphere", lambda: general_scene(lt),
+         general_path_trace_batch, ("closest_kernel", "any_kernel"), 1),
+        ("general_mesh_heavy", "testing.mesh_heavy",
+         lambda: lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY)), general_path_trace_batch,
          ("cluster_closest_kernel", "cluster_any_kernel"), 1),
     ):
-        scene = (lt.load_scene(str(path)) if path is not None
-                 else lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY)))
+        scene = make()
         compiled = lt.compile_scene(scene, device=device)
         integ = scene.integrator
         w, h = scene.cameras[0].film.resolution
@@ -1377,8 +1460,7 @@ def phase_profile(torch, lt, device):
                             pxy, next(counter), max_depth=integ.max_depth,
                             rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
 
-        recs[label] = {"phase": "profile", "fork": label,
-                       "scene": path.name if path is not None else "testing.mesh_heavy",
+        recs[label] = {"phase": "profile", "fork": label, "scene": name,
                        **profile_one(torch, one_sample, kernels, samples)}
         emit(recs[label])
     return recs

@@ -1,9 +1,9 @@
 """Brute-force closest-hit / any-hit ray-triangle intersection.
 
 Counterpart of luisarender_tpu/ops/brute_pallas.py. On CUDA tensors the
-wrappers launch the hand-written kernels of csrc/brute.cu (one thread per
-ray, the triangle table staged in shared memory; the source says why). On
-CPU tensors they run the plain PyTorch versions below, which repeat the
+wrappers launch the hand-written kernels of csrc/brute.cu (live lanes
+compacted in shared memory, the table staged there; the source says why).
+On CPU tensors they run the plain PyTorch versions below, which repeat the
 kernels' arithmetic in the same order; the CPU tests hold those against the
 Pallas kernels in interpret mode. There is no fallback: a CUDA tensor
 launches the kernel or raises.
@@ -28,6 +28,11 @@ _T_MAX_CLAMP = 3e38
 
 closest_launches = 0
 any_launches = 0
+
+# the kernels' optional per-launch counters (csrc/brute.cu CTR_*): live rays,
+# their row tests, 32 x the row steps of the warps that traced, and 32 x the
+# row steps where some lane of the warp went past the u test
+COUNTERS = ("rays", "tests", "slots", "deep_slots")
 
 
 def make_tri_table(tri_v0, tri_e1, tri_e2, prim_index, tri_opaque):
@@ -128,15 +133,20 @@ def _library():
 
         lib = load_library("brute")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.brute_closest.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 4 + [i32, ptr]
+        # outputs and the lane counters; device and stream
+        lib.brute_closest.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 5 + [i32, ptr]
         lib.brute_closest.restype = i32
-        lib.brute_any.argtypes = [ptr] * 5 + [i32, i32, ptr, i32, ptr]
+        lib.brute_any.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 2 + [i32, ptr]
         lib.brute_any.restype = i32
+        lib.brute_counters.restype = i32
+        if lib.brute_counters() != len(COUNTERS):
+            raise RuntimeError(f"csrc/brute.cu keeps {lib.brute_counters()} counters, "
+                               f"ops/brute.py names {len(COUNTERS)}")
         _LIB = lib
     return _LIB
 
 
-def _check(o, d, t_min, t_max, table):
+def _check(o, d, t_min, t_max, table, counters=None):
     dev = o.device
     n = o.shape[0]
     for name, x, shape in (
@@ -158,6 +168,12 @@ def _check(o, d, t_min, t_max, table):
         )
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    if counters is not None and (dev.type != "cuda" or counters.device != dev
+                                 or counters.dtype != torch.int64
+                                 or counters.shape != (len(COUNTERS),)
+                                 or not counters.is_contiguous()):
+        raise ValueError(f"counters must be a contiguous int64 ({len(COUNTERS)},) "
+                         f"tensor on the rays' CUDA device")
 
 
 def _stream(dev):
@@ -169,10 +185,12 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def closest(o, d, t_min, t_max, table):
-    """Closest hit of each ray: (t (inf on miss), slot (-1 on miss), u, v)."""
+def closest(o, d, t_min, t_max, table, counters=None):
+    """Closest hit of each ray: (t (inf on miss), slot (-1 on miss), u, v).
+    `counters`, on the card only, is an int64 tensor of len(COUNTERS) that
+    the kernel adds its lane counters to."""
     global closest_launches
-    _check(o, d, t_min, t_max, table)
+    _check(o, d, t_min, t_max, table, counters)
     if o.device.type == "cpu":
         return closest_plain(o, d, t_min, t_max, table)
     n = o.shape[0]
@@ -187,29 +205,32 @@ def closest(o, d, t_min, t_max, table):
         o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         table.data_ptr(), n, table.shape[0],
         t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
-        o.device.index or 0, _stream(o.device),
+        0 if counters is None else counters.data_ptr(), o.device.index or 0,
+        _stream(o.device),
     )
     _raise_on(err, "brute_closest")
     closest_launches += 1
     return t, slot, u, v
 
 
-def any_hit(o, d, t_min, t_max, table):
-    """Occlusion of each ray by any valid opaque row within (t_min, t_max)."""
+def any_hit(o, d, t_min, t_max, table, counters=None):
+    """Occlusion of each ray by any valid opaque row within (t_min, t_max),
+    as bool; `counters` as for closest."""
     global any_launches
-    _check(o, d, t_min, t_max, table)
+    _check(o, d, t_min, t_max, table, counters)
     if o.device.type == "cpu":
         return any_plain(o, d, t_min, t_max, table)
     n = o.shape[0]
-    occ = torch.empty((n,), dtype=torch.int32, device=o.device)
+    occ = torch.empty((n,), dtype=torch.bool, device=o.device)  # the kernel writes 0 / 1
     if n == 0:
-        return occ > 0
+        return occ
     lib = _library()
     err = lib.brute_any(
         o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         table.data_ptr(), n, table.shape[0], occ.data_ptr(),
-        o.device.index or 0, _stream(o.device),
+        0 if counters is None else counters.data_ptr(), o.device.index or 0,
+        _stream(o.device),
     )
     _raise_on(err, "brute_any")
     any_launches += 1
-    return occ > 0
+    return occ

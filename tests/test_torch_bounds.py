@@ -1,0 +1,84 @@
+"""chip_smoke.py's bound of the brute-force kernels (brute_work,
+kernel_bounds) on hand-made rays, on the CPU: each row test is counted to
+its first failed check of the plain arithmetic, any-hit up to its first
+occluder among the opaque rows, and a dead lane counts no rows and no ray
+bytes.
+
+The row is the triangle v0 = 0, e1 = x, e2 = y; a ray from (x, y, 1) along
+-z meets it at u = x, v = y, t = 1, exactly in float32.
+"""
+
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from luisarender_tpu_torch.ops import brute  # noqa: E402
+
+# (x, y) of each ray and what its test of the row costs
+RAYS = [
+    ((0.25, 0.25), cs.FLOPS_PER_ROW),  # inside: the whole test
+    ((1.5, 0.2), cs.OPS_TO_U),  # u > 1
+    ((-0.5, 0.2), cs.OPS_TO_U),  # u < 0
+    ((0.5, -0.2), cs.OPS_TO_V),  # v < 0
+    ((0.6, 0.6), cs.OPS_TO_SUM),  # u + v > 1
+    ((0.25, 0.25), 0),  # dead lane (t_max = 0)
+]
+
+
+def _table(opaque):
+    """One row per entry of `opaque`, all the same triangle, all valid."""
+    table = torch.zeros((len(opaque), brute.TRI_COLS))
+    table[:, 3] = 1.0  # e1 = x
+    table[:, 7] = 1.0  # e2 = y
+    table[:, 9] = 1.0
+    table[:, 10] = torch.tensor(opaque, dtype=torch.float32)
+    return table
+
+
+def _rays():
+    o = torch.tensor([[x, y, 1.0] for (x, y), _ in RAYS])
+    d = torch.tensor([[0.0, 0.0, -1.0]] * len(RAYS))
+    t_min = torch.zeros(len(RAYS))
+    t_max = torch.full((len(RAYS),), float("inf"))
+    t_max[-1] = 0.0
+    return o, d, t_min, t_max
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_brute_work_counts_each_test_to_its_exit(kind):
+    """Three copies of the row, the first clear: closest tests all three on
+    every live lane; any-hit skips the clear row and stops at the first
+    opaque one that occludes (a miss tests both)."""
+    o, d, t_min, t_max = _rays()
+    table = _table([0.0, 1.0, 1.0])
+    rows, ops = cs.brute_work(torch, brute, kind, o, d, t_min, t_max, table)
+    cost = torch.tensor([c for _, c in RAYS])
+    if kind == "closest":
+        want_rows = torch.tensor([3, 3, 3, 3, 3, 0])
+    else:
+        want_rows = torch.tensor([1, 2, 2, 2, 2, 0])
+        assert torch.equal(brute.any_plain(o, d, t_min, t_max, table), want_rows == 1)
+    assert torch.equal(rows, want_rows)
+    assert torch.equal(ops, want_rows * cost)
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_kernel_bounds_counts_rays_of_live_lanes(kind):
+    """Bytes: t_min, t_max and the outputs of every lane, o and d of live
+    lanes, the table once; operations: brute_work's sum."""
+    o, d, t_min, t_max = _rays()
+    table = _table([1.0, 1.0])
+    rows, ops = cs.brute_work(torch, brute, kind, o, d, t_min, t_max, table)
+    n, live = len(RAYS), len(RAYS) - 1
+    nbytes = n * (8 + (16 if kind == "closest" else 1)) + live * 24 + table.numel() * 4
+    ms, by = cs.kernel_bounds(torch, kind, rows, ops, table)
+    t_bytes = nbytes / cs.PEAK_BYTES_PER_S * 1e3
+    t_ops = int(ops.sum()) / cs.PEAK_FP32_PER_S * 1e3
+    assert ms == max(t_bytes, t_ops)
+    assert by == ("bytes" if t_bytes >= t_ops else "operations")

@@ -119,7 +119,20 @@ def _condition(geom, o, d, slot):
     return np.where(slot >= 0, k / np.maximum(det, 1e-30), 1.0)
 
 
-def _compare(geom, rays, ref, got):
+def _t_cancellation(geom, o, d, slot):
+    """sum |e2_k q_k| / |e2 . q| of each lane's winning row (1 on misses):
+    the factor by which the sum in t's numerator amplifies rounding."""
+    s = np.maximum(slot, 0)
+    v0, e1, e2 = (geom[k][s].astype(np.float64) for k in ("tri_v0", "tri_e1", "tri_e2"))
+    terms = e2 * np.cross(o.astype(np.float64) - v0, e1)
+    c = np.abs(terms).sum(-1) / np.maximum(np.abs(terms.sum(-1)), 1e-30)
+    return np.where(slot >= 0, np.maximum(c, 1.0), 1.0)
+
+
+def _compare(geom, rays, ref, got, t_scaled=False):
+    """t within rtol 2e-6, atol 1e-6; with t_scaled the absolute term is
+    1e-6 times the lane's _t_cancellation (for a reference that contracts
+    t's numerator into fused multiply-adds)."""
     (t_r, s_r, u_r, v_r), occ_r = ref
     (t_p, s_p, u_p, v_p), occ_p = got
     ties = _near_tie_lanes(geom, *rays)
@@ -127,7 +140,14 @@ def _compare(geom, rays, ref, got):
     np.testing.assert_array_equal(s_p[~ties], s_r[~ties])
     np.testing.assert_array_equal(occ_p[~ties], occ_r[~ties])
     same = s_p == s_r
-    np.testing.assert_allclose(t_p[same], t_r[same], rtol=2e-6, atol=1e-6)
+    if t_scaled:
+        both = same & (s_p >= 0)
+        np.testing.assert_array_equal(t_p[same & (s_p < 0)], t_r[same & (s_p < 0)])
+        c = _t_cancellation(geom, rays[0], rays[1], s_p)[both]
+        err = np.abs(t_p[both] - t_r[both])
+        assert np.all(err <= 2e-6 * np.abs(t_r[both]) + 1e-6 * c), err.max()
+    else:
+        np.testing.assert_allclose(t_p[same], t_r[same], rtol=2e-6, atol=1e-6)
     kappa = _condition(geom, rays[0], rays[1], s_p)[same]
     for a, b in ((u_p, u_r), (v_p, v_r)):
         err = np.abs(a[same] - b[same])
@@ -224,3 +244,85 @@ def test_plain_closest_strict_tie_takes_lowest_row():
     t, slot, u, v = brute.closest(o, d, torch.zeros(1), torch.full((1,), np.inf),
                                   _table(geom))
     assert (int(slot[0]), float(t[0]), float(u[0]), float(v[0])) == (1, 5.0, 0.25, 0.25)
+
+
+GENERAL_SPHERE = {"impl": "sphere", "prop": {
+    "analytic": False, "subdivision": 2, "surface": {"impl": "matte", "prop": {}},
+    "transform": {"impl": "srt", "prop": {"scale": [100, 100, 100],
+                                          "translate": [400, 100, 300]}}}}
+
+
+def test_general_scene_two_bounces_match_reference():
+    """The general fork's brute-force table at its real shape: the 352 rows
+    of testing.cornell_box plus a subdivided icosphere, compiled by the
+    reference and carried over by convert.py, against 32 x 32 camera rays,
+    bounce-1 rays from their hits (random directions; lanes whose camera ray
+    missed are dead) and shadow rays from both sets of hits toward the
+    light. The reference here is its XLA fallback
+    (luisarender_tpu/accel/traverse.py trace_closest_brute /
+    trace_any_brute): its Pallas kernel in interpret mode takes minutes to
+    compile at 352 rows. The fallback packs a row's chunk-local index into
+    t's low bits; 32-row chunks keep that within the near-tie window (t
+    within 2^-18 relative, under 1e-5). Its recompute of the winner's t
+    contracts into fused multiply-adds, which on a lane whose numerator
+    cancels (its three terms ~35x their sum) moves t by 2.5e-6 of 3.1
+    against the port's 5e-7 of float64's value; t's absolute term is
+    therefore scaled by that cancellation, as u's and v's are by their
+    condition number (_compare's t_scaled)."""
+    from luisarender_tpu import testing as jtesting
+    from luisarender_tpu.accel import traverse
+
+    d = jtesting.cornell_box(resolution=(512, 512), spp=1, depth=8)
+    d["render"]["shapes"].append(GENERAL_SPHERE)
+    scene = lr.Scene.from_dict(d)
+    compiled = lr.compile_scene(scene)
+    arrays = jax.device_get(compiled.arrays)
+    geom = {k: np.asarray(arrays["trace"][k]) for k in
+            ("tri_v0", "tri_e1", "tri_e2", "prim_index", "tri_opaque")}
+    assert geom["tri_v0"].shape[0] == 352
+    tables, _ = convert.convert_tables(
+        arrays, [c.impl_names[0] for c in compiled.plan.surface_types],
+        [c.impl_names[0] for c in compiled.plan.light_types],
+    )
+    table = _table(tables["trace"])
+    g = SimpleNamespace(**{k: jnp.asarray(v) for k, v in geom.items()})
+
+    def reference(rays):
+        r = Ray(*[jnp.asarray(x) for x in rays])
+        hit = traverse.trace_closest_brute(g, r, chunk=32)
+        bary = np.asarray(hit.bary)
+        return ((np.asarray(hit.t), np.asarray(hit.prim), bary[:, 0], bary[:, 1]),
+                np.asarray(traverse.trace_any_brute(g, r)))
+
+    rs = np.random.RandomState(34)
+    xy = np.stack(np.meshgrid(np.arange(0, 512, 16), np.arange(0, 512, 16)), -1)
+    pixel_xy = jnp.asarray(xy.reshape(-1, 2).astype(np.int32))
+    u = jnp.asarray(rs.rand(pixel_xy.shape[0], 2).astype(np.float32))
+    ray, _, _ = scene.cameras[0].generate_rays(pixel_xy, u, u)
+    n = pixel_xy.shape[0]
+    rays = (np.asarray(ray.origin), np.asarray(ray.direction), np.asarray(ray.t_min),
+            np.full(n, np.inf, np.float32))
+    light = np.float32([278.0, 548.0, 280.0])
+    for bounce in range(2):
+        got = _port_trace(table, rays)
+        _compare(geom, rays, reference(rays), got, t_scaled=True)
+        t, slot = got[0][0], got[0][1]
+        live = rays[2] < rays[3]
+        assert (slot[live] >= 0).mean() > 0.3  # the box is open at the front
+        hit = slot >= 0
+        p = np.where(hit[:, None], rays[0] + np.where(hit, t, 0.0)[:, None] * rays[1], 0.0)
+        p = p.astype(np.float32)
+        # shadow rays from the hits toward the light's area
+        target = light + rs.uniform(-50.0, 50.0, (n, 3)).astype(np.float32) * [1, 0, 1]
+        to = target - p
+        dist = np.linalg.norm(to, axis=-1)
+        shadow = (p, (to / np.maximum(dist, 1e-6)[:, None]).astype(np.float32),
+                  np.full(n, 0.05, np.float32), np.where(hit, dist * 0.999, 0.0).astype(np.float32))
+        _, occ_s = _compare(geom, shadow, reference(shadow), _port_trace(table, shadow),
+                            t_scaled=True)
+        assert 0.01 < occ_s[hit].mean() < 0.99
+        # the next bounce: random directions from the hits, misses dead
+        dirs = rs.randn(n, 3).astype(np.float32)
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        rays = (p, dirs, np.full(n, 0.05, np.float32),
+                np.where(hit, np.inf, 0.0).astype(np.float32))

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of luisarender_tpu_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package; importing and
+"""The port stands alone: no module of luisarender_tpu_torch, and none of
+the scripts that drive it on the card (chip_smoke.py and the A/B scripts),
+imports JAX or anything of the JAX package; importing and
 rendering with it loads neither; its entry points default to the CUDA card
 and raise where there is none."""
 
@@ -21,7 +22,8 @@ def _forbidden(name):
 
 def _port_files():
     files = sorted((ROOT / "luisarender_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / name for name in ("chip_smoke.py", "brute_ab.py", "cluster_ab.py",
+                                       "fused_ab.py")]
     return files
 
 

@@ -140,6 +140,145 @@ def test_wrappers_reject_bad_inputs(cuda):
     assert math.isfinite(float(u.sum()))
 
 
+_GENERAL = {}
+
+
+def _general_case(cuda):
+    """The general fork's brute-force table (testing.cornell_box plus a
+    subdivided icosphere: 352 rows) and the 512^2 view's camera rays, with
+    t_max drawn finite on half the lanes (so that shadow-like rays both
+    pass and stop); built once per test process."""
+    if not _GENERAL:
+        import luisarender_tpu_torch as lt
+        from luisarender_tpu_torch import testing
+
+        d = testing.cornell_box(resolution=(512, 512), spp=1, depth=8)
+        d["render"]["shapes"].append({"impl": "sphere", "prop": {
+            "analytic": False, "subdivision": 2, "surface": {"impl": "matte", "prop": {}},
+            "transform": {"impl": "srt", "prop": {"scale": [100, 100, 100],
+                                                  "translate": [400, 100, 300]}}}})
+        scene = lt.Scene.from_dict(d)
+        compiled = lt.compile_scene(scene, device=cuda)
+        ys, xs = torch.meshgrid(torch.arange(512, device=cuda),
+                                torch.arange(512, device=cuda), indexing="ij")
+        pixel_xy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(torch.int32)
+        rs = np.random.RandomState(11)
+        u = torch.as_tensor(rs.rand(512 * 512, 2).astype(np.float32), device=cuda)
+        ray, _, _ = scene.cameras[0].generate_rays(pixel_xy, u, u)
+        t_max = np.where(rs.rand(512 * 512) < 0.5, np.inf,
+                         rs.rand(512 * 512) * 1500.0).astype(np.float32)
+        _GENERAL.update(table=compiled.arrays["trace"]["tri_table"],
+                        rays=(ray.origin.contiguous(), ray.direction.contiguous(),
+                              ray.t_min.contiguous(), torch.as_tensor(t_max, device=cuda)))
+    return _GENERAL["table"], _GENERAL["rays"]
+
+
+def _both_match_plain(args):
+    """One launch of each kernel on args, bit for bit against the plain
+    versions; returns (closest outputs, occlusion)."""
+    c0, a0 = brute.closest_launches, brute.any_launches
+    kern = brute.closest(*args)
+    occ = brute.any_hit(*args)
+    torch.cuda.synchronize()
+    assert (brute.closest_launches, brute.any_launches) == (c0 + 1, a0 + 1)
+    _assert_same(kern, brute.closest_plain(*args))
+    assert occ.dtype == torch.bool
+    assert torch.equal(occ, brute.any_plain(*args))
+    return kern, occ
+
+
+@pytest.mark.parametrize("live", [1.0, 0.25, 0.03, 0.0], ids=["live100", "live25", "live3",
+                                                               "live0"])
+def test_general_table_live_shares_match_plain(cuda, live):
+    """The 352-row table at the general fork's shares of live lanes, dead
+    lanes (t_max = 0) scattered at random."""
+    table, (o, d, t_min, t_max) = _general_case(cuda)
+    assert table.shape[0] == 352
+    dead = torch.as_tensor(np.random.RandomState(12).rand(o.shape[0]) >= live, device=cuda)
+    t_max = torch.where(dead, 0.0, t_max)
+    kern, occ = _both_match_plain((o, d, t_min, t_max, table))
+    hit = kern[1] >= 0
+    assert int(hit.sum()) == int((hit & ~dead).sum())  # dead lanes miss
+    assert not bool(occ[dead].any())
+    if live == 1.0:
+        assert hit[torch.isinf(t_max)].float().mean().item() > 0.9  # the box fills the view
+        assert 0.01 < occ.float().mean().item() < 0.99
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 262_144 - 77])
+def test_general_table_ragged_counts_match_plain(cuda, n):
+    table, rays = _general_case(cuda)
+    _both_match_plain(tuple(x[:n].contiguous() for x in rays) + (table,))
+
+
+def test_duplicated_rows_tie_to_the_lower_row(cuda):
+    """The first 256 rows of the 352-row table twice over (512 rows): every
+    hit is an exact tie between a row and its copy, and goes to the lower."""
+    table, rays = _general_case(cuda)
+    tab = torch.cat([table[:256], table[:256]]).contiguous()
+    kern, _ = _both_match_plain(rays + (tab,))
+    hit = kern[1] >= 0
+    assert hit.float().mean().item() > 0.3
+    assert int(kern[1].max()) < 256
+
+
+@pytest.mark.parametrize("where", [0, -1], ids=["first_row", "last_row"])
+def test_only_occluder_in_first_or_last_row(cuda, where):
+    """Any-hit over a 352-row table whose only opaque row, a wall in front
+    of every ray, is the first or the last row."""
+    table, (o, d, t_min, _) = _general_case(cuda)
+    tab = table.clone()
+    tab[:, 10] = 0.0
+    wall = torch.tensor([-1e4, -1e4, 1.0, 4e4, 0.0, 0.0, 0.0, 4e4, 0.0], device=cuda)
+    o = torch.zeros_like(o)
+    d = torch.nn.functional.normalize(torch.cat([0.1 * d[:, :2], torch.ones_like(d[:, :1])], -1),
+                                      dim=-1)  # every ray meets the wall at z = 1
+    tab[where, :9] = wall
+    tab[where, 9:11] = 1.0
+    t_max = torch.full_like(t_min, 1e3)
+    t_max[::7] = 0.0  # dead lanes
+    _, occ = _both_match_plain((o.contiguous(), d.contiguous(), t_min, t_max, tab))
+    assert bool(occ[t_max > 0].all()) and not bool(occ[t_max == 0].any())
+
+
+def test_invalid_and_clear_rows_match_plain(cuda):
+    """Rows with valid = 0 (a padding row: closest skips it) or opaque = 0
+    (any-hit skips it), a third each, mixed through the 352-row table."""
+    table, rays = _general_case(cuda)
+    tab = table.clone()
+    kind = torch.as_tensor(np.random.RandomState(13).randint(0, 3, tab.shape[0]), device=cuda)
+    tab[kind == 1, 9] = 0.0
+    tab[kind == 2, 10] = 0.0
+    kern, occ = _both_match_plain(rays + (tab,))
+    assert not bool((kind[kern[1][kern[1] >= 0].long()] == 1).any())
+    assert 0.01 < occ.float().mean().item() < 0.99
+
+
+def test_brute_counters(cuda):
+    """The lane counters of one launch each: every live ray counted once,
+    closest testing every valid row, any-hit at most every opaque one, and
+    lane-slots at least the tests; counting leaves the outputs as they are."""
+    table, (o, d, t_min, t_max) = _general_case(cuda)
+    t_max = torch.where(torch.arange(o.shape[0], device=cuda) % 4 == 0, t_max, 0.0)
+    args = (o, d, t_min, t_max, table)
+    live = int((t_min < torch.clamp(t_max, max=3e38)).sum())
+    for fn, plain in ((brute.closest, brute.closest_plain), (brute.any_hit, brute.any_plain)):
+        ctr = torch.zeros(len(brute.COUNTERS), dtype=torch.int64, device=cuda)
+        out = fn(*args, counters=ctr)
+        c = dict(zip(brute.COUNTERS, ctr.tolist()))
+        want = plain(*args)
+        if fn is brute.closest:
+            _assert_same(out, want)
+            assert c["tests"] == live * table.shape[0]
+        else:
+            assert torch.equal(out, want)
+            assert 0 < c["tests"] <= live * table.shape[0]
+        assert c["rays"] == live
+        assert c["tests"] <= c["slots"] and c["deep_slots"] <= c["slots"]
+    with pytest.raises(ValueError):
+        brute.closest(*args, counters=torch.zeros(3, dtype=torch.int64, device=cuda))
+
+
 def _cluster_case(cuda, n_tris, n_rays, seed, copies=1):
     """A soup of n_tris triangles, each `copies` times (the same vertices:
     exact ties in t, across clusters where a triangle's copies fill more
