@@ -45,7 +45,9 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              The wide8, subpacket and trace kernels against their plain
              versions on the same mesh-heavy rays (the scene compiled with
              the 8-wide tables) and on a random 8,000-triangle soup with a
-             ragged 100,003 rays, every output and walk count bit for bit;
+             ragged 100,003 rays, every output and walk count bit for bit,
+             with the wide8 kernel's lane counters (as the cluster
+             kernel's, and the pending leaves its box re-test dropped);
              and against the cluster kernel on the same rays: wide8 and
              trace the same slots on every lane but exact ties, subpacket
              by the reference's rule for it (under 0.5% of lanes flip
@@ -845,20 +847,24 @@ def mesh_heavy_inputs(torch, lt, cluster, device):
     return compiled, cap
 
 
-def cluster_lanes(torch, cluster, run, device):
-    """The cluster kernel's counters on one launch, `run(counters)`
-    (ops/cluster.py COUNTERS), and the shares they give: the walk's live
-    lanes of its lane-slots, the leaf stage's tested rows of its row-slots,
-    parked lanes and block loads a leaf round."""
-    ctr = torch.zeros(len(cluster.COUNTERS), dtype=torch.int64, device=device)
+def cluster_lanes(torch, mod, run, device):
+    """The counters of a while-while kernel (the cluster or wide8 kernel:
+    `mod` is ops/cluster.py or ops/wide8.py) on one launch, `run(counters)`
+    (mod.COUNTERS), and the shares they give: the walk's live lanes of its
+    lane-slots, the leaf stage's tested rows of its row-slots, parked lanes
+    and block loads a leaf round; for wide8, the share of pending leaves
+    that the box re-test dropped."""
+    ctr = torch.zeros(len(mod.COUNTERS), dtype=torch.int64, device=device)
     run(ctr)
     torch.cuda.synchronize()
-    c = dict(zip(cluster.COUNTERS, (int(x) for x in ctr.tolist())))
+    c = dict(zip(mod.COUNTERS, (int(x) for x in ctr.tolist())))
     rounds = max(c["rounds"], 1)
     c.update(walk_lane_share=c["pops"] / max(c["pop_slots"], 1),
              leaf_lane_share=c["rows"] / max(c["row_slots"], 1),
              parked_per_round=c["parked"] / rounds, loads_per_round=c["loads"] / rounds,
              rows_per_round=c["rows"] / rounds)
+    if "culled" in c:
+        c["culled_share"] = c["culled"] / max(c["culled"] + c["parked"], 1)
     return c
 
 
@@ -1192,6 +1198,11 @@ def phase_tree_kernels(torch, mods, device, compiled, cap):
                                       "bound_by": bound_by,
                                       "nodes_read": int(visited[0].sum()),
                                       "blocks_read": int(visited[1].sum())}
+                if name == "wide8":
+                    rec["times"][case]["lanes"] = cluster_lanes(
+                        torch, mods["wide8"],
+                        lambda ctr: mods["wide8"].launch(*rays, *tables, any_hit, err,
+                                                         stack=stack, counters=ctr), device)
             rec["max_abs_err"] = max(max(v) for v in rec["errors"].values())
             check(rec["max_abs_err"] == 0.0, f"{key}: kernel and plain version differ")
             results[key] = rec

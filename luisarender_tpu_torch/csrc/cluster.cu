@@ -30,7 +30,7 @@
 // and the lanes that were not in a leaf waited for the slowest loop.
 //
 // Design: Aila & Laine's "while-while" loop with the leaf stage done by the
-// whole warp. Each lane walks its own ray's coarse tree (a per-lane stack
+// whole warp (trace_common.cuh warp_leaves, shared with wide8.cu). Each lane walks its own ray's coarse tree (a per-lane stack
 // of 64 ints, the near child first along the ray's own direction, the slab
 // test against the lane's own best_t) until its pop hits a leaf; there it
 // parks with the leaf's cluster id. When every lane of the warp has parked
@@ -72,28 +72,14 @@ using lrt::kCluster;
 using lrt::kErrIndex;
 using lrt::kErrStack;
 using lrt::kErrSteps;
+using lrt::kFull;
 using lrt::kTriCols;
 using lrt::Ray;
 
 constexpr int kThreads = 128;
 constexpr int kStack = 64;
 constexpr int kBlocksPerSm = 6;  // resident blocks an SM asked of ptxas
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kGroups = kCluster / 32;  // rows lane + 32 k, k < kGroups
-
-// Per-launch counters (optional; null on the main path), summed over the
-// grid: lane use of the walk and of the leaf stage.
-enum {
-  CTR_ROUNDS,     // leaf rounds: a warp's ballots with some lane parked
-  CTR_PARKED,     // parked lanes, summed over the rounds
-  CTR_LOADS,      // block loads (clusters served; one per parked lane
-                  // unless lanes share a cluster)
-  CTR_ROWS,       // valid rows tested, summed over the served lanes
-  CTR_ROW_SLOTS,  // 32 x row groups a warp tested, over the served lanes
-  CTR_POPS,       // node pops
-  CTR_POP_SLOTS,  // 32 x the longest run of pops in a warp, per round
-  kCounters
-};
+constexpr int kCounters = lrt::kWalkCounters;  // lane counters, trace_common.cuh CTR_*
 
 struct Args {
   const float* __restrict__ o;
@@ -113,15 +99,6 @@ struct Args {
   int n_nodes, n_clusters, n;
 };
 
-// The counters are warp-uniform: every lane keeps them, lane 0 adds them.
-// A launch without them runs a build of the kernel that has none (kOn is
-// a template argument), so they take no registers there.
-template <bool kOn>
-struct Counters {
-  static constexpr bool on = kOn;
-  unsigned long long c[kCounters];
-};
-
 // One lane's walk of one ray, but for its stack (kept apart, so that these
 // stay in registers while the stack is in local memory).
 struct Walk {
@@ -130,10 +107,6 @@ struct Walk {
   int best_s, occ, pops, leaves, rows, sp;
   bool live;  // the walk has pops left (or a parked leaf)
 };
-
-// A word of a triangle block, through L2 only: a block's rows are read
-// once a leaf round, and L1 is left to the node table and the stacks.
-__device__ __forceinline__ float block_word(const float* p) { return __ldcg(p); }
 
 __device__ __forceinline__ void begin(Walk& w, int* stack, int i, const Args& a) {
   w.r = lrt::load_ray(i, a.o, a.d, a.t_min);
@@ -222,153 +195,24 @@ __device__ __forceinline__ int to_leaf(Walk& w, int* stack, const Args& a) {
   return -1;
 }
 
-__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
-  Ray q;
-  q.ox = __shfl_sync(kFull, r.ox, src);
-  q.oy = __shfl_sync(kFull, r.oy, src);
-  q.oz = __shfl_sync(kFull, r.oz, src);
-  q.dx = __shfl_sync(kFull, r.dx, src);
-  q.dy = __shfl_sync(kFull, r.dy, src);
-  q.dz = __shfl_sync(kFull, r.dz, src);
-  q.ix = q.iy = q.iz = 0.0f;  // Moller-Trumbore reads no inverse
-  q.tmin = __shfl_sync(kFull, r.tmin, src);
-  return q;
-}
-
 // One round of the warp: every lane walks to its next leaf or its end, then
-// the warp tests the parked lanes' leaves. Returns false, having changed
-// nothing, when no lane parked. Called by all 32 lanes.
+// the warp tests the parked lanes' leaves (lrt::warp_leaves). Returns false,
+// having changed nothing, when no lane parked. Called by all 32 lanes.
 template <bool kAny, class Ctr>
 __device__ __forceinline__ bool warp_round(Walk& w, int* stack, const Args& a, Ctr& ctr) {
-  const int lane = threadIdx.x & 31;
   const int pops0 = w.pops;
   const int cl = to_leaf(w, stack, a);
-  unsigned parked = __ballot_sync(kFull, cl >= 0);
   if (ctr.on) {
     const unsigned run = __reduce_max_sync(kFull, static_cast<unsigned>(w.pops - pops0));
-    ctr.c[CTR_POP_SLOTS] += 32ull * run;
+    ctr.c[lrt::CTR_POP_SLOTS] += 32ull * run;
   }
-  if (!parked) return false;
-  if (ctr.on) {
-    ++ctr.c[CTR_ROUNDS];
-    ctr.c[CTR_PARKED] += __popc(parked);
-  }
-  const unsigned same = __match_any_sync(kFull, cl);  // lanes of one cluster
-  while (parked) {
-    const int first_src = __ffs(parked) - 1;
-    const unsigned group = __shfl_sync(kFull, same, first_src);
-    parked &= ~group;
-    // rows lane + 32 k of the group's block, into registers
-    const int c = __shfl_sync(kFull, cl, first_src);
-    const float* blk = a.tris + static_cast<size_t>(c) * (kTriCols * kCluster);
-    float attr[kGroups][9];
-    bool valid[kGroups];
-    unsigned vb[kGroups];
-    int n_valid = 0;
-#pragma unroll
-    for (int k = 0; k < kGroups; ++k) {
-      const int j = lane + 32 * k;
-      valid[k] = block_word(blk + 9 * kCluster + j) > 0.0f;
-#pragma unroll
-      for (int q = 0; q < 9; ++q) attr[k][q] = block_word(blk + q * kCluster + j);
-      vb[k] = __ballot_sync(kFull, valid[k]);
-      n_valid += __popc(vb[k]);
-    }
-    if (ctr.on) ++ctr.c[CTR_LOADS];
-
-    for (unsigned g = group; g; g &= g - 1) {  // each lane of the group
-      const int src = __ffs(g) - 1;
-      const Ray q = shfl_ray(w.r, src);
-      const float bt = __shfl_sync(kFull, w.best_t, src);
-      if (kAny) {
-        // the valid rows up to and including the first occluder
-        int tested = n_valid, groups = kGroups, before = 0;
-        bool found = false;
-#pragma unroll
-        for (int k = 0; k < kGroups; ++k) {
-          bool hit = false;
-          if (valid[k]) {
-            float t, u, v;
-            bool big_det;
-            const bool inside = lrt::moller_trumbore(
-                attr[k][0], attr[k][1], attr[k][2], attr[k][3], attr[k][4], attr[k][5],
-                attr[k][6], attr[k][7], attr[k][8], q, t, u, v, big_det);
-            hit = inside && t > q.tmin && t < bt &&
-                  block_word(blk + 10 * kCluster + lane + 32 * k) > 0.0f;
-          }
-          const unsigned hb = __ballot_sync(kFull, hit);
-          if (hb) {
-            tested = before + __popc(vb[k] & ((2u << (__ffs(hb) - 1)) - 1u));
-            groups = k + 1;
-            found = true;
-            break;
-          }
-          before += __popc(vb[k]);
-        }
-        if (lane == src) {
-          w.rows += tested;
-          if (found) {
-            w.occ = 1;
-            w.live = false;  // an occluded ray leaves the walk
-          }
-        }
-        if (ctr.on) {
-          ctr.c[CTR_ROWS] += tested;
-          ctr.c[CTR_ROW_SLOTS] += 32ull * groups;
-        }
-      } else {
-        // this lane's first row of least t, then the warp's
-        float wt = __int_as_float(0x7f800000), wu = 0.0f, wv = 0.0f;
-        int wrow = kCluster;
-#pragma unroll
-        for (int k = 0; k < kGroups; ++k) {
-          if (!valid[k]) continue;
-          float t, u, v;
-          bool big_det;
-          const bool inside = lrt::moller_trumbore(
-              attr[k][0], attr[k][1], attr[k][2], attr[k][3], attr[k][4], attr[k][5],
-              attr[k][6], attr[k][7], attr[k][8], q, t, u, v, big_det);
-          if (inside && t > q.tmin && t < bt && t < wt) {
-            wt = t;
-            wu = u;
-            wv = v;
-            wrow = lane + 32 * k;
-          }
-        }
-        if (lane == src) w.rows += n_valid;
-        if (__any_sync(kFull, wrow < kCluster)) {  // some row beat best_t
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            const float ot = __shfl_xor_sync(kFull, wt, off);
-            const int orow = __shfl_xor_sync(kFull, wrow, off);
-            if (ot < wt || (ot == wt && orow < wrow)) {
-              wt = ot;
-              wrow = orow;
-            }
-          }
-          const float bu = __shfl_sync(kFull, wu, wrow & 31);
-          const float bv = __shfl_sync(kFull, wv, wrow & 31);
-          if (lane == src) {
-            w.best_t = wt;
-            w.best_s = static_cast<int>(block_word(blk + 11 * kCluster + wrow));
-            w.best_u = bu;
-            w.best_v = bv;
-          }
-        }
-        if (ctr.on) {
-          ctr.c[CTR_ROWS] += n_valid;
-          ctr.c[CTR_ROW_SLOTS] += 32ull * kGroups;
-        }
-      }
-    }
-  }
-  return true;
+  return lrt::warp_leaves<kAny>(w, cl, a.tris, ctr);
 }
 
 template <bool kAny, bool kCount>
 __device__ __forceinline__ void trace(const Args& a) {
   const int lane = threadIdx.x & 31;
-  Counters<kCount> ctr = {};
+  lrt::Counters<kCount, kCounters> ctr = {};
   Walk w;
   int stack[kStack];
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -381,7 +225,7 @@ __device__ __forceinline__ void trace(const Args& a) {
   }
   if (i < a.n) write<kAny>(w, i, a);
   if (kCount) {
-    ctr.c[CTR_POPS] += __reduce_add_sync(kFull, static_cast<unsigned>(i < a.n ? w.pops : 0));
+    ctr.c[lrt::CTR_POPS] += __reduce_add_sync(kFull, static_cast<unsigned>(i < a.n ? w.pops : 0));
     if (lane == 0) {
 #pragma unroll
       for (int k = 0; k < kCounters; ++k)

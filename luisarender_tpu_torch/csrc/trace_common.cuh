@@ -2,8 +2,9 @@
 // subpacket.cu, trace.cu): the ray, its safe inverse direction, the slab
 // test of a box and Moller-Trumbore over a cluster's attribute-major
 // triangle block, each in the reference's order of operations
-// (luisarender_tpu/ops/cluster_pallas.py), and the 8-wide tree walk of the
-// wide8 and subpacket kernels.
+// (luisarender_tpu/ops/cluster_pallas.py), the 8-wide tree walk of the
+// subpacket kernel, and the warp leaf stage of the cluster and wide8
+// kernels (warp_leaves).
 //
 // Built with --fmad=false and without fast math: the plain PyTorch versions
 // then do the same IEEE operations in the same per-lane order and the
@@ -110,14 +111,14 @@ __device__ __forceinline__ bool block_row_mt(const float* __restrict__ blk,
 // least that holds its tree's bound (ops/cluster.py stack_need), which the
 // caller passes in and the walk checks. A one-pop depth-first walk pushes
 // each node of a tree at most once, so the larger 8-wide stack holds any
-// tree of at most MAX_SLAB8_NODES = 2048 nodes (ops/subpacket.py STACKS8;
-// ops/trace.py STACKS for the binary tree). The larger builds' local
-// memory (8 KB a thread for 2,048 entries) is reserved only by a launch of
-// a tree that needs them.
+// tree of at most MAX_SLAB8_NODES = 2048 nodes (ops/subpacket.py STACKS8,
+// ops/wide8.py STACKS; ops/trace.py STACKS for the binary tree). The
+// larger builds' local memory (8 KB a thread for 2,048 entries) is
+// reserved only by a launch of a tree that needs them.
 constexpr int kStack8Small = 128, kStack8Large = 2048;
 constexpr int kStack2Small = 64, kStack2Large = 512;
 
-// One ray's walk of the 8-wide tree (ops/subpacket.py build_slab_meta:
+// One ray's walk of the 8-wide tree (the subpacket kernel's) (ops/subpacket.py build_slab_meta:
 // slab8 (N8, 8, 128), meta8 (N8, 16)). Each pop tests the node's 8 child
 // boxes against best_t as it stands at the pop (planes bound * inv +
 // (-o * inv), the TPU kernel's slab matmul less its exact-zero terms; a
@@ -228,5 +229,189 @@ __device__ __forceinline__ void walk8(const Ray& r, float& best_t,
 }
 
 inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
+
+// ---------------------------------------------------------------------------
+// The warp leaf stage of the "while-while" kernels (cluster.cu, wide8.cu):
+// each lane walks its own ray until it parks on a leaf cluster (or ends);
+// then the warp tests the parked lanes' clusters together (warp_leaves).
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGroups = kCluster / 32;  // rows lane + 32 k, k < kGroups
+
+// Per-launch lane counters (optional; null on the main path), summed over
+// the grid; a kernel may keep more after kWalkCounters.
+enum {
+  CTR_ROUNDS,     // leaf rounds: a warp's ballots with some lane parked
+  CTR_PARKED,     // parked lanes, summed over the rounds
+  CTR_LOADS,      // block loads (clusters served; one per parked lane
+                  // unless lanes share a cluster)
+  CTR_ROWS,       // valid rows tested, summed over the served lanes
+  CTR_ROW_SLOTS,  // 32 x row groups a warp tested, over the served lanes
+  CTR_POPS,       // node pops
+  CTR_POP_SLOTS,  // 32 x the longest run of pops in a warp, per round
+  kWalkCounters
+};
+
+// The counters are warp-uniform: every lane keeps them, lane 0 adds them.
+// A launch without them runs a build of the kernel that has none (kOn is
+// a template argument), so they take no registers there.
+template <bool kOn, int kN>
+struct Counters {
+  static constexpr bool on = kOn;
+  unsigned long long c[kN];
+};
+
+// A word of a triangle block, through L2 only: a block's rows are read
+// once a leaf round, and L1 is left to the tree and the stacks.
+__device__ __forceinline__ float block_word(const float* p) { return __ldcg(p); }
+
+__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
+  Ray q;
+  q.ox = __shfl_sync(kFull, r.ox, src);
+  q.oy = __shfl_sync(kFull, r.oy, src);
+  q.oz = __shfl_sync(kFull, r.oz, src);
+  q.dx = __shfl_sync(kFull, r.dx, src);
+  q.dy = __shfl_sync(kFull, r.dy, src);
+  q.dz = __shfl_sync(kFull, r.dz, src);
+  q.ix = q.iy = q.iz = 0.0f;  // Moller-Trumbore reads no inverse
+  q.tmin = __shfl_sync(kFull, r.tmin, src);
+  return q;
+}
+
+// The leaf stage of one warp round: `cl` is the cluster this lane parked on
+// (-1: not parked). Lane k loads rows k, k + 32, k + 64 and k + 96 of a
+// parked cluster's block (each attribute column four coalesced 128-byte
+// loads); for each lane parked there the warp receives its ray and best_t
+// by __shfl_sync, tests the rows and reduces with __shfl_xor_sync to the
+// least t, the lowest row on a tie (= a serial loop's strict t < best_t
+// over the rows in order), or, for any-hit, takes the first occluder in
+// row order from a ballot. Lanes parked on one cluster (__match_any_sync)
+// are served from one load. The lane's rows count the valid rows, up to
+// and including the first occluder for any-hit; an occluded lane's walk
+// ends. Returns false, having changed nothing, when no lane parked.
+// Called by all 32 lanes. W is the kernel's lane state: the fields r,
+// best_t, best_u, best_v, best_s, occ, rows and live.
+template <bool kAny, class W, class Ctr>
+__device__ __forceinline__ bool warp_leaves(W& w, int cl, const float* __restrict__ tris,
+                                            Ctr& ctr) {
+  const int lane = threadIdx.x & 31;
+  unsigned parked = __ballot_sync(kFull, cl >= 0);
+  if (!parked) return false;
+  if (ctr.on) {
+    ++ctr.c[CTR_ROUNDS];
+    ctr.c[CTR_PARKED] += __popc(parked);
+  }
+  const unsigned same = __match_any_sync(kFull, cl);  // lanes of one cluster
+  while (parked) {
+    const int first_src = __ffs(parked) - 1;
+    const unsigned group = __shfl_sync(kFull, same, first_src);
+    parked &= ~group;
+    // rows lane + 32 k of the group's block, into registers
+    const int c = __shfl_sync(kFull, cl, first_src);
+    const float* blk = tris + static_cast<size_t>(c) * (kTriCols * kCluster);
+    float attr[kGroups][9];
+    bool valid[kGroups];
+    unsigned vb[kGroups];
+    int n_valid = 0;
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      const int j = lane + 32 * k;
+      valid[k] = block_word(blk + 9 * kCluster + j) > 0.0f;
+#pragma unroll
+      for (int q = 0; q < 9; ++q) attr[k][q] = block_word(blk + q * kCluster + j);
+      vb[k] = __ballot_sync(kFull, valid[k]);
+      n_valid += __popc(vb[k]);
+    }
+    if (ctr.on) ++ctr.c[CTR_LOADS];
+
+    for (unsigned g = group; g; g &= g - 1) {  // each lane of the group
+      const int src = __ffs(g) - 1;
+      const Ray q = shfl_ray(w.r, src);
+      const float bt = __shfl_sync(kFull, w.best_t, src);
+      if (kAny) {
+        // the valid rows up to and including the first occluder
+        int tested = n_valid, groups = kGroups, before = 0;
+        bool found = false;
+#pragma unroll
+        for (int k = 0; k < kGroups; ++k) {
+          bool hit = false;
+          if (valid[k]) {
+            float t, u, v;
+            bool big_det;
+            const bool inside = moller_trumbore(
+                attr[k][0], attr[k][1], attr[k][2], attr[k][3], attr[k][4], attr[k][5],
+                attr[k][6], attr[k][7], attr[k][8], q, t, u, v, big_det);
+            hit = inside && t > q.tmin && t < bt &&
+                  block_word(blk + 10 * kCluster + lane + 32 * k) > 0.0f;
+          }
+          const unsigned hb = __ballot_sync(kFull, hit);
+          if (hb) {
+            tested = before + __popc(vb[k] & ((2u << (__ffs(hb) - 1)) - 1u));
+            groups = k + 1;
+            found = true;
+            break;
+          }
+          before += __popc(vb[k]);
+        }
+        if (lane == src) {
+          w.rows += tested;
+          if (found) {
+            w.occ = 1;
+            w.live = false;  // an occluded ray leaves the walk
+          }
+        }
+        if (ctr.on) {
+          ctr.c[CTR_ROWS] += tested;
+          ctr.c[CTR_ROW_SLOTS] += 32ull * groups;
+        }
+      } else {
+        // this lane's first row of least t, then the warp's
+        float wt = __int_as_float(0x7f800000), wu = 0.0f, wv = 0.0f;
+        int wrow = kCluster;
+#pragma unroll
+        for (int k = 0; k < kGroups; ++k) {
+          if (!valid[k]) continue;
+          float t, u, v;
+          bool big_det;
+          const bool inside = moller_trumbore(
+              attr[k][0], attr[k][1], attr[k][2], attr[k][3], attr[k][4], attr[k][5],
+              attr[k][6], attr[k][7], attr[k][8], q, t, u, v, big_det);
+          if (inside && t > q.tmin && t < bt && t < wt) {
+            wt = t;
+            wu = u;
+            wv = v;
+            wrow = lane + 32 * k;
+          }
+        }
+        if (lane == src) w.rows += n_valid;
+        if (__any_sync(kFull, wrow < kCluster)) {  // some row beat best_t
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            const float ot = __shfl_xor_sync(kFull, wt, off);
+            const int orow = __shfl_xor_sync(kFull, wrow, off);
+            if (ot < wt || (ot == wt && orow < wrow)) {
+              wt = ot;
+              wrow = orow;
+            }
+          }
+          const float bu = __shfl_sync(kFull, wu, wrow & 31);
+          const float bv = __shfl_sync(kFull, wv, wrow & 31);
+          if (lane == src) {
+            w.best_t = wt;
+            w.best_s = static_cast<int>(block_word(blk + 11 * kCluster + wrow));
+            w.best_u = bu;
+            w.best_v = bv;
+          }
+        }
+        if (ctr.on) {
+          ctr.c[CTR_ROWS] += n_valid;
+          ctr.c[CTR_ROW_SLOTS] += 32ull * kGroups;
+        }
+      }
+    }
+  }
+  return true;
+}
 
 }  // namespace lrt

@@ -10,12 +10,22 @@ ops/cluster.py as the cluster kernel does: rows in order, a strict
 t < best_t, exact (u, v). Its hits equal the cluster kernel's except for
 exact ties across clusters.
 
-On CUDA tensors `closest` / `any_hit` launch csrc/wide8.cu (one thread a
-ray, a per-thread stack; the source says why). On CPU tensors they run the
-plain PyTorch version below, which walks the same tree in the kernel's
-per-lane order and arithmetic. There is no fallback: a CUDA tensor
-launches the kernel or raises. Both size the per-ray stack from the tree,
-as ops/subpacket.py does. A malformed tree raises in both.
+On CUDA tensors `closest` / `any_hit` launch csrc/wide8.cu (a lane a ray
+walking the tree, each warp testing its lanes' leaf clusters together; the
+source says why). On CPU tensors they run the plain PyTorch version below,
+which walks the same tree in the kernel's per-lane order and arithmetic.
+There is no fallback: a CUDA tensor launches the kernel or raises. Both
+size the per-ray stack from the tree (ops/subpacket.py resolve_stack8); the
+kernel is built with the stacks of STACKS and a launch takes the least
+that holds the bound (`stack_build`). A malformed tree raises in both.
+
+The reference's wrapper sorts launches of at least 32,768 rays into
+coherent packets first (wide8_pallas.py:340-352, MIN_SORT_RAYS).
+`coherence_order` is that order, over the scene's bounds in meta8's row 0.
+Each ray's walk is its own, so the outputs are the same in either order.
+On the H100 the kernel is slower on sorted closest-hit rays and gains 2-4
+us on sorted shadow rays, against ~0.6 ms of device time for the sort
+itself (PERF.md), so `closest` / `any_hit` launch in caller order.
 """
 
 from __future__ import annotations
@@ -27,12 +37,22 @@ import os
 import numpy as np
 import torch
 
-from .cluster import CLUSTER, TRI_COLS, slab, leaf_blocks_plain
-from .subpacket import check_bvh8, raise_walk_error, resolve_stack8, walk8_plain
+from .cluster import CLUSTER, COUNTERS as WALK_COUNTERS, TRI_COLS, coherence_keys, slab
+from .cluster import leaf_blocks_plain
+from .subpacket import (MAX_SLAB8_NODES, check_bvh8, raise_walk_error, resolve_stack8,
+                        walk8_plain)
 
 # the route is taken only when asked for, as in the reference
 ENABLED = os.environ.get("LR_WIDE8", "0") != "0"
 CBOX_COLS = 8
+# entries of the per-lane stacks the kernel is built with (csrc/wide8.cu
+# kStackSmall / kStackLarge); the larger holds the bound of any tree of at
+# most MAX_SLAB8_NODES nodes
+STACKS = (48, MAX_SLAB8_NODES)
+# the kernel's optional per-launch counters (csrc/trace_common.cuh CTR_*,
+# then csrc/wide8.cu's): the cluster kernel's, and the pending leaves that
+# the box re-test dropped
+COUNTERS = WALK_COUNTERS + ("culled",)
 
 closest_launches = 0
 any_launches = 0
@@ -49,6 +69,21 @@ def build_cluster_boxes(node_table: np.ndarray) -> np.ndarray:
     boxes[first[leaf], 0:3] = node[leaf, 0:3]
     boxes[first[leaf], 3:6] = node[leaf, 3:6]
     return boxes
+
+
+def stack_build(bound: int) -> int:
+    """The entries of the kernel build a launch takes for a tree whose stack
+    bound is `bound`: the least of STACKS that holds it (0: none does)."""
+    return next((s for s in STACKS if 1 <= bound <= s), 0)
+
+
+def coherence_order(o, d, t_min, t_max, meta8):
+    """The reference's ray order for a launch (wide8_pallas.py:340-352):
+    ops/cluster.py coherence_keys over the scene's bounds in meta8[0, 10:16],
+    stable, as int64 indices."""
+    lo, hi = meta8[0, 10:13], meta8[0, 13:16]
+    key = coherence_keys(o, d, t_min, t_max, lo, hi - lo)
+    return torch.sort(key.to(torch.int32), stable=True).indices
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +149,22 @@ def _library():
         lib = load_library("wide8")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         args = [ptr] * 6 + [i32, ptr, ptr, i32, i32, i32]
-        lib.wide8_closest.argtypes = args + [ptr] * 6 + [i32, ptr]
+        # outputs, stats, counters and the error word; device and stream
+        lib.wide8_closest.argtypes = args + [ptr] * 7 + [i32, ptr]
         lib.wide8_closest.restype = i32
-        lib.wide8_any.argtypes = args + [ptr] * 3 + [i32, ptr]
+        lib.wide8_any.argtypes = args + [ptr] * 4 + [i32, ptr]
         lib.wide8_any.restype = i32
+        lib.wide8_counters.restype = i32
+        lib.wide8_stack_build.argtypes = [i32]
+        lib.wide8_stack_build.restype = i32
+        if lib.wide8_counters() != len(COUNTERS):
+            raise RuntimeError(f"csrc/wide8.cu keeps {lib.wide8_counters()} counters, "
+                               f"ops/wide8.py names {len(COUNTERS)}")
+        for bound in (1, STACKS[0], STACKS[0] + 1, STACKS[-1], STACKS[-1] + 1):
+            if lib.wide8_stack_build(bound) != stack_build(bound):
+                raise RuntimeError(f"csrc/wide8.cu takes a {lib.wide8_stack_build(bound)}-entry "
+                                   f"stack for a bound of {bound}, ops/wide8.py STACKS "
+                                   f"{stack_build(bound)}")
         _LIB = lib
     return _LIB
 
@@ -131,21 +178,29 @@ def _check(o, d, t_min, t_max, slab8, meta8, cboxes, tris):
 
 
 def launch(o, d, t_min, t_max, slab8, meta8, cboxes, tris, any_hit, err, stats=None,
-           stack=None):
+           stack=None, counters=None):
     """Queue one kernel launch on the current stream and return its outputs
     without waiting: closest (t, slot, u, v) or any-hit occlusion (int32).
-    Errors of the walk are OR-ed into `err` (one int32 on the card);
-    `stats`, when given, is an (N, 3) int32 tensor that receives the walk's
-    counts (as WalkState.stats); `stack`, the tree's stack bound
-    (ops/subpacket.py resolve_stack8)."""
+    The rays are walked in the order given. Errors of the walk are OR-ed
+    into `err` (one int32 on the card); `stats`, when given, is an (N, 3)
+    int32 tensor that receives the walk's counts (as WalkState.stats);
+    `stack`, the tree's stack bound (ops/subpacket.py resolve_stack8);
+    `counters`, a contiguous int64 tensor of len(COUNTERS) that the kernel
+    adds its lane counters to."""
     global closest_launches, any_launches
     n, dev = o.shape[0], o.device
+    if counters is not None and (counters.device != dev or counters.dtype != torch.int64
+                                 or counters.shape != (len(COUNTERS),)
+                                 or not counters.is_contiguous()):
+        raise ValueError(f"counters must be a contiguous int64 ({len(COUNTERS)},) "
+                         f"tensor on {dev}")
     lib = _library()
     stack = resolve_stack8(meta8, stack, "wide8_any" if any_hit else "wide8_closest")
     common = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
               slab8.data_ptr(), meta8.data_ptr(), slab8.shape[0], cboxes.data_ptr(),
               tris.data_ptr(), tris.shape[0], stack, n)
-    tail = (0 if stats is None else stats.data_ptr(), err.data_ptr(), dev.index or 0,
+    tail = (0 if stats is None else stats.data_ptr(),
+            0 if counters is None else counters.data_ptr(), err.data_ptr(), dev.index or 0,
             torch.cuda.current_stream(dev).cuda_stream)
     if any_hit:
         occ = torch.empty((n,), dtype=torch.int32, device=dev)

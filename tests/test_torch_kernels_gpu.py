@@ -589,6 +589,82 @@ def test_bvh8_kernels_match_plain(cuda, n_tris, n_rays):
     assert 0.01 < occ_w.float().mean().item() < 0.95
 
 
+def test_wide8_overlapping_leaves_match_plain(cuda):
+    """torch_parity.overlapping_leaves_bvh8 on the card: a pop's later leaf
+    dropped by the box re-test against the best t an earlier leaf left;
+    every output and the per-ray walk counts equal the plain version's and
+    the values the case implies, and the counted build drops the leaves the
+    case implies (5 for closest hits, none for any-hit, which stops at its
+    first occluder)."""
+    from luisarender_tpu_torch.ops import wide8
+    from torch_parity import overlapping_leaves_bvh8
+
+    tables, _, rays, want = overlapping_leaves_bvh8()
+    args = _to(cuda, *rays, *tables)
+    st = wide8.wide8_plain(*args, False)
+    kern = wide8.closest(*args)
+    _assert_same(kern, (torch.where(st.best_s >= 0, st.best_t, math.inf), st.best_s,
+                        st.best_u, st.best_v))
+    assert kern[1].cpu().numpy().tolist() == want["slot"].tolist()
+    assert torch.equal(st.stats.cpu(), torch.as_tensor(want["stats"]))
+    occ = wide8.any_hit(*args)
+    assert occ.cpu().numpy().tolist() == want["occ"].tolist()
+    for any_hit, key, culled in ((False, "stats", 5), (True, "stats_any", 0)):
+        err = torch.zeros(1, dtype=torch.int32, device=cuda)
+        stats = torch.zeros((7, 3), dtype=torch.int32, device=cuda)
+        ctr = torch.zeros(len(wide8.COUNTERS), dtype=torch.int64, device=cuda)
+        wide8.launch(*args, any_hit, err, stats, counters=ctr)
+        torch.cuda.synchronize()
+        assert int(err.item()) == 0
+        assert stats.cpu().numpy().tolist() == want[key].tolist()
+        c = dict(zip(wide8.COUNTERS, ctr.tolist()))
+        assert c["culled"] == culled and c["parked"] == int(want[key][:, 1].sum())
+
+
+def test_wide8_counted_build_equals_uncounted(cuda):
+    """The counted build (lane counters) gives the uncounted build's outputs
+    and walk counts, in caller order and on the rays in the reference's
+    coherence order; its counters agree with the walk counts they sum."""
+    from luisarender_tpu_torch.ops import wide8
+
+    rays, (slab8, meta8, cboxes, tris, _) = _bvh8_case(cuda, 8000, 50_001, 21)
+    for order in ("caller", "sorted"):
+        if order == "sorted":
+            perm = wide8.coherence_order(*rays, meta8)
+            rays = tuple(x.index_select(0, perm) for x in rays)
+        args = (*rays, slab8, meta8, cboxes, tris)
+        for any_hit in (False, True):
+            runs = []
+            for counted in (False, True):
+                err = torch.zeros(1, dtype=torch.int32, device=cuda)
+                stats = torch.zeros((50_001, 3), dtype=torch.int32, device=cuda)
+                ctr = (torch.zeros(len(wide8.COUNTERS), dtype=torch.int64, device=cuda)
+                       if counted else None)
+                out = wide8.launch(*args, any_hit, err, stats, counters=ctr)
+                torch.cuda.synchronize()
+                assert int(err.item()) == 0
+                runs.append(((out,) if any_hit else out, stats, ctr))
+            (plain_out, plain_stats, _), (cnt_out, cnt_stats, ctr) = runs
+            assert all(torch.equal(a, b) for a, b in zip(plain_out, cnt_out))
+            assert torch.equal(plain_stats, cnt_stats)
+            c = dict(zip(wide8.COUNTERS, ctr.tolist()))
+            assert c["pops"] == int(cnt_stats[:, 0].sum()) <= c["pop_slots"]
+            assert c["parked"] == int(cnt_stats[:, 1].sum())
+            assert c["rows"] == int(cnt_stats[:, 2].sum()) <= c["row_slots"]
+            assert 0 < c["rounds"] <= c["parked"] and 0 < c["loads"] <= c["parked"]
+            if not any_hit:
+                assert c["culled"] > 0
+
+
+def test_wide8_stack_builds_agree(cuda):
+    """The kernel takes the stack build that ops/wide8.py stack_build names."""
+    from luisarender_tpu_torch.ops import wide8
+
+    lib = wide8._library()
+    for bound in (0, 1, 34, 48, 49, 64, 141, 2048, 2049):
+        assert lib.wide8_stack_build(bound) == wide8.stack_build(bound)
+
+
 def test_bvh8_wrappers_raise_on_bad_inputs_and_trees(cuda):
     from luisarender_tpu_torch.ops import subpacket, wide8
     from torch_parity import malformed_bvh8

@@ -8,8 +8,14 @@ PyTorch walk that CPU tensors take) against the reference, on the CPU.
   rtol 1e-5 / atol 1e-6, u and v within 1e-5; any-hit against
   `trace_any_brute` identical. The reference's wide8 kernel itself is not
   run: in interpret mode it costs ~50 s a case.
+- A hand-built tree whose root pop hits several leaf clusters that overlap
+  along the rays (torch_parity.overlapping_leaves_bvh8): the re-test of a
+  later leaf's box against the best t an earlier leaf left drops it; hits
+  against the reference's brute force, the walk's per-ray pops, leaves and
+  rows against the values the case implies.
 - A deep 8-wide tree whose stack bound is past the kernels' smaller stack
   (torch_parity.deep_bvh8: 21 levels, 141 entries) traces as brute force.
+- The kernel build a launch takes for a stack bound (`stack_build`).
 - Malformed 8-wide trees (a loop, a walk past the stack bound it is given,
   a bound past the kernels' largest stack, a child index out of range)
   raise, in both modes.
@@ -30,8 +36,8 @@ from luisarender_tpu_torch.ops import cluster, subpacket, wide8
 from luisarender_tpu_torch.utils import imageio
 
 from torch_parity import (
-    brute_geom, cluster_case, count_calls, deep_bvh8, malformed_bvh8, reference_ray,
-    require_reference_builder, soup_rays, to_torch,
+    brute_geom, cluster_case, count_calls, deep_bvh8, malformed_bvh8, overlapping_leaves_bvh8,
+    reference_ray, require_reference_builder, soup_rays, to_torch,
 )
 
 SPHERE_GOLDEN = Path(__file__).parent / "golden" / "cornell_sphere_48_8spp.exr"
@@ -85,6 +91,36 @@ def test_plain_any_matches_reference_brute(reference, n_tris):
     live = t_max > t_min
     assert np.all(stats[~live] == 0) and np.all(stats[live, 0] >= 1)
     assert np.all(stats[:, 2] <= stats[:, 1] * cluster.CLUSTER)
+
+
+def test_overlapping_leaves_culled_by_the_retest():
+    tables, (positions, triangles), rays, want = overlapping_leaves_bvh8()
+    geom = brute_geom(positions, triangles, np.ones(4, bool), np.arange(4))
+    ref = trace_closest_brute(geom, reference_ray(*rays))
+    args = to_torch(*rays, *tables)
+    st = wide8.wide8_plain(*args, False)
+    t, slot, u, v = (x.numpy() for x in wide8.closest(*args))
+    np.testing.assert_array_equal(slot, np.asarray(ref.prim))
+    np.testing.assert_array_equal(slot, want["slot"])
+    np.testing.assert_array_equal(t, want["t"])
+    np.testing.assert_allclose(t, np.asarray(ref.t), rtol=1e-5, atol=1e-6)
+    h = slot >= 0
+    np.testing.assert_allclose(u[h], np.asarray(ref.bary)[h, 0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(v[h], np.asarray(ref.bary)[h, 1], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(st.stats.numpy(), want["stats"])
+    occ = wide8.any_hit(*args).numpy()
+    np.testing.assert_array_equal(occ, np.asarray(trace_any_brute(geom, reference_ray(*rays))))
+    np.testing.assert_array_equal(occ, want["occ"])
+    np.testing.assert_array_equal(wide8.wide8_plain(*args, True).stats.numpy(),
+                                  want["stats_any"])
+
+
+@pytest.mark.parametrize("bound,build", [(1, 48), (34, 48), (48, 48), (49, 2048), (141, 2048),
+                                         (2048, 2048), (2049, 0), (0, 0)])
+def test_stack_build_for_bound(bound, build):
+    """The least of the kernel's stacks that holds the tree's bound; the
+    mesh-heavy scene's bound (34) takes the small build."""
+    assert wide8.stack_build(bound) == build
 
 
 def test_deep_tree_matches_reference_brute(reference):

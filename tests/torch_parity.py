@@ -222,3 +222,77 @@ def malformed_tree(kind):
     elif kind == "index":
         nodes[1, 6] = 5.0
     return nodes, np.zeros((1, 16), np.float32), (16 if kind == "stack" else None)
+
+
+def overlapping_leaves_bvh8():
+    """A hand-built 8-wide tree whose root pop hits several leaf clusters
+    whose boxes overlap along the x axis, so that a hit in one leaf lets
+    the box re-test against the updated best t drop a later one. Root
+    (axis x): slot 0 cluster 0 (box x 1-3), slot 1 cluster 1 (x 2.5-6),
+    slot 2 interior node 1 (x 0-9), slot 3 cluster 2 (x 5-7); node 1: one
+    leaf, cluster 3 (x 7.5-8.5). Cluster c holds one triangle, slot c, in
+    the plane x = 2, 4, 6.5, 8: triangles 0-2 cover y + z <= 2, 4, 4 (y, z
+    >= -1), triangle 3 covers y, z >= 3, y + z <= 10. Rays along +x from
+    x = 0 through (y, z) = P (0, 0), Q (1.5, 1.5), S (4, 4), along -x from
+    x = 10 through P, Q with t_max 3, one that misses the root's children
+    and a dead one. Returns the tables (slab8, meta8, cboxes, tris), the
+    triangles (positions (12, 3), triangles (4, 3)), the rays (o, d, t_min,
+    t_max) and what the walk must give: closest (slot, t) and its per-ray
+    (pops, leaves, rows), any-hit occlusion and its counts."""
+    from luisarender_tpu_torch.ops import cluster, subpacket
+
+    big = cluster._BIG
+    table8 = np.zeros((2, 64), np.float32)
+    table8[:, 0::8], table8[:, 3::8] = big, -big  # empty slots
+
+    def child(node, slot, lo, hi, code):
+        table8[node, 8 * slot:8 * slot + 3] = lo
+        table8[node, 8 * slot + 3:8 * slot + 6] = hi
+        table8[node, 8 * slot + 6] = code
+
+    boxes = np.float32([[1, -1, -1, 3, 5, 5], [2.5, -1, -1, 6, 5, 5], [5, -1, -1, 7, 5, 5],
+                        [7.5, -1, -1, 8.5, 8, 8]])
+    for slot, c in ((0, 0), (1, 1), (3, 2)):
+        child(0, slot, boxes[c, :3], boxes[c, 3:], -c - 1.0)
+    child(0, 2, (0, -1, -1), (9, 8, 8), 1.0)
+    child(1, 0, boxes[3, :3], boxes[3, 3:], -4.0)
+    table8[:, 7] = 0.0  # sort axis x
+    slab8, meta8 = subpacket.build_slab_meta(table8)
+    v = np.float32([[[2, -1, -1], [2, 3, -1], [2, -1, 3]],
+                    [[4, -1, -1], [4, 5, -1], [4, -1, 5]],
+                    [[6.5, -1, -1], [6.5, 5, -1], [6.5, -1, 5]],
+                    [[8, 3, 3], [8, 7, 3], [8, 3, 7]]])
+    tris = np.zeros((4, cluster.TRI_COLS, cluster.CLUSTER), np.float32)
+    tris[:, 0:3, 0] = v[:, 0]
+    tris[:, 3:6, 0] = v[:, 1] - v[:, 0]
+    tris[:, 6:9, 0] = v[:, 2] - v[:, 0]
+    tris[:, 9:11, 0] = 1.0  # valid, opaque
+    tris[:, 11, 0] = np.arange(4)
+    cboxes = np.zeros((4, 8), np.float32)
+    cboxes[:, 0:6] = boxes
+    positions = v.transpose(1, 0, 2).reshape(-1, 3)
+    idx = np.arange(4)
+    triangles = np.stack([idx, idx + 4, idx + 8], 1).astype(np.int32)
+    inf = np.float32(np.inf)
+    # P+, Q+, S+, P-, Q+ with t_max 3, a miss, a dead ray
+    o = np.float32([[0, 0, 0], [0, 1.5, 1.5], [0, 4, 4], [10, 0, 0], [0, 1.5, 1.5],
+                    [0, 20, 20], [0, 0, 0]])
+    d = np.float32([[1, 0, 0]] * 3 + [[-1, 0, 0]] + [[1, 0, 0]] * 3)
+    t_min = np.full(7, 1e-4, np.float32)
+    t_max = np.float32([inf, inf, inf, inf, 3, inf, 0])
+    want = {
+        # P+ takes cluster 0 (t 2), which culls clusters 1 and 2; node 1's
+        # cluster 3 lies past t 2. Q+ misses cluster 0's triangle and takes
+        # cluster 1's (t 4), which culls cluster 2. P- takes cluster 2 (t
+        # 3.5), which culls clusters 1 and 0; node 1's cluster 3 is still
+        # in reach and tested. S+ tests every cluster and takes cluster 3.
+        "slot": np.int32([0, 1, 3, 2, -1, -1, -1]),
+        "t": np.float32([2, 4, 8, 3.5, inf, inf, inf]),
+        "stats": np.int32([[2, 1, 1], [2, 2, 2], [2, 4, 4], [2, 2, 2], [2, 2, 2], [1, 0, 0],
+                           [0, 0, 0]]),
+        # any-hit stops at its first occluder, node 1 still on the stack
+        "occ": np.bool_([1, 1, 1, 1, 0, 0, 0]),
+        "stats_any": np.int32([[1, 1, 1], [1, 2, 2], [2, 4, 4], [1, 1, 1], [2, 2, 2],
+                               [1, 0, 0], [0, 0, 0]]),
+    }
+    return (slab8, meta8, cboxes, tris), (positions, triangles), (o, d, t_min, t_max), want
