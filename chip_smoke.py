@@ -46,8 +46,11 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              versions on the same mesh-heavy rays (the scene compiled with
              the 8-wide tables) and on a random 8,000-triangle soup with a
              ragged 100,003 rays, every output and walk count bit for bit,
-             with the wide8 kernel's lane counters (as the cluster
-             kernel's, and the pending leaves its box re-test dropped);
+             the subpacket kernels also through the reference's ray sort
+             (ops/subpacket.py launch_sorted), with the wide8 and subpacket
+             kernels' lane counters (as the cluster kernel's, and for wide8
+             the pending leaves its box re-test dropped) and the subpacket
+             bound with a Woop row charged 13 columns and 22 beside it;
              and against the cluster kernel on the same rays: wide8 and
              trace the same slots on every lane but exact ties, subpacket
              by the reference's rule for it (under 0.5% of lanes flip
@@ -731,22 +734,12 @@ def soup_case(torch, cluster, device, n_tris, n_rays, seed, trees=False, copies=
     return args, {k: torch.as_tensor(v, device=device).contiguous() for k, v in tables.items()}
 
 
-def unsort(x, perm):
-    """Outputs of rays taken in the order `perm` (a tensor, or a tuple of
-    them, indexed by ray along dimension 0) back in caller order."""
-    if isinstance(x, tuple):
-        return tuple(unsort(y, perm) for y in x)
-    out = x.new_empty(x.shape)
-    out[perm] = x
-    return out
-
-
 def launch_sorted(o, d, t_min, t_max, nodes, tris, any_hit, err, stats=None):
     """The route of the reference's wrapper for 32,768 rays or more, around
     the cluster kernel: ops/cluster.py launch on the rays in coherence_order,
     its outputs (and `stats`) scattered back to caller order. Measured here;
     the port's wrappers launch in caller order."""
-    from luisarender_tpu_torch.ops import cluster
+    from luisarender_tpu_torch.ops import cluster, subpacket
 
     perm = cluster.coherence_order(o, d, t_min, t_max, nodes)
     rays = [x.index_select(0, perm) for x in (o, d, t_min, t_max)]
@@ -754,7 +747,7 @@ def launch_sorted(o, d, t_min, t_max, nodes, tris, any_hit, err, stats=None):
     out = cluster.launch(*rays, nodes, tris, any_hit, err, walk)
     if stats is not None:
         stats[perm] = walk
-    return unsort(out, perm)
+    return subpacket.unsort(out, perm)
 
 
 def compare_cluster(torch, cluster, any_hit, args, plain=None, launch=None):
@@ -848,8 +841,9 @@ def mesh_heavy_inputs(torch, lt, cluster, device):
 
 
 def cluster_lanes(torch, mod, run, device):
-    """The counters of a while-while kernel (the cluster or wide8 kernel:
-    `mod` is ops/cluster.py or ops/wide8.py) on one launch, `run(counters)`
+    """The counters of a while-while kernel (the cluster, wide8 or subpacket
+    kernel: `mod` is ops/cluster.py, ops/wide8.py or ops/subpacket.py) on one
+    launch, `run(counters)`
     (mod.COUNTERS), and the shares they give: the walk's live lanes of its
     lane-slots, the leaf stage's tested rows of its row-slots, parked lanes
     and block loads a leaf round; for wide8, the share of pending leaves
@@ -984,19 +978,21 @@ def tree_call(mods, name, tr, leaf_size):
     return tables, launch, plain, masks, stack
 
 
-def tree_bound(name, kind, tables, rays, walk, visited, winners):
+def tree_bound(name, kind, tables, rays, walk, visited, winners, woop_cols=13):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
     operations (this run's walk) over fp32 peak. Bytes, each read once:
     rays in (32 B) and hits out; of the nodes the walk popped the columns
     it reads; of the clusters (rows) it tested the columns it reads of every
     row: the binary tree's v0 / e1 / e2 and index, wide8's v0 / e1 / e2 and
-    valid (and `valid` of a padding row), subpacket's o' / d' and slot (the
-    slot of a padding row). A column read only on a hit, wide8's slot
-    (closest) or opacity (any-hit) and subpacket's opacity, counts for the
-    `winners` distinct rows that won a closest hit and not at all for
-    any-hit (its occluders are not known here). Operations: a binary node
-    pop 20 (one box), an 8-wide pop 8 boxes of 20, a wide8 cluster's box
-    re-test 20, a Moller-Trumbore row 46, a Woop row 39."""
+    valid (and `valid` of a padding row), subpacket's `woop_cols` (13: the
+    12 o' coefficients, which are also d''s, and the slot; 22, as the first
+    port's bound counted it: o' 12, d' 9, slot) and the slot of a padding row. A column
+    read only on a hit, wide8's slot (closest) or opacity (any-hit) and
+    subpacket's opacity, counts for the `winners` distinct rows that won a
+    closest hit and not at all for any-hit (its occluders are not known
+    here). Operations: a binary node pop 20 (one box), an 8-wide pop 8
+    boxes of 20, a wide8 cluster's box re-test 20, a Moller-Trumbore row 46,
+    a Woop row 39."""
     n = rays[0].shape[0]
     closest = kind == "closest"
     out = {"wide8": 16, "subpacket": 8, "trace": 16}[name] if closest else 4
@@ -1016,7 +1012,7 @@ def tree_bound(name, kind, tables, rays, walk, visited, winners):
             ops = (pops * 8 + leaves) * FLOPS_PER_NODE + rows * FLOPS_PER_ROW
         else:
             valid_rows = int((blk[blocks_read, 3, 6 * 128:7 * 128] >= 0.0).sum())
-            attrs, per_hit = 22, 0  # o' 12, d' 9, slot
+            attrs, per_hit = woop_cols, 0
             ops = pops * 8 * FLOPS_PER_NODE + rows * FLOPS_PER_WOOP_ROW
         pad_rows = int(blocks_read.sum()) * 128 - valid_rows
         block_bytes = (valid_rows * attrs + pad_rows + per_hit) * 4
@@ -1163,6 +1159,15 @@ def phase_tree_kernels(torch, mods, device, compiled, cap):
                 check(torch.equal(stats_k, stats_p),
                       f"{key} {case}: walk counts differ on "
                       f"{int((stats_k != stats_p).any(1).sum())} lanes")
+                if name == "subpacket":  # the reference's sorted route, scattered back
+                    stats_s = torch.zeros_like(stats_k)
+                    out_s = subpacket.launch_sorted(*rays, *tables, any_hit, err, stats_s,
+                                                    stack=stack)
+                    torch.cuda.synchronize()
+                    same = (torch.equal(out_s, out_k) if any_hit else
+                            all(torch.equal(a, b) for a, b in zip(out_s, out_k)))
+                    check(int(err.item()) == 0 and same and torch.equal(stats_s, stats_p),
+                          f"{key} {case}: the sorted launch differs from caller order")
                 if any_hit:
                     occ_k = out_k > 0
                     check(torch.equal(occ_k, out_p),
@@ -1198,11 +1203,15 @@ def phase_tree_kernels(torch, mods, device, compiled, cap):
                                       "bound_by": bound_by,
                                       "nodes_read": int(visited[0].sum()),
                                       "blocks_read": int(visited[1].sum())}
-                if name == "wide8":
+                if name == "subpacket":  # a Woop row charged 22 columns, as before
+                    rec["times"][case]["bound_ms_22"], rec["times"][case]["bound_by_22"] = (
+                        tree_bound(name, kind, tables, rays, stats_k, visited, winners,
+                                   woop_cols=22))
+                if name != "trace":
+                    mod = mods[name]
                     rec["times"][case]["lanes"] = cluster_lanes(
-                        torch, mods["wide8"],
-                        lambda ctr: mods["wide8"].launch(*rays, *tables, any_hit, err,
-                                                         stack=stack, counters=ctr), device)
+                        torch, mod, lambda ctr: mod.launch(*rays, *tables, any_hit, err,
+                                                           stack=stack, counters=ctr), device)
             rec["max_abs_err"] = max(max(v) for v in rec["errors"].values())
             check(rec["max_abs_err"] == 0.0, f"{key}: kernel and plain version differ")
             results[key] = rec

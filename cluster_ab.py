@@ -91,9 +91,11 @@ def launcher(torch, cluster, lib, args, any_hit):
 def sort_only(cs, cluster, args, outs):
     """What chip_smoke.py launch_sorted adds to a launch: the keys and the
     sort, the gathers of the rays and the scatters of outputs like `outs`."""
+    from luisarender_tpu_torch.ops.subpacket import unsort
+
     perm = cluster.coherence_order(*args[:5])
     rays = [x.index_select(0, perm) for x in args[:4]]
-    return rays, cs.unsort(outs, perm)
+    return rays, unsort(outs, perm)
 
 
 def main(argv):
@@ -104,7 +106,7 @@ def main(argv):
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import luisarender_tpu_torch as lt
-    from luisarender_tpu_torch.ops import build, cluster
+    from luisarender_tpu_torch.ops import build, cluster, subpacket
 
     committed = build.CSRC_DIR / "cluster.cu"
     sources = {"committed": committed}
@@ -152,7 +154,7 @@ def main(argv):
                 got = run(stats)
                 torch.cuda.synchronize()
                 if order == "sorted":
-                    got, stats = cs.unsort(got, perm), cs.unsort(stats, perm)
+                    got, stats = subpacket.unsort(got, perm), subpacket.unsort(stats, perm)
                 same = (int(run.err.item()) == 0 and torch.equal(stats, walk)
                         and all(torch.equal(g, w) for g, w in zip(got, want)))
                 if not same:

@@ -206,7 +206,7 @@ __device__ __forceinline__ bool warp_round(Walk& w, int* stack, const Args& a, C
     const unsigned run = __reduce_max_sync(kFull, static_cast<unsigned>(w.pops - pops0));
     ctr.c[lrt::CTR_POP_SLOTS] += 32ull * run;
   }
-  return lrt::warp_leaves<kAny>(w, cl, a.tris, ctr);
+  return lrt::warp_leaves<kAny, lrt::MtRows>(w, cl, a.tris, ctr);
 }
 
 template <bool kAny, bool kCount>

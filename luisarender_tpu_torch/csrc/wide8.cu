@@ -25,7 +25,10 @@
 // bound, as the cluster kernel's first port did.
 //
 // Design: the cluster kernel's "while-while" loop (csrc/cluster.cu) carried
-// over to the 8-wide tree. Each lane walks its own ray: a pop tests the
+// over to the 8-wide tree, as trace_common.cuh's per-lane 8-wide walk
+// (Lane8, pop8, to_leaf8, trace8), which the subpacket kernel shares; this
+// kernel takes it with the box re-test and the Moller-Trumbore rows
+// (MtRows). Each lane walks its own ray: a pop tests the
 // node's 8 child boxes against the lane's best_t (planes bound * inv +
 // (-o * inv), 12 float4 loads through the read-only cache), pushes the hit
 // interior children in reverse visit order and keeps the hit leaf children
@@ -64,27 +67,19 @@
 
 namespace {
 
-using lrt::kBig;
-using lrt::kErrIndex;
-using lrt::kErrStack;
-using lrt::kErrSteps;
-using lrt::kFull;
-using lrt::Ray;
-
 constexpr int kThreads = 128;
 // resident blocks an SM asked of ptxas: closest hits at five (96
 // registers), any-hit at six (80, a few bytes of spill), the faster of
 // four to eight in wide8_ab.py's turns for each mode
 constexpr int kBlocksPerSmClosest = 5, kBlocksPerSmAny = 6;
-// the per-lane stacks of the two builds (ops/wide8.py STACKS)
-constexpr int kStackSmall = 48, kStackLarge = lrt::kStack8Large;
+// the per-lane stacks of the two builds (ops/subpacket.py STACKS8)
+constexpr int kStackSmall = lrt::kStack8Small, kStackLarge = lrt::kStack8Large;
 
-// lane counters: trace_common.cuh CTR_*, then
-enum {
-  CTR_CULLED = lrt::kWalkCounters,  // pending leaves dropped by the box re-test
-  kCounters
-};
+// lane counters: trace_common.cuh CTR_*, then CTR_CULLED
+constexpr int kCounters = lrt::CTR_CULLED + 1;
 
+// The launch arguments; the lane walk (trace_common.cuh begin8, to_leaf8)
+// reads the rays, the tables, n8, n_clusters, cap and err.
 struct Args {
   const float* __restrict__ o;
   const float* __restrict__ d;
@@ -105,46 +100,7 @@ struct Args {
   int n8, n_clusters, cap, n;
 };
 
-// One lane's walk of one ray, but for its stack (kept apart, so that these
-// stay in registers while the stack is in local memory).
-struct Walk {
-  Ray r;
-  float nox, noy, noz;  // -o * inv, the planes' offsets
-  float best_t, best_u, best_v;
-  int best_s, occ, pops, leaves, rows, sp;
-  int node;          // the last node popped
-  unsigned pending;  // its hit leaf children not yet taken (child bits)
-  bool asc;          // its children's visit order: ascending child index
-  bool overflow;     // its interior children did not fit the stack
-  bool live;         // the walk has pops or leaves left (or a parked leaf)
-};
-
-__device__ __forceinline__ void begin(Walk& w, int* stack, int i, const Args& a) {
-  w.r = lrt::load_ray(i, a.o, a.d, a.t_min);
-  w.nox = (-w.r.ox) * w.r.ix;
-  w.noy = (-w.r.oy) * w.r.iy;
-  w.noz = (-w.r.oz) * w.r.iz;
-  const float tmx = a.t_max[i];
-  w.best_t = tmx < kBig ? tmx : kBig;
-  w.best_s = -1;
-  w.best_u = w.best_v = 0.0f;
-  w.occ = w.pops = w.leaves = w.rows = w.sp = w.node = 0;
-  w.pending = 0;
-  w.asc = w.overflow = false;
-  w.live = w.r.tmin < w.best_t;  // rays dead on entry never pop
-  if (w.live) stack[w.sp++] = 0;
-}
-
-// A lane without a ray: it only takes part in the warp's leaf stage.
-__device__ __forceinline__ void idle(Walk& w) {
-  w.r = Ray{};
-  w.nox = w.noy = w.noz = 0.0f;
-  w.best_t = w.best_u = w.best_v = 0.0f;
-  w.best_s = -1;
-  w.occ = w.pops = w.leaves = w.rows = w.sp = w.node = 0;
-  w.pending = 0;
-  w.asc = w.overflow = w.live = false;
-}
+using Walk = lrt::Lane8;
 
 template <bool kAny>
 __device__ __forceinline__ void write(const Walk& w, int i, const Args& a) {
@@ -163,167 +119,10 @@ __device__ __forceinline__ void write(const Walk& w, int i, const Args& a) {
   }
 }
 
-// Pops the top of the stack: tests its 8 child boxes against best_t as it
-// stands, checks every hit child's code, keeps the hit leaf children as
-// the pending mask and pushes the hit interior children in reverse visit
-// order, so the nearest pops next (or marks the overflow, raised once the
-// pending leaves are done). Returns false on a code out of range.
-__device__ __forceinline__ bool pop(Walk& w, int* stack, const Args& a) {
-  const int node = stack[--w.sp];
-  // row a of the node's slab block holds, at float4 36 a + q, the low
-  // plane of axis a for children 0-3 (q = 0) and 4-7 (q = 1), the high
-  // plane for children 0-3 (q = 2) and 4-7 (q = 3)
-  const float4* s = a.slab8 + static_cast<size_t>(node) * (8 * 128 / 4);
-  const float4* m = reinterpret_cast<const float4*>(a.meta8) + static_cast<size_t>(node) * 4;
-  const float4 m0 = __ldg(m), m1 = __ldg(m + 1), m2 = __ldg(m + 2);
-  const float enc[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
-  const int packed = static_cast<int>(m2.x);
-  const int axis = packed & 3;
-  const unsigned leafmask = static_cast<unsigned>(packed >> 2);
-  float lo[3][8], hi[3][8];
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const float4 l = __ldg(s + 36 * ax + q);
-      const float4 h = __ldg(s + 36 * ax + 2 + q);
-      lo[ax][4 * q] = l.x;
-      lo[ax][4 * q + 1] = l.y;
-      lo[ax][4 * q + 2] = l.z;
-      lo[ax][4 * q + 3] = l.w;
-      hi[ax][4 * q] = h.x;
-      hi[ax][4 * q + 1] = h.y;
-      hi[ax][4 * q + 2] = h.z;
-      hi[ax][4 * q + 3] = h.w;
-    }
-  }
-  const Ray& r = w.r;
-  unsigned hits = 0;
-  bool bad = false;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float t0x = lo[0][c] * r.ix + w.nox;
-    const float t1x = hi[0][c] * r.ix + w.nox;
-    const float t0y = lo[1][c] * r.iy + w.noy;
-    const float t1y = hi[1][c] * r.iy + w.noy;
-    const float t0z = lo[2][c] * r.iz + w.noz;
-    const float t1z = hi[2][c] * r.iz + w.noz;
-    const float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                             fmaxf(fminf(t0z, t1z), r.tmin));
-    const float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                            fminf(fmaxf(t0z, t1z), w.best_t));
-    if (near <= far && enc[c] != 0.0f) {
-      hits |= 1u << c;
-      if ((leafmask >> c) & 1u) {
-        const int blk = static_cast<int>(-enc[c] - 1.0f);
-        bad |= blk < 0 || blk >= a.n_clusters;
-      } else {
-        const int idx = static_cast<int>(enc[c]);
-        bad |= idx < 1 || idx >= a.n8;
-      }
-    }
-  }
-  if (bad) return false;
-  const float dax = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-  const bool asc = dax >= 0.0f;
-  const unsigned inner = hits & ~leafmask;
-  w.node = node;
-  w.asc = asc;
-  w.pending = hits & leafmask;
-  if (w.sp + __popc(inner) > a.cap) {
-    w.overflow = true;
-    return true;
-  }
-  // reverse visit order: ascending, child 7 is pushed first; descending,
-  // child 0
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    if ((inner >> c) & 1u) {
-      const unsigned before = asc ? inner >> (c + 1) : inner & ((1u << c) - 1u);
-      stack[w.sp + __popc(before)] = static_cast<int>(enc[c]);
-    }
-  }
-  w.sp += __popc(inner);
-  return true;
-}
-
-// Takes the pending leaves in visit order, each re-tested against the
-// current best_t, and pops when none is left, until a leaf's box holds
-// (returns its cluster: the lane parks) or the walk ends (returns -1,
-// w.live false). `culled` counts the pending leaves the re-test dropped.
-__device__ __forceinline__ int to_leaf(Walk& w, int* stack, const Args& a, int& culled) {
-  const int max_steps = 4 * a.n8 + 64;
-  while (w.live) {
-    if (w.pending) {
-      const int c = w.asc ? __ffs(w.pending) - 1 : 31 - __clz(w.pending);
-      w.pending &= ~(1u << c);
-      const int blk = static_cast<int>(-__ldg(a.meta8 + 16 * w.node + c) - 1.0f);
-      if (lrt::slab(__ldg(a.cboxes + 2 * blk), __ldg(a.cboxes + 2 * blk + 1), w.r, w.best_t)) {
-        ++w.leaves;
-        return blk;
-      }
-      ++culled;
-      continue;
-    }
-    if (w.overflow) {
-      atomicOr(a.err, kErrStack);
-      break;
-    }
-    if (w.sp == 0) break;
-    if (w.pops >= max_steps) {
-      atomicOr(a.err, kErrSteps);
-      break;
-    }
-    ++w.pops;
-    if (!pop(w, stack, a)) {
-      atomicOr(a.err, kErrIndex);
-      break;
-    }
-  }
-  w.live = false;
-  return -1;
-}
-
-// One round of the warp: every lane walks to its next leaf or its end, then
-// the warp tests the parked lanes' leaves (lrt::warp_leaves). Returns false,
-// having changed nothing, when no lane parked. Called by all 32 lanes.
-template <bool kAny, class Ctr>
-__device__ __forceinline__ bool warp_round(Walk& w, int* stack, const Args& a, Ctr& ctr) {
-  const int pops0 = w.pops;
-  int culled = 0;
-  const int cl = to_leaf(w, stack, a, culled);
-  if (ctr.on) {
-    const unsigned run = __reduce_max_sync(kFull, static_cast<unsigned>(w.pops - pops0));
-    ctr.c[lrt::CTR_POP_SLOTS] += 32ull * run;
-    ctr.c[CTR_CULLED] += __reduce_add_sync(kFull, static_cast<unsigned>(culled));
-  }
-  return lrt::warp_leaves<kAny>(w, cl, a.tris, ctr);
-}
-
 template <bool kAny, bool kCount, int kCap>
 __device__ __forceinline__ void trace(const Args& a) {
-  const int lane = threadIdx.x & 31;
-  lrt::Counters<kCount, kCounters> ctr = {};
-  Walk w;
-  int stack[kCap];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < a.n) {
-    begin(w, stack, i, a);
-  } else {
-    idle(w);
-  }
-  while (warp_round<kAny>(w, stack, a, ctr)) {
-  }
-  if (i < a.n) write<kAny>(w, i, a);
-  if (kCount) {
-    ctr.c[lrt::CTR_POPS] +=
-        __reduce_add_sync(kFull, static_cast<unsigned>(i < a.n ? w.pops : 0));
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < kCounters; ++k)
-        if (ctr.c[k]) atomicAdd(a.counters + k, ctr.c[k]);
-    }
-  }
+  lrt::trace8<kAny, true, lrt::MtRows, kCount, kCounters, kThreads, kCap>(
+      a, a.tris, [&](const Walk& w, int i) { write<kAny>(w, i, a); });
 }
 
 template <int kCap>
@@ -354,14 +153,8 @@ Kernel pick(bool any_hit, bool counted) {
   return counted ? wide8_closest_counted_kernel<kCap> : wide8_closest_kernel<kCap>;
 }
 
-// The entries of the build whose stack holds `bound`, 0 if none does.
-int stack_build(int bound) {
-  if (bound < 1 || bound > kStackLarge) return 0;
-  return bound <= kStackSmall ? kStackSmall : kStackLarge;
-}
-
 int launch(bool any_hit, const Args& a, int device, void* stream) {
-  const int build = stack_build(a.cap);
+  const int build = lrt::stack8_build(a.cap);
   if (a.n <= 0 || a.n8 <= 0 || build == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -381,7 +174,7 @@ int wide8_counters() { return kCounters; }
 
 // The per-lane stack entries of the build a launch takes for a tree whose
 // stack bound is `bound` (0: beyond the largest build).
-int wide8_stack_build(int bound) { return stack_build(bound); }
+int wide8_stack_build(int bound) { return lrt::stack8_build(bound); }
 
 // Both entry points launch on `stream` of device `device`, do not
 // synchronise, and return cudaGetLastError() after the launch (0 = success).

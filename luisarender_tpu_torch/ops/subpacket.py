@@ -20,16 +20,28 @@ ops/cluster.py (the wide8 route of ops/wide8.py walks the same BVH8).
   dz, 0] (rows) of o'x, o'y, o'z (g = 0-2: the unit-triangle transform of
   o - v0), d'x, d'y, d'z (g = 3-5), and on the constant row the slot
   (g = 6, -1 for padding or a degenerate triangle) and opacity (g = 7).
+  The builder writes the same float32 coefficients into the direction rows
+  of groups 3-5 as into the origin rows of groups 0-2, so the row tests
+  below (woop_tests) and the kernels take d' from the origin rows: 12
+  coefficients and the slot a triangle.
 
-On CUDA tensors `closest` / `any_hit` launch csrc/subpacket.cu (one thread
-a ray, a per-thread stack; the source says why). On CPU tensors they run
-the plain PyTorch versions below (`walk8_plain`), which walk the same tree
-in the kernel's per-lane order and arithmetic. There is no fallback: a
-CUDA tensor launches the kernel or raises. Both size the per-ray stack
-from the tree (`stack8_need`; the kernels are built with STACKS8 entries
-and a launch takes the least that holds it). A malformed tree (a stack
+On CUDA tensors `closest` / `any_hit` launch csrc/subpacket.cu (a lane a
+ray walking the tree, each warp testing its lanes' leaf clusters
+together; the source says why). On CPU tensors they run the plain PyTorch
+versions below (`walk8_plain`), which walk the same tree in the kernel's
+per-lane order and arithmetic. There is no fallback: a CUDA tensor
+launches the kernel or raises. Both size the per-ray stack from the tree
+(`stack8_need`; the kernels are built with STACKS8 entries and a launch
+takes the least that holds it, `stack_build`). A malformed tree (a stack
 deeper than that bound, more than 4 N8 + 64 pops for a ray, a child or
 cluster index out of range) raises in both.
+
+The reference's wrapper sorts launches of at least 32,768 rays into
+coherent packets first (subpacket_pallas.py:596-608, MIN_SORT_RAYS).
+`coherence_order` is that order, over the scene's bounds in meta8's row 0,
+and `launch_sorted` that route; each ray's walk is its own, so the
+outputs are the same in either order. `closest` / `any_hit` launch in
+caller order: on the H100 the sort costs more than it saves (PERF.md).
 
 The Woop test's t, u, v are an algebraic rearrangement of Moller-Trumbore,
 so a hit's (u, v) is not returned: `closest` gives bary = NaN, and
@@ -46,7 +58,8 @@ import os
 import numpy as np
 import torch
 
-from .cluster import CLUSTER, ERR_INDEX, ERR_STACK, ERR_STEPS, _BIG, safe_inv, stack_need
+from .cluster import CLUSTER, COUNTERS as WALK_COUNTERS, ERR_INDEX, ERR_STACK, ERR_STEPS, _BIG
+from .cluster import coherence_keys, safe_inv, stack_need
 
 # the route is taken only when asked for, as in the reference
 ENABLED = os.environ.get("LR_SUBPACKET", "0") != "0"
@@ -59,14 +72,17 @@ SLAB_COLS = 128
 # this many nodes, as the reference does (there the cap is the TPU's VMEM,
 # which holds the whole slab table), so the same scenes take the route
 MAX_SLAB8_NODES = 2048
-# entries of the per-ray stacks the kernels are built with
-# (csrc/trace_common.cuh kStack8Small / kStack8Large): a launch takes the
-# least that holds its tree's bound (stack8_need), and the larger holds the
-# bound of any tree of at most MAX_SLAB8_NODES nodes, since a walk pushes
-# each node at most once
-STACKS8 = (128, MAX_SLAB8_NODES)
-# lanes whose leaf blocks the plain version gathers at once: the 23 columns
-# of 128 rows it reads of each are 48 MB at 4096 lanes
+# entries of the per-lane stacks the 8-wide kernels (csrc/subpacket.cu,
+# csrc/wide8.cu) are built with (csrc/trace_common.cuh kStack8Small /
+# kStack8Large): a launch takes the least that holds its tree's bound
+# (stack8_need, stack_build), and the larger holds the bound of any tree of
+# at most MAX_SLAB8_NODES nodes, since a walk pushes each node at most once
+STACKS8 = (48, MAX_SLAB8_NODES)
+# the kernel's optional per-launch lane counters (csrc/trace_common.cuh
+# CTR_*): the cluster kernel's
+COUNTERS = WALK_COUNTERS
+# lanes whose leaf blocks the plain version gathers at once: the 14 columns
+# of 128 rows it reads of each are 29 MB at 4096 lanes
 WOOP_CHUNK = 4096
 
 _ERRORS = {ERR_STACK: "a traversal stack deeper than the tree's bound",
@@ -261,6 +277,23 @@ def stack8_need(meta8) -> int:
     return stack_need(np.where((enc != 0.0) & ~leaf, enc, -1.0).astype(np.int64))
 
 
+def stack_build(bound: int) -> int:
+    """The entries of the 8-wide kernel build a launch takes for a tree whose
+    stack bound is `bound`: the least of STACKS8 that holds it (0: none
+    does)."""
+    return next((s for s in STACKS8 if 1 <= bound <= s), 0)
+
+
+def coherence_order(o, d, t_min, t_max, meta8):
+    """The reference's ray order for a launch of the 8-wide kernels
+    (subpacket_pallas.py:596-608, wide8_pallas.py:340-352): ops/cluster.py
+    coherence_keys over the scene's bounds in meta8[0, 10:16], stable, as
+    int64 indices."""
+    lo, hi = meta8[0, 10:13], meta8[0, 13:16]
+    key = coherence_keys(o, d, t_min, t_max, lo, hi - lo)
+    return torch.sort(key.to(torch.int32), stable=True).indices
+
+
 def resolve_stack8(meta8, stack, name):
     """The stack bound of a walk over meta8: `stack` when the caller has it
     (ScenePlan.bvh8_stack), else stack8_need of meta8 (read to the host).
@@ -428,14 +461,17 @@ def woop_tests(woop, blk, ox, oy, oz, dx, dy, dz, t_min, best_t, any_hit):
     1, dx, dy, dz, 0] in row order as fused multiply-adds (fma32), and u, v
     = fma(t, d', o'): the reference's matmul and sums as XLA compiles them,
     bit for bit; the terms on rows the block holds zero in are left out,
-    since adding an exact zero changes no result. Only the columns read
-    are gathered."""
+    since adding an exact zero changes no result. d' takes its coefficients
+    from the origin rows of groups 0-2, which build_woop_table fills with
+    the same float32 values as the direction rows of groups 3-5. Only the
+    columns read are gathered: 12 coefficients and the slot a row, the
+    opacity for any-hit."""
     def g(k, grp):
         return woop[:, k, grp * CLUSTER:(grp + 1) * CLUSTER][blk]
 
-    opx, opy, opz = (fma32(g(2, q), oz, fma32(g(1, q), oy, g(0, q) * ox)) + g(3, q)
-                     for q in range(3))
-    dpx, dpy, dpz = (fma32(g(6, q), dz, fma32(g(5, q), dy, g(4, q) * dx)) for q in range(3, 6))
+    w = [[g(f, q) for f in range(4)] for q in range(3)]
+    opx, opy, opz = (fma32(c[2], oz, fma32(c[1], oy, c[0] * ox)) + c[3] for c in w)
+    dpx, dpy, dpz = (fma32(c[2], dz, fma32(c[1], dy, c[0] * dx)) for c in w)
     slot = g(3, 6)
     t = -opz / dpz
     u = fma32(t, dpx, opx)
@@ -516,12 +552,34 @@ def _library():
         lib = load_library("subpacket")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         args = [ptr] * 6 + [i32, ptr, i32, i32, i32]
-        lib.subpacket_closest.argtypes = args + [ptr] * 4 + [i32, ptr]
+        # outputs, stats, counters and the error word; device and stream
+        lib.subpacket_closest.argtypes = args + [ptr] * 5 + [i32, ptr]
         lib.subpacket_closest.restype = i32
-        lib.subpacket_any.argtypes = args + [ptr] * 3 + [i32, ptr]
+        lib.subpacket_any.argtypes = args + [ptr] * 4 + [i32, ptr]
         lib.subpacket_any.restype = i32
+        lib.subpacket_counters.restype = i32
+        lib.subpacket_stack_build.argtypes = [i32]
+        lib.subpacket_stack_build.restype = i32
+        if lib.subpacket_counters() != len(COUNTERS):
+            raise RuntimeError(f"csrc/subpacket.cu keeps {lib.subpacket_counters()} counters, "
+                               f"ops/subpacket.py names {len(COUNTERS)}")
+        for bound in (1, STACKS8[0], STACKS8[0] + 1, STACKS8[-1], STACKS8[-1] + 1):
+            if lib.subpacket_stack_build(bound) != stack_build(bound):
+                raise RuntimeError(f"csrc/subpacket.cu takes a "
+                                   f"{lib.subpacket_stack_build(bound)}-entry stack for a "
+                                   f"bound of {bound}, ops/subpacket.py STACKS8 "
+                                   f"{stack_build(bound)}")
         _LIB = lib
     return _LIB
+
+
+def check_counters(counters, n_counters, dev):
+    """Raise unless `counters` is None or a contiguous int64 (n_counters,)
+    tensor on `dev`."""
+    if counters is not None and (counters.device != dev or counters.dtype != torch.int64
+                                 or counters.shape != (n_counters,)
+                                 or not counters.is_contiguous()):
+        raise ValueError(f"counters must be a contiguous int64 ({n_counters},) tensor on {dev}")
 
 
 def check_bvh8(o, d, t_min, t_max, slab8, meta8, extra):
@@ -557,20 +615,25 @@ def _check(o, d, t_min, t_max, slab8, meta8, woop):
                (("woop", woop, (woop.shape[0], 8, WOOP_COLS)),))
 
 
-def launch(o, d, t_min, t_max, slab8, meta8, woop, any_hit, err, stats=None, stack=None):
+def launch(o, d, t_min, t_max, slab8, meta8, woop, any_hit, err, stats=None, stack=None,
+           counters=None):
     """Queue one kernel launch on the current stream and return its outputs
-    without waiting: closest (t, slot) or any-hit occlusion (int32). Errors
-    of the walk are OR-ed into `err` (one int32 on the card); `stats`, when
-    given, is an (N, 3) int32 tensor that receives the walk's counts (as
-    WalkState.stats); `stack`, the tree's stack bound (resolve_stack8)."""
+    without waiting: closest (t, slot) or any-hit occlusion (int32). The
+    rays are walked in the order given. Errors of the walk are OR-ed into
+    `err` (one int32 on the card); `stats`, when given, is an (N, 3) int32
+    tensor that receives the walk's counts (as WalkState.stats); `stack`,
+    the tree's stack bound (resolve_stack8); `counters`, a contiguous int64
+    tensor of len(COUNTERS) that the kernel adds its lane counters to."""
     global closest_launches, any_launches
     n, dev = o.shape[0], o.device
+    check_counters(counters, len(COUNTERS), dev)
     lib = _library()
     stack = resolve_stack8(meta8, stack, "subpacket_any" if any_hit else "subpacket_closest")
     common = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
               slab8.data_ptr(), meta8.data_ptr(), slab8.shape[0], woop.data_ptr(),
               woop.shape[0], stack, n)
-    tail = (0 if stats is None else stats.data_ptr(), err.data_ptr(), dev.index or 0,
+    tail = (0 if stats is None else stats.data_ptr(),
+            0 if counters is None else counters.data_ptr(), err.data_ptr(), dev.index or 0,
             torch.cuda.current_stream(dev).cuda_stream)
     if any_hit:
         occ = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -588,6 +651,31 @@ def launch(o, d, t_min, t_max, slab8, meta8, woop, any_hit, err, stats=None, sta
     else:
         closest_launches += 1
     return out
+
+
+def unsort(x, perm):
+    """Outputs of rays taken in the order `perm` (a tensor, or a tuple of
+    them, indexed by ray along dimension 0) back in caller order."""
+    if isinstance(x, tuple):
+        return tuple(unsort(y, perm) for y in x)
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out
+
+
+def launch_sorted(o, d, t_min, t_max, slab8, meta8, woop, any_hit, err, stats=None,
+                  stack=None, counters=None):
+    """The reference's route for a launch of 32,768 rays or more
+    (subpacket_pallas.py:596-608, 667-669): `launch` on the rays in
+    coherence_order, its outputs (and `stats`) scattered back to caller
+    order."""
+    perm = coherence_order(o, d, t_min, t_max, meta8)
+    rays = [x.index_select(0, perm) for x in (o, d, t_min, t_max)]
+    walk = None if stats is None else torch.empty_like(stats)
+    out = launch(*rays, slab8, meta8, woop, any_hit, err, walk, stack, counters)
+    if stats is not None:
+        stats[perm] = walk
+    return unsort(out, perm)
 
 
 def _run(o, d, t_min, t_max, slab8, meta8, woop, any_hit, stack):

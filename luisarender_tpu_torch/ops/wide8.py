@@ -16,13 +16,15 @@ source says why). On CPU tensors they run the plain PyTorch version below,
 which walks the same tree in the kernel's per-lane order and arithmetic.
 There is no fallback: a CUDA tensor launches the kernel or raises. Both
 size the per-ray stack from the tree (ops/subpacket.py resolve_stack8); the
-kernel is built with the stacks of STACKS and a launch takes the least
-that holds the bound (`stack_build`). A malformed tree raises in both.
+kernel is built with the stacks of ops/subpacket.py STACKS8 and a launch
+takes the least that holds the bound (`stack_build`). A malformed tree
+raises in both.
 
 The reference's wrapper sorts launches of at least 32,768 rays into
 coherent packets first (wide8_pallas.py:340-352, MIN_SORT_RAYS).
-`coherence_order` is that order, over the scene's bounds in meta8's row 0.
-Each ray's walk is its own, so the outputs are the same in either order.
+ops/subpacket.py `coherence_order` is that order, over the scene's bounds
+in meta8's row 0. Each ray's walk is its own, so the outputs are the same
+in either order.
 On the H100 the kernel is slower on sorted closest-hit rays and gains 2-4
 us on sorted shadow rays, against ~0.6 ms of device time for the sort
 itself (PERF.md), so `closest` / `any_hit` launch in caller order.
@@ -37,18 +39,13 @@ import os
 import numpy as np
 import torch
 
-from .cluster import CLUSTER, COUNTERS as WALK_COUNTERS, TRI_COLS, coherence_keys, slab
-from .cluster import leaf_blocks_plain
-from .subpacket import (MAX_SLAB8_NODES, check_bvh8, raise_walk_error, resolve_stack8,
-                        walk8_plain)
+from .cluster import CLUSTER, COUNTERS as WALK_COUNTERS, TRI_COLS, leaf_blocks_plain, slab
+from .subpacket import (STACKS8, check_bvh8, check_counters, raise_walk_error, resolve_stack8,
+                        stack_build, walk8_plain)
 
 # the route is taken only when asked for, as in the reference
 ENABLED = os.environ.get("LR_WIDE8", "0") != "0"
 CBOX_COLS = 8
-# entries of the per-lane stacks the kernel is built with (csrc/wide8.cu
-# kStackSmall / kStackLarge); the larger holds the bound of any tree of at
-# most MAX_SLAB8_NODES nodes
-STACKS = (48, MAX_SLAB8_NODES)
 # the kernel's optional per-launch counters (csrc/trace_common.cuh CTR_*,
 # then csrc/wide8.cu's): the cluster kernel's, and the pending leaves that
 # the box re-test dropped
@@ -69,21 +66,6 @@ def build_cluster_boxes(node_table: np.ndarray) -> np.ndarray:
     boxes[first[leaf], 0:3] = node[leaf, 0:3]
     boxes[first[leaf], 3:6] = node[leaf, 3:6]
     return boxes
-
-
-def stack_build(bound: int) -> int:
-    """The entries of the kernel build a launch takes for a tree whose stack
-    bound is `bound`: the least of STACKS that holds it (0: none does)."""
-    return next((s for s in STACKS if 1 <= bound <= s), 0)
-
-
-def coherence_order(o, d, t_min, t_max, meta8):
-    """The reference's ray order for a launch (wide8_pallas.py:340-352):
-    ops/cluster.py coherence_keys over the scene's bounds in meta8[0, 10:16],
-    stable, as int64 indices."""
-    lo, hi = meta8[0, 10:13], meta8[0, 13:16]
-    key = coherence_keys(o, d, t_min, t_max, lo, hi - lo)
-    return torch.sort(key.to(torch.int32), stable=True).indices
 
 
 # ---------------------------------------------------------------------------
@@ -160,10 +142,10 @@ def _library():
         if lib.wide8_counters() != len(COUNTERS):
             raise RuntimeError(f"csrc/wide8.cu keeps {lib.wide8_counters()} counters, "
                                f"ops/wide8.py names {len(COUNTERS)}")
-        for bound in (1, STACKS[0], STACKS[0] + 1, STACKS[-1], STACKS[-1] + 1):
+        for bound in (1, STACKS8[0], STACKS8[0] + 1, STACKS8[-1], STACKS8[-1] + 1):
             if lib.wide8_stack_build(bound) != stack_build(bound):
                 raise RuntimeError(f"csrc/wide8.cu takes a {lib.wide8_stack_build(bound)}-entry "
-                                   f"stack for a bound of {bound}, ops/wide8.py STACKS "
+                                   f"stack for a bound of {bound}, ops/subpacket.py STACKS8 "
                                    f"{stack_build(bound)}")
         _LIB = lib
     return _LIB
@@ -189,11 +171,7 @@ def launch(o, d, t_min, t_max, slab8, meta8, cboxes, tris, any_hit, err, stats=N
     adds its lane counters to."""
     global closest_launches, any_launches
     n, dev = o.shape[0], o.device
-    if counters is not None and (counters.device != dev or counters.dtype != torch.int64
-                                 or counters.shape != (len(COUNTERS),)
-                                 or not counters.is_contiguous()):
-        raise ValueError(f"counters must be a contiguous int64 ({len(COUNTERS)},) "
-                         f"tensor on {dev}")
+    check_counters(counters, len(COUNTERS), dev)
     lib = _library()
     stack = resolve_stack8(meta8, stack, "wide8_any" if any_hit else "wide8_closest")
     common = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),

@@ -2,7 +2,10 @@
 kernel_bounds) on hand-made rays, on the CPU: each row test is counted to
 its first failed check of the plain arithmetic, any-hit up to its first
 occluder among the opaque rows, and a dead lane counts no rows and no ray
-bytes.
+bytes. Its bound of the subpacket kernels (tree_bound) on
+torch_parity.woop_ties_bvh8: the bytes of the rays, the popped nodes and
+13 (or 22) columns of each valid row of the tested clusters, and one of
+each padding row.
 
 The row is the triangle v0 = 0, e1 = x, e2 = y; a ray from (x, y, 1) along
 -z meets it at u = x, v = y, t = 1, exactly in float32.
@@ -82,3 +85,26 @@ def test_kernel_bounds_counts_rays_of_live_lanes(kind):
     t_ops = int(ops.sum()) / cs.PEAK_FP32_PER_S * 1e3
     assert ms == max(t_bytes, t_ops)
     assert by == ("bytes" if t_bytes >= t_ops else "operations")
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_subpacket_bound_counts_woop_columns(kind):
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_parity import woop_ties_bvh8
+
+    from luisarender_tpu_torch.ops import subpacket
+
+    tables, _, rays, _ = woop_ties_bvh8()
+    tables = tuple(torch.as_tensor(x) for x in tables)
+    rays = tuple(torch.as_tensor(x) for x in rays)
+    visited = (torch.zeros(2, dtype=torch.bool), torch.zeros(4, dtype=torch.bool))
+    st = subpacket.subpacket_plain(*rays, *tables, kind == "any", visited)
+    assert visited[0].tolist() == [True, True] and visited[1].tolist() == [True] * 4
+    bounds = {cols: cs.tree_bound("subpacket", kind, tables, rays, st.stats, visited, 0,
+                                  woop_cols=cols) for cols in (13, 22)}
+    # 6 valid rows of 4 clusters, 506 padding rows; 7 rays in and out; 2 nodes
+    out = 8 if kind == "closest" else 4
+    base = 7 * (32 + out) + 2 * 57 * 4 + 506 * 4
+    for cols, (ms, by) in bounds.items():
+        assert by == "bytes"
+        assert ms == pytest.approx((base + 6 * cols * 4) / cs.PEAK_BYTES_PER_S * 1e3, rel=1e-12)

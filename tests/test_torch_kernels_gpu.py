@@ -625,12 +625,12 @@ def test_wide8_counted_build_equals_uncounted(cuda):
     """The counted build (lane counters) gives the uncounted build's outputs
     and walk counts, in caller order and on the rays in the reference's
     coherence order; its counters agree with the walk counts they sum."""
-    from luisarender_tpu_torch.ops import wide8
+    from luisarender_tpu_torch.ops import subpacket, wide8
 
     rays, (slab8, meta8, cboxes, tris, _) = _bvh8_case(cuda, 8000, 50_001, 21)
     for order in ("caller", "sorted"):
         if order == "sorted":
-            perm = wide8.coherence_order(*rays, meta8)
+            perm = subpacket.coherence_order(*rays, meta8)
             rays = tuple(x.index_select(0, perm) for x in rays)
         args = (*rays, slab8, meta8, cboxes, tris)
         for any_hit in (False, True):
@@ -663,6 +663,95 @@ def test_wide8_stack_builds_agree(cuda):
     lib = wide8._library()
     for bound in (0, 1, 34, 48, 49, 64, 141, 2048, 2049):
         assert lib.wide8_stack_build(bound) == wide8.stack_build(bound)
+
+
+def test_subpacket_woop_ties_match_plain(cuda):
+    """torch_parity.woop_ties_bvh8 on the card: rows of one cluster tying in
+    t (the least slot wins, not the lowest row), a pop's several leaf
+    clusters all tested, a transparent hit in front of an opaque one; every
+    output and the per-ray walk counts equal the plain version's and the
+    values the case implies, in the uncounted and the counted build, whose
+    counters sum the walk counts."""
+    from luisarender_tpu_torch.ops import subpacket
+    from torch_parity import woop_ties_bvh8
+
+    tables, _, rays, want = woop_ties_bvh8()
+    args = _to(cuda, *rays, *tables)
+    t, slot, _, _ = subpacket.closest(*args)
+    _assert_same((t, slot), subpacket.closest_plain(*args))
+    assert slot.cpu().numpy().tolist() == want["slot"].tolist()
+    occ = subpacket.any_hit(*args)
+    assert torch.equal(occ, subpacket.any_plain(*args))
+    assert occ.cpu().numpy().tolist() == want["occ"].tolist()
+    for any_hit, key in ((False, "stats"), (True, "stats_any")):
+        plain = subpacket.subpacket_plain(*args, any_hit).stats
+        assert plain.cpu().numpy().tolist() == want[key].tolist()
+        for counted in (False, True):
+            err = torch.zeros(1, dtype=torch.int32, device=cuda)
+            stats = torch.zeros((7, 3), dtype=torch.int32, device=cuda)
+            ctr = (torch.zeros(len(subpacket.COUNTERS), dtype=torch.int64, device=cuda)
+                   if counted else None)
+            subpacket.launch(*args, any_hit, err, stats, counters=ctr)
+            torch.cuda.synchronize()
+            assert int(err.item()) == 0
+            assert torch.equal(stats, plain)
+            if counted:
+                c = dict(zip(subpacket.COUNTERS, ctr.tolist()))
+                sums = want[key].sum(axis=0)
+                assert (c["pops"], c["parked"], c["rows"]) == tuple(int(x) for x in sums)
+
+
+def test_subpacket_counted_build_equals_uncounted(cuda):
+    """The counted build (lane counters) gives the uncounted build's outputs
+    and walk counts, in caller order and on the rays in the reference's
+    coherence order, and the sorted route (launch_sorted) gives the caller
+    order's; the counters agree with the walk counts they sum."""
+    from luisarender_tpu_torch.ops import subpacket
+
+    rays, (slab8, meta8, _, _, woop) = _bvh8_case(cuda, 8000, 50_001, 22)
+    tables = (slab8, meta8, woop)
+    for any_hit in (False, True):
+        base = None
+        for order in ("caller", "sorted"):
+            perm = subpacket.coherence_order(*rays, meta8)
+            r = rays if order == "caller" else tuple(x.index_select(0, perm) for x in rays)
+            runs = []
+            for counted in (False, True):
+                err = torch.zeros(1, dtype=torch.int32, device=cuda)
+                stats = torch.zeros((50_001, 3), dtype=torch.int32, device=cuda)
+                ctr = (torch.zeros(len(subpacket.COUNTERS), dtype=torch.int64, device=cuda)
+                       if counted else None)
+                out = subpacket.launch(*r, *tables, any_hit, err, stats, counters=ctr)
+                torch.cuda.synchronize()
+                assert int(err.item()) == 0
+                runs.append(((out,) if any_hit else out, stats, ctr))
+            (plain_out, plain_stats, _), (cnt_out, cnt_stats, ctr) = runs
+            assert all(torch.equal(a, b) for a, b in zip(plain_out, cnt_out))
+            assert torch.equal(plain_stats, cnt_stats)
+            c = dict(zip(subpacket.COUNTERS, ctr.tolist()))
+            assert c["pops"] == int(cnt_stats[:, 0].sum()) <= c["pop_slots"]
+            assert c["parked"] == int(cnt_stats[:, 1].sum())
+            assert c["rows"] == int(cnt_stats[:, 2].sum()) <= c["row_slots"]
+            assert 0 < c["rounds"] <= c["parked"] and 0 < c["loads"] <= c["parked"]
+            if order == "caller":
+                base = (plain_out, plain_stats)
+        err = torch.zeros(1, dtype=torch.int32, device=cuda)
+        stats = torch.zeros((50_001, 3), dtype=torch.int32, device=cuda)
+        out = subpacket.launch_sorted(*rays, *tables, any_hit, err, stats)
+        torch.cuda.synchronize()
+        assert int(err.item()) == 0
+        assert all(torch.equal(a, b) for a, b in zip((out,) if any_hit else out, base[0]))
+        assert torch.equal(stats, base[1])
+
+
+def test_subpacket_stack_builds_agree(cuda):
+    """The kernel takes the stack build that ops/subpacket.py stack_build
+    names."""
+    from luisarender_tpu_torch.ops import subpacket
+
+    lib = subpacket._library()
+    for bound in (0, 1, 34, 48, 49, 64, 141, 2048, 2049):
+        assert lib.subpacket_stack_build(bound) == subpacket.stack_build(bound)
 
 
 def test_bvh8_wrappers_raise_on_bad_inputs_and_trees(cuda):

@@ -22,6 +22,19 @@ scene/geometry.py against the reference, on the CPU.
 - A deep 8-wide tree whose stack bound is past the kernels' smaller stack
   (torch_parity.deep_bvh8) traces as brute force, under the same rule.
 - Malformed 8-wide trees raise, in both modes.
+- A hand-built Woop case (torch_parity.woop_ties_bvh8: two rows of one
+  cluster tying in t with the lower row on the higher slot, a pop hitting
+  several leaf clusters along the ray, a transparent hit in front of an
+  opaque one) bit for bit against the reference's kernel in interpret mode,
+  both modes, and its walk counts against the values the case implies.
+- The stack build a launch takes for a tree's bound (`stack_build`), and
+  the bounds no build holds raising (`resolve_stack8`).
+- The Woop tables' direction rows (rows 4-6 of groups 3-5) equal their
+  origin rows (rows 0-2 of groups 0-2) bit for bit, on the tables both the
+  port's and the reference's builders make: the plain version and the
+  kernels take d' from the origin rows.
+- `coherence_order` against the reference's `_coherence_keys` sorted
+  stably, over the scene's bounds in meta8.
 - Render: testing.cornell_sphere (48^2, 8 spp, depth 5) on the subpacket
   route (closest hits by subpacket, shadow rays by the cluster trace)
   against tests/golden/cornell_sphere_48_8spp.exr under the rule of
@@ -48,7 +61,7 @@ from luisarender_tpu_torch.utils import imageio
 
 from torch_parity import (
     brute_geom, cluster_case, count_calls, deep_bvh8, malformed_bvh8, reference_ray,
-    require_reference_builder, soup_rays, to_torch,
+    require_reference_builder, soup_rays, to_torch, woop_ties_bvh8,
 )
 
 SPHERE_GOLDEN = Path(__file__).parent / "golden" / "cornell_sphere_48_8spp.exr"
@@ -150,6 +163,91 @@ def test_deep_tree_matches_reference_brute(reference):
     occ = subpacket.any_hit(*to_torch(o, d, t_min, t_max, slab8, meta8, woop)).numpy()
     ref_occ = np.asarray(trace_any_brute(geom, reference_ray(o, d, t_min, t_max)))
     assert (occ == ref_occ).mean() >= 0.998 and 0.01 < occ.mean() < 0.9
+
+
+def test_woop_ties_match_reference():
+    """The reference's kernel in interpret mode on the hand-built case: t,
+    slot and occlusion bit for bit; the walk counts the case implies."""
+    tables, _, rays, want = woop_ties_bvh8()
+    ref_tables = [jnp.asarray(x) for x in tables]
+    ref = subpacket_pallas.trace_closest_subpacket(*ref_tables, reference_ray(*rays),
+                                                   interpret=True)
+    ref_occ = subpacket_pallas.trace_any_subpacket(*ref_tables, reference_ray(*rays),
+                                                   interpret=True)
+    args = to_torch(*rays, *tables)
+    t, slot, _, _ = (x.numpy() for x in subpacket.closest(*args))
+    np.testing.assert_array_equal(t, np.asarray(ref.t))
+    np.testing.assert_array_equal(slot, np.asarray(ref.prim))
+    np.testing.assert_array_equal(slot, want["slot"])
+    np.testing.assert_allclose(t, want["t"], rtol=1e-6)
+    occ = subpacket.any_hit(*args).numpy()
+    np.testing.assert_array_equal(occ, np.asarray(ref_occ))
+    np.testing.assert_array_equal(occ, want["occ"])
+    for any_hit, key in ((False, "stats"), (True, "stats_any")):
+        np.testing.assert_array_equal(subpacket.subpacket_plain(*args, any_hit).stats.numpy(),
+                                      want[key])
+
+
+@pytest.mark.parametrize("bound,build", [(1, 48), (34, 48), (48, 48), (49, 2048), (141, 2048),
+                                         (2048, 2048), (2049, 0), (0, 0)])
+def test_stack_build_for_bound(bound, build):
+    """The least of the 8-wide kernels' stacks that holds the tree's bound
+    (the mesh-heavy scene's bound, 34, takes the small build); a bound that
+    no build holds raises before any launch."""
+    assert subpacket.stack_build(bound) == build
+    meta8 = torch.zeros((1, 16))
+    if build:
+        assert subpacket.resolve_stack8(meta8, bound, "subpacket_closest") == bound
+    else:
+        with pytest.raises(RuntimeError, match="stack deeper"):
+            subpacket.resolve_stack8(meta8, bound, "subpacket_closest")
+
+
+def _degenerate_blocks(seed):
+    """Two random triangle blocks (2, 16, 128): padding rows, zero-area and
+    sliver triangles among them."""
+    rng = np.random.default_rng(seed)
+    tris = np.zeros((2, cluster.TRI_COLS, cluster.CLUSTER), np.float32)
+    tris[:, 0:9] = rng.normal(0, 3, (2, 9, cluster.CLUSTER))
+    tris[:, 9] = rng.random((2, cluster.CLUSTER)) < 0.8  # valid
+    tris[:, 10] = rng.random((2, cluster.CLUSTER)) < 0.5  # opaque
+    tris[:, 11] = np.arange(2 * cluster.CLUSTER).reshape(2, -1)
+    tris[0, 6:9, :16] = tris[0, 3:6, :16]  # e2 = e1: zero area
+    tris[1, 6:9, :16] = tris[1, 3:6, :16] * np.float32(1 + 1e-7)  # slivers
+    return tris
+
+
+@pytest.mark.parametrize("case", ["soup700", "soup8000", "deep", "ties", "degenerate"])
+def test_direction_rows_equal_origin_rows(case):
+    """d' = W d and o' = W (o - v0) share W: both builders write the same
+    float32 W[g] into rows 0-2 of group g and rows 4-6 of group g + 3."""
+    if case.startswith("soup"):
+        tris = cluster_case(int(case[4:]), 1)[6]
+    elif case == "deep":
+        tris = deep_bvh8()[3]
+    elif case == "ties":
+        tris = woop_ties_bvh8()[1]
+    else:
+        tris = _degenerate_blocks(4)
+    g = cluster.CLUSTER
+    for woop in (subpacket.build_woop_table(tris), subpacket_pallas.build_woop_table(tris)):
+        origin, direction = woop[:, 0:3, 0:3 * g], woop[:, 4:7, 3 * g:6 * g]
+        np.testing.assert_array_equal(direction.view(np.uint32), origin.view(np.uint32))
+        assert np.any(origin != 0.0)
+
+
+def test_coherence_order_matches_reference():
+    """The reference's keys over meta8's scene bounds, sorted stably."""
+    _, _, _, _, _, nodes, tris = cluster_case(700, 2)
+    slab8, meta8, _ = sub_tables(nodes, tris)
+    o, d, t_min, t_max = soup_rays(13, 3e38, 4000)
+    t_max[::7] = 0.0  # dead rays: the last key
+    lo, hi = meta8[0, 10:13], meta8[0, 13:16]
+    keys = np.asarray(subpacket_pallas._coherence_keys(
+        *(jnp.asarray(x) for x in (o, d, t_min, t_max, lo, hi - lo))))
+    perm = subpacket.coherence_order(*to_torch(o, d, t_min, t_max, meta8)).numpy()
+    np.testing.assert_array_equal(perm, np.argsort(keys, kind="stable"))
+    assert len(np.unique(keys)) > 100
 
 
 def test_nan_bary_interaction_recompute(reference, monkeypatch):

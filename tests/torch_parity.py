@@ -160,7 +160,7 @@ def deep_bvh8(levels=20, seed=3):
     with 8), each twig one leaf cluster. Interior boxes hold the whole
     scene, so a ray that enters pushes every interior child and the walk
     needs its whole bound, 7 levels + 1 = 141 entries at 20 levels, past
-    the kernels' smaller stack (128). Returns (slab8, meta8, cboxes (C, 8),
+    the 8-wide kernels' smaller stack (48). Returns (slab8, meta8, cboxes (C, 8),
     triangle blocks (C, 16, 128), woop, positions (3C, 3), triangles (C,
     3)): cluster c holds triangle c, whose slot is c."""
     from luisarender_tpu_torch.ops import cluster, subpacket
@@ -296,3 +296,84 @@ def overlapping_leaves_bvh8():
                                [1, 0, 0], [0, 0, 0]]),
     }
     return (slab8, meta8, cboxes, tris), (positions, triangles), (o, d, t_min, t_max), want
+
+
+def woop_ties_bvh8():
+    """A hand-built 8-wide tree for the subpacket trace's Woop rows. Root
+    (axis x): slot 0 cluster 0 (box x 0.5-2.5), slot 1 cluster 1 (x
+    3.5-4.5), slot 2 interior node 1 (x 0-9), slot 3 cluster 2 (x 5.5-6.5);
+    node 1: one leaf, cluster 3 (x 7.5-8.5, y, z 3-8). Cluster 0 holds three
+    rows: row 0 a transparent triangle T in the plane x = 1 (y, z >= -1,
+    y + z <= -0.5; slot 7), rows 1 and 2 one triangle A twice in the plane
+    x = 2 (y, z >= -1, y + z <= 2), the lower row with the higher slot (5,
+    then 4), so they tie in t; clusters 1 and 2 one triangle each in the
+    planes x = 4 and 6 (y + z <= 4; slots 1, 2), cluster 3 one in x = 8 (y,
+    z >= 3, y + z <= 10; slot 3); every triangle but T opaque. Rays: R0
+    along +x through (y, z) = (-0.5, -0.5) (T, then A), R1 through (0.5,
+    0.5) (A only), S through (4, 4) (cluster 3 only), Q along -x from x =
+    10 through (0.5, 0.5), T0 as R0 with t_max 1.5 (only T in reach), one
+    that misses the root's children and a dead one. A pop of the root hits
+    up to three leaf clusters along the ray, all tested (no box re-test).
+    Returns the tables (slab8, meta8, woop), the cluster triangle blocks
+    (C, 16, 128), the rays (o, d, t_min, t_max) and what the walk must give:
+    closest slot, its t (within 1e-6: the Woop arithmetic rounds) and
+    per-ray (pops, leaves, rows), any-hit occlusion and its counts."""
+    from luisarender_tpu_torch.ops import cluster, subpacket
+
+    big = cluster._BIG
+    table8 = np.zeros((2, 64), np.float32)
+    table8[:, 0::8], table8[:, 3::8] = big, -big  # empty slots
+
+    def child(node, slot, lo, hi, code):
+        table8[node, 8 * slot:8 * slot + 3] = lo
+        table8[node, 8 * slot + 3:8 * slot + 6] = hi
+        table8[node, 8 * slot + 6] = code
+
+    boxes = np.float32([[0.5, -1, -1, 2.5, 5, 5], [3.5, -1, -1, 4.5, 5, 5],
+                        [5.5, -1, -1, 6.5, 5, 5], [7.5, 3, 3, 8.5, 8, 8]])
+    for slot, c in ((0, 0), (1, 1), (3, 2)):
+        child(0, slot, boxes[c, :3], boxes[c, 3:], -c - 1.0)
+    child(0, 2, (0, -1, -1), (9, 8, 8), 1.0)
+    child(1, 0, boxes[3, :3], boxes[3, 3:], -4.0)
+    table8[:, 7] = 0.0  # sort axis x
+    slab8, meta8 = subpacket.build_slab_meta(table8)
+    tri_t = [[1, -1, -1], [1, 0.5, -1], [1, -1, 0.5]]
+    tri_a = [[2, -1, -1], [2, 3, -1], [2, -1, 3]]
+    # (cluster, row, vertices, opaque, slot)
+    rows = [(0, 0, tri_t, 0.0, 7), (0, 1, tri_a, 1.0, 5), (0, 2, tri_a, 1.0, 4),
+            (1, 0, [[4, -1, -1], [4, 5, -1], [4, -1, 5]], 1.0, 1),
+            (2, 0, [[6, -1, -1], [6, 5, -1], [6, -1, 5]], 1.0, 2),
+            (3, 0, [[8, 3, 3], [8, 7, 3], [8, 3, 7]], 1.0, 3)]
+    tris = np.zeros((4, cluster.TRI_COLS, cluster.CLUSTER), np.float32)
+    for c, j, v, opq, slot in rows:
+        v = np.float32(v)
+        tris[c, 0:3, j] = v[0]
+        tris[c, 3:6, j] = v[1] - v[0]
+        tris[c, 6:9, j] = v[2] - v[0]
+        tris[c, 9:12, j] = (1.0, opq, slot)  # valid, opaque, slot
+    inf = np.float32(np.inf)
+    # R0, R1, S, Q, T0, a miss, a dead ray
+    o = np.float32([[0, -0.5, -0.5], [0, 0.5, 0.5], [0, 4, 4], [10, 0.5, 0.5],
+                    [0, -0.5, -0.5], [0, 20, 20], [0, 0, 0]])
+    d = np.float32([[1, 0, 0]] * 3 + [[-1, 0, 0]] + [[1, 0, 0]] * 3)
+    t_min = np.full(7, 1e-4, np.float32)
+    t_max = np.float32([inf, inf, inf, inf, 1.5, inf, 0])
+    want = {
+        # R0: T (t 1) beats A (t 2). R1: A's two rows tie at t 2, the least
+        # slot (4, row 2) wins. S tests every cluster and takes cluster 3.
+        # Q takes cluster 2 (t 4) and still tests clusters 1 and 0. T0 only
+        # reaches cluster 0, and T. Closest hits test every leaf of the
+        # root's pop; node 1's cluster 3 is in reach of S alone.
+        "slot": np.int32([7, 4, 3, 2, 7, -1, -1]),
+        "t": np.float32([1, 2, 8, 4, 1, inf, inf]),
+        "stats": np.int32([[2, 3, 5], [2, 3, 5], [2, 4, 6], [2, 3, 5], [2, 1, 3], [1, 0, 0],
+                           [0, 0, 0]]),
+        # any-hit: T does not occlude; R0 and R1 stop at A's row 1 (two
+        # rows tested), Q at cluster 2, node 1 still on the stack; T0 is
+        # not occluded
+        "occ": np.bool_([1, 1, 1, 1, 0, 0, 0]),
+        "stats_any": np.int32([[1, 1, 2], [1, 1, 2], [2, 4, 6], [1, 1, 1], [2, 1, 3],
+                               [1, 0, 0], [0, 0, 0]]),
+    }
+    return ((slab8, meta8, subpacket.build_woop_table(tris)), tris, (o, d, t_min, t_max),
+            want)
