@@ -29,7 +29,17 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              one-sample launches; its lane use from the kernel's counters
              beside the path-length SIMT share of one thread a pixel, and
              its bound with shading counted per surface type and, as this
-             script counted it before, as matte for every lane. The cluster
+             script counted it before, as matte for every lane. The fused
+             kernel's environment mode against its plain version on one
+             512^2 sample, depth 8, of testing.cornell_box with the
+             reference's constant spherical environment, with a
+             directional one, and with the spherical one and no area light
+             (env_scene): rgb, rays and the 7 escape words bit for bit on
+             every lane, 20 launches back to back equal; its time, bound
+             (the candidates and escape words in its bytes) and lane use,
+             and the times of the candidates and the miss pass beside it
+             (CUDA events around the calls, and the profiler's device
+             time). The cluster
              traces against their plain version on the full mesh-heavy
              scene (512,004 triangles: camera rays, bounce-1 rays and the
              shadow rays of both bounces, 1280 x 720), on a random
@@ -71,11 +81,16 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              256 spp) the same, its image lit, red wall left and green wall
              right; testing.cornell_box(1024^2, 32 spp, depth 5) on the
              megawave integrator with one persistent launch a pass of
-             samples_per_pass samples; testing.mesh_heavy (1280 x 720,
-             depth 5, 4 spp, 512,004 triangles; its checkerboard and
-             environment replaced, see its docstring) on the general fork
-             with the cluster kernels launched once a bounce each and no
-             brute-force or fused launch, the image lit; the same scene on
+             samples_per_pass samples; testing.cornell_box with the constant
+             spherical environment (512^2, depth 8, 256 spp) with one
+             fused launch a sample in the environment mode and no other
+             kernel launch, the image lit, and on the megawave integrator
+             (256^2, 8 spp, depth 5) the per-pass route: no persistent
+             launch; testing.mesh_heavy (1280 x 720, depth 5, 4 spp,
+             512,004 triangles, its checkerboard floor and constant
+             environment) on the general fork with the cluster kernels
+             launched once a bounce each and no brute-force or fused
+             launch, the image lit; the same scene on
              the opt-in routes, wide8 (one wide8 closest and any-hit
              launch a bounce, nothing else) and subpacket (one subpacket
              closest and one cluster any-hit launch a bounce), each image
@@ -99,7 +114,10 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              reference's general fork: image mean within 0.5%, each sample
              of the fused fork against the general fork by the rule of
              phase 3, and the general fork's image under 2% of pixels off
-             by more than 1e-3; scenes/materials.json at 48^2, 8 spp,
+             by more than 1e-3; testing.cornell_box with the constant
+             spherical environment (64^2, 8 spp, depth 5; no golden), each
+             sample of the fused fork against the general fork by that
+             rule; scenes/materials.json at 48^2, 8 spp,
              depth 5 through the general fork against
              tests/golden/materials_48_8spp.exr under that rule;
              testing.cornell_sphere (48^2, 8 spp, depth 5, 1,312
@@ -149,6 +167,12 @@ FLOPS_PER_WOOP_ROW = 39
 # sample and shadow-ray spawn, the continuation ray, throughput and
 # roulette), and per type its two BSDF evaluations and one sample
 FLOPS_SHADE_COMMON = 330
+# ... of it, the area-light sample (csrc/fused_path.cu area_light_point and
+# area_light_pdf: the entry and triangle picks, the point, the pdf), which
+# the environment mode runs only where NEE picks an area light, and there
+# with 2 more for u_sel's rest; and the environment pick's far point
+FLOPS_AREA_PICK = 32
+FLOPS_ENV_PICK = 6
 FLOPS_BSDF = {"matte": 70, "mirror": 367, "metal": 511, "plastic": 480, "glass": 703,
               "disney": 544}
 # the surface types' codes in the instance table (ops/fused_bsdf.py ST_*)
@@ -200,7 +224,7 @@ def reset_counts(brute, fused_path):
     for mod in (cluster, wide8, subpacket):
         mod.closest_launches = mod.any_launches = 0
     trace.launches = 0
-    fused_path.launches = fused_path.persistent_launches = 0
+    fused_path.launches = fused_path.env_launches = fused_path.persistent_launches = 0
 
 
 def read_counts(brute, fused_path):
@@ -212,6 +236,7 @@ def read_counts(brute, fused_path):
         counts[f"{name}_any"] = mod.any_launches
     counts["trace_closest"] = trace.launches
     counts["fused_path"] = fused_path.launches
+    counts["fused_path_env"] = fused_path.env_launches
     counts["fused_path_persistent"] = fused_path.persistent_launches
     return counts
 
@@ -511,22 +536,33 @@ def simt_share(lane_bounces):
     return float(b.sum() / (32 * b.max(1).sum()))
 
 
-def fused_work(torch, fp, tables, cam, pxy, n_samples, kw):
-    """The plain version's run, timed with CUDA events, with the work the
-    kernel must do counted: closest rays, the lanes shaded (and those at a
-    surface by its type), and shadow rays (occluded ones, which the kernel
-    stops at their first occluder, count one row); and the path-length
-    SIMT share of one thread a pixel in pixel order (simt_share)."""
+@contextmanager
+def plain_counted(torch, fp, tables, pxy, env=None):
+    """Counts the work of the plain version's runs inside the block (its
+    environment mode with `env`) that the kernel must do: closest rays,
+    the lanes shaded (and those at a surface by its type), and shadow rays
+    (occluded ones, which the kernel stops at their first occluder, count
+    one row); with `env`, the surface lanes whose NEE picks the environment
+    (u_sel < p_env, the bounce's first draw), those of them whose candidate
+    has pdf > 0, and those that pick an area light; and the path-length
+    SIMT share of one thread a pixel in pixel order (simt_share). Yields
+    the counts, complete when the block ends."""
+    from luisarender_tpu_torch.core import rng
+
     counts = {"closest": 0, "shaded": 0, "shadow_open": 0, "shadow_occluded": 0}
+    if env is not None:
+        counts.update(env_picked=0, env_pdf_positive=0, area_picked=0)
     by_type = torch.zeros(8, dtype=torch.int64, device=pxy.device)
     lane_bounces = torch.zeros(pxy.shape[0], dtype=torch.int64, device=pxy.device)
     orig_bounce, orig_closest, orig_occ = fp._Plain.bounce, fp._Plain.closest, fp._Plain.occluded
 
-    def bounce(self, s, dep, nrays):
+    def bounce(self, s, dep, nrays, dep_i=0):
         self._active = s["active"]
+        self._dep_i = dep_i
+        self._u_sel = rng.lcg_step(s["st"])[1]
         counts["closest"] += int(s["active"].sum())
         lane_bounces.add_(s["active"].long())
-        return orig_bounce(self, s, dep, nrays)
+        return orig_bounce(self, s, dep, nrays, dep_i)
 
     def closest(self, o, d, tmin, tmax):
         out = orig_closest(self, o, d, tmin, tmax)
@@ -535,6 +571,12 @@ def fused_work(torch, fp, tables, cam, pxy, n_samples, kw):
         rows = tables.inst[out[6].long().clamp(0, tables.inst.shape[0] - 1)]
         surf = hit & (rows[:, 18] > 0.5)
         by_type.add_(torch.bincount(rows[surf, 0].long(), minlength=8)[:8])
+        if env is not None:
+            pick = surf & (self._u_sel < self.p_env)
+            counts["env_picked"] += int(pick.sum())
+            counts["env_pdf_positive"] += int((pick & (env.cand[self._dep_i, 3] > 0.0)).sum())
+            if tables.n_entry > 0:
+                counts["area_picked"] += int((surf & ~pick).sum())
         return out
 
     def occluded(self, so, sd, s_tmax):
@@ -545,28 +587,41 @@ def fused_work(torch, fp, tables, cam, pxy, n_samples, kw):
         return occ
 
     fp._Plain.bounce, fp._Plain.closest, fp._Plain.occluded = bounce, closest, occluded
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     try:
-        start.record()
-        out = fp.paths_plain(tables, cam, pxy, 0, n_samples, **kw)
-        end.record()
-        end.synchronize()
-        plain_ms = start.elapsed_time(end)
+        yield counts
     finally:
         fp._Plain.bounce, fp._Plain.closest, fp._Plain.occluded = orig_bounce, orig_closest, orig_occ
     counts["shaded_by_type"] = {name: int(by_type[code]) for code, name in SURFACE_TYPES.items()
                                 if int(by_type[code])}
     counts["simt_share_pixel_order"] = simt_share(lane_bounces)
-    return out, counts, plain_ms
 
 
-def fused_bound(tables, counts, n):
-    """The least time of the fused kernel's work: operations over fp32 peak
-    (the bytes, pixel ids in and rgb and a ray count out, 24 B a lane, are
-    negligible). Shading is counted per surface type of the shaded lanes
-    (FLOPS_BSDF); `matte_*` counts every shaded lane as matte (the earlier
-    bound). Returns {bound_ms, bound_by, flops, matte_bound_ms, matte_flops}."""
+def fused_work(torch, fp, tables, cam, pxy, n_samples, kw, env=None):
+    """The plain version's run (its environment mode with `env`), timed
+    with CUDA events, and its work counted (plain_counted). Returns
+    (outputs, counts, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with plain_counted(torch, fp, tables, pxy, env) as counts:
+        start.record()
+        out = fp.paths_plain(tables, cam, pxy, 0, n_samples, env=env, **kw)
+        end.record()
+        end.synchronize()
+    return out, counts, start.elapsed_time(end)
+
+
+def fused_bound(tables, counts, n, env=False):
+    """The least time of the fused kernel's work: the larger of its
+    operations over fp32 peak and its bytes over the memory rate (pixel ids
+    in and rgb and a ray count out, 24 B a lane; in the environment mode
+    also the escape state written once, 7 words a lane, and the candidates
+    that NEE picks read once: the pdf word of each, and the other 6 words
+    where the pdf is > 0). Shading is counted per surface type of the
+    shaded lanes (FLOPS_BSDF); in the environment mode the area-light
+    sample only where NEE picks an area light, and the environment's far
+    point where it picks the environment. `matte_*` counts every shaded
+    lane as matte (the earlier bound). Returns {bound_ms, bound_by, flops,
+    bytes, matte_bound_ms, matte_flops}."""
     tri = tables.tri
     rows = int((tri[:, 9] != 0).sum())
     shadow_rows = int(((tri[:, 9] != 0) & (tri[:, 10] != 0)).sum())
@@ -577,11 +632,20 @@ def fused_bound(tables, counts, n):
     flops = trace + sum(k * (FLOPS_SHADE_COMMON + FLOPS_BSDF[name])
                         for name, k in counts["shaded_by_type"].items())
     matte = trace + counts["shaded"] * FLOPS_SHADE_BOUNCE
-    t_bytes = n * 24 / PEAK_BYTES_PER_S * 1e3
+    n_bytes = n * 24
+    if env:
+        picks = (counts["area_picked"] * (FLOPS_AREA_PICK + 2)
+                 + counts["env_picked"] * FLOPS_ENV_PICK
+                 - sum(counts["shaded_by_type"].values()) * FLOPS_AREA_PICK)
+        flops += picks
+        matte += picks
+        n_bytes += n * 7 * 4 + counts["env_picked"] * 4 + counts["env_pdf_positive"] * 6 * 4
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "flops": flops, "matte_bound_ms": max(matte / PEAK_FP32_PER_S * 1e3, t_bytes),
+            "flops": flops, "bytes": n_bytes,
+            "matte_bound_ms": max(matte / PEAK_FP32_PER_S * 1e3, t_bytes),
             "matte_flops": matte}
 
 
@@ -678,6 +742,113 @@ def phase_fused_kernel(torch, lt, fp, device):
                 rec.update(m)
         emit(rec)
         results[path.name] = rec
+    return results
+
+
+def env_scene(lt, kind, res=512, spp=1, depth=8, integrator="megapath"):
+    """testing.cornell_box with an environment: `spherical` the constant map
+    of the reference's TestFusedEnvironment (tests/test_fused_path.py:
+    269-277), `directional` a 10-degree cone of light into the box's open
+    front, `env_only` the map [1.0, 0.8, 0.6] with the light quads removed
+    (tests/test_fused_path.py:296-310)."""
+    from luisarender_tpu_torch import testing
+
+    d = testing.cornell_box(resolution=(res, res), spp=spp, depth=depth, integrator=integrator)
+    const = lambda v: {"impl": "constant", "prop": {"v": v}}  # noqa: E731
+    if kind == "directional":
+        env = {"impl": "directional", "prop": {"emission": const([3.0, 2.8, 2.5]),
+                                                "direction": [0.15, 0.35, -1.0], "angle": 10.0}}
+    elif kind == "env_only":
+        d["render"]["shapes"] = [sh for sh in d["render"]["shapes"]
+                                 if "light" not in sh.get("prop", {})]
+        env = {"impl": "spherical", "prop": {"emission": const([1.0, 0.8, 0.6])}}
+    else:
+        env = {"impl": "spherical", "prop": {"emission": const([0.4, 0.5, 0.7])}}
+    d["render"]["environment"] = env
+    return lt.Scene.from_dict(d)
+
+
+ENV_SCENES = ("spherical", "directional", "env_only")
+
+
+def phase_fused_env(torch, lt, fp, device):
+    """The fused kernel's environment mode against its plain version on one
+    512^2 sample, depth 8, of the three env_scene scenes: rgb, rays and the
+    7 escape words bit for bit on every lane, 20 launches queued back to
+    back equal to the first; the kernel's device time, bound (the
+    candidates and escape state counted in its bytes) and lane use, and the
+    candidates' and the miss pass's device times beside it."""
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+
+    results = {}
+    depth = 8
+    for kind in ENV_SCENES:
+        scene = env_scene(lt, kind, depth=depth)
+        compiled = lt.compile_scene(scene, device=device)
+        check(compiled.plan.fused_path and compiled.plan.has_environment,
+              f"env {kind}: not on the fused kernel's environment mode")
+        integ = scene.integrator
+        cam = fp.camgen_params(scene.cameras[0], integ.sampler.seed)
+        pxy = pixel_grid(512, 512, device)
+        kw = dict(max_depth=depth, rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
+        tables = fp.fused_tables(compiled)
+        p_env = integ.light_sampler.selection_probs(compiled)[0]
+        cand = fp.env_nee_candidates(compiled, cam, pxy, 0, depth, p_env)
+        env = fp.EnvInputs(cand, p_env, compiled.plan.env_distance)
+        rgb_k, rays_k, esc_k = fp.paths(tables, cam, pxy, 0, 0, env=env, **kw)
+        torch.cuda.synchronize()
+        (rgb_p, rays_p, esc_p), counts, plain_ms = fused_work(torch, fp, tables, cam, pxy, 0,
+                                                              kw, env=env)
+        share, err, _ = bit_equal(torch, f"fused env {kind}", rgb_k, rays_k, rgb_p, rays_p)
+        esc_share = float((esc_k == esc_p).all(0).float().mean())
+        esc_err = float((esc_k - esc_p).abs().max())
+        check(esc_share == 1.0 and esc_err == 0.0,
+              f"fused env {kind}: escape state {esc_share:.6f} of lanes bit-equal, "
+              f"max diff {esc_err}")
+        escaped = int((esc_k[3] > 0.0).sum())
+        check(escaped > 0, f"fused env {kind}: no path escaped")
+        rgb = fp.miss_pass(compiled, rgb_k, esc_k, p_env)
+        check(bool(torch.isfinite(rgb).all()) and float(rgb.mean()) > 0.0,
+              f"fused env {kind}: non-finite or black")
+        again = [fp.paths(tables, cam, pxy, 0, 0, env=env, **kw) for _ in range(20)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, rgb_k) and torch.equal(b, rays_k) and torch.equal(c, esc_k)
+                  for a, b, c in again), f"fused env {kind}: back-to-back launches differ")
+        del again
+        stats = torch.zeros(len(fp.STATS), dtype=torch.int64, device=device)
+        fp.paths(tables, cam, pxy, 0, 0, env=env, stats=stats, **kw)
+        use = lane_use(stats)
+        check(use["traced"] == counts["closest"],
+              f"fused env {kind}: traced {use['traced']} != {counts['closest']}")
+        ms = device_ms(torch, lambda: fp.paths(tables, cam, pxy, 0, 0, env=env, **kw), iters=20)
+        # the candidates and the miss pass are PyTorch ops that wait for the
+        # card on the way (a scalar's copy to it), so no spin can queue them:
+        # CUDA events around the calls (host dispatch included), and the
+        # profiler's device time of their kernels beside
+        def candidates():
+            return fp.env_nee_candidates(compiled, cam, pxy, 0, depth, p_env)
+
+        def miss():
+            return fp.miss_pass(compiled, rgb_k, esc_k, p_env)
+
+        cand_ms = events_ms(torch, candidates, 5)
+        miss_ms = events_ms(torch, miss, 20)
+        cand_dev = profile_one(torch, candidates, ("",), 3)
+        miss_dev = profile_one(torch, miss, ("",), 10)
+        rec = {"phase": "kernels", "kernel": "fused_path_env", "scene": f"cornell_box+{kind}",
+               "n": pxy.shape[0], "depth": depth, "p_env": p_env,
+               "env_distance": compiled.plan.env_distance,
+               "rays": int(rays_k.sum()), "rays_plain": int(rays_p.sum()),
+               "escaped_lanes": escaped, "share_bit_equal": share, "max_abs_err": err,
+               "escape_share_bit_equal": esc_share, "work": counts, "ms": ms,
+               "plain_ms": plain_ms, **fused_bound(tables, counts, pxy.shape[0], env=True),
+               "candidates_ms": cand_ms, "candidates_device_ms": cand_dev["device_busy_ms"],
+               "candidates_device_ops": cand_dev["device_ops"],
+               "candidate_bytes": cand.numel() * 4, "miss_pass_ms": miss_ms,
+               "miss_pass_device_ms": miss_dev["device_busy_ms"], "lane_use": use,
+               "blocks_per_sm": fp.blocks_per_sm(device, env=True)}
+        emit(rec)
+        results[kind] = rec
     return results
 
 
@@ -1315,25 +1486,60 @@ def phase_main(torch, lt, brute, fp, device):
                         "launches": counts, "image_mean": float(img.mean())}
     emit(recs["megawave"])
 
+    # the Cornell box with a constant spherical environment: one fused
+    # launch a sample in its environment mode, no trace kernel
+    scene = env_scene(lt, "spherical", res=512, spp=256, depth=8)
+    cam, integ = scene.cameras[0], scene.integrator
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    check_image(img, 512, 512, "env cornell")
+    others = {k: v for k, v in counts.items() if k != "fused_path_env"}
+    check(counts["fused_path_env"] == cam.spp and not any(others.values())
+          and integ.bounces_run == 0, f"env cornell: launches {counts}, spp {cam.spp}")
+    recs["env_cornell"] = {"phase": "main", "scene": "testing.cornell_box + spherical",
+                           "resolution": [512, 512], "depth": 8, "spp": cam.spp, "cut": None,
+                           "seconds": seconds, "rays": integ.rays_traced,
+                           "mray_per_s": integ.rays_traced / seconds / 1e6,
+                           "launches": counts, "image_mean": float(img.mean())}
+    emit(recs["env_cornell"])
+
+    # megawave on an environment scene: the per-pass route, no persistent
+    # launch (the candidates need static draw offsets)
+    scene = env_scene(lt, "spherical", res=256, spp=8, depth=5, integrator="megawave")
+    cam, integ = scene.cameras[0], scene.integrator
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    check_image(img, 256, 256, "env megawave")
+    check(counts["fused_path_persistent"] == 0 and counts["fused_path_env"] == cam.spp,
+          f"env megawave: launches {counts}, spp {cam.spp}")
+    recs["env_megawave"] = {"phase": "main", "scene": "testing.cornell_box + spherical megawave",
+                            "resolution": [256, 256], "depth": 5, "spp": cam.spp,
+                            "seconds": seconds, "rays": integ.rays_traced,
+                            "launches": counts, "image_mean": float(img.mean())}
+    emit(recs["env_megawave"])
+
     # the mesh-heavy scene on the general fork: the cluster kernels
     scene = lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY))
     cam, integ = scene.cameras[0], scene.integrator
     w, h = cam.film.resolution
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lt.compile_scene(scene, device=device)
+    compiled = lt.compile_scene(scene, device=device)
     torch.cuda.synchronize()
     compile_seconds = time.perf_counter() - t0
+    check(compiled.plan.has_environment and compiled.plan.needs_uv
+          and "checkerboard" in compiled.arrays["textures"],
+          "mesh_heavy: its checkerboard floor or environment is missing")
+    del compiled
     emit({"phase": "main", "scene": "testing.mesh_heavy", "compile_seconds": compile_seconds})
     img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
     check_image(img, w, h, "mesh_heavy")
     check(integ.bounces_run > 0 and counts["cluster_closest"] == integ.bounces_run
           == counts["cluster_any"] and counts["brute_closest"] == counts["brute_any"] == 0
-          and counts["fused_path"] == counts["fused_path_persistent"] == 0,
+          and counts["fused_path"] == counts["fused_path_persistent"] == 0
+          and counts["fused_path_env"] == 0,
           f"mesh_heavy: launches {counts}, bounces {integ.bounces_run}")
     recs["mesh_heavy"] = {"phase": "main", "scene": "testing.mesh_heavy",
                           "triangles": 512_004, "resolution": [w, h], "depth": integ.max_depth,
-                          "spp": cam.spp, "cut": "checkerboard Kd constant, no environment",
+                          "spp": cam.spp, "cut": None,
                           "seconds": seconds, "compile_seconds": compile_seconds,
                           "rays": integ.rays_traced,
                           "mray_per_s": integ.rays_traced / seconds / 1e6,
@@ -1377,7 +1583,7 @@ def phase_routes(torch, lt, brute, fp, device, img):
         recs[f"mesh_heavy_{route}"] = {
             "phase": "main", "scene": "testing.mesh_heavy", "route": route,
             "triangles": 512_004, "resolution": [w, h], "depth": integ.max_depth,
-            "spp": cam.spp, "cut": "checkerboard Kd constant, no environment",
+            "spp": cam.spp, "cut": None,
             "seconds": seconds, "compile_seconds": compile_seconds,
             "rays": integ.rays_traced, "mray_per_s": integ.rays_traced / seconds / 1e6,
             "bounces": integ.bounces_run, "launches": counts,
@@ -1516,6 +1722,24 @@ def phase_golden(torch, lt, device):
         acc = acc + rgb_g.cpu().numpy()
     frac_general = frac_off((acc / 8).reshape(64, 64, 3), ref)
 
+    # the environment Cornell box (no golden): each sample of the fused fork
+    # (its environment mode) against the general fork by the same rule
+    escene = env_scene(lt, "spherical", res=64, spp=8, depth=5)
+    ecompiled = lt.compile_scene(escene, device=device)
+    einteg = escene.integrator
+    env_per_sample = []
+    for si in range(8):
+        args = (ecompiled, escene.cameras[0], einteg.sampler, einteg.light_sampler, pxy, si)
+        rgb_f, _, st_f = path_trace_batch(*args, with_stats=True, **kw)
+        rgb_g, _, st_g = general_path_trace_batch(*args, **kw)
+        rays_f, rays_g = int(st_f["rays"]), int(st_g["rays"])
+        off = frac_off(rgb_f.cpu(), rgb_g.cpu())
+        env_per_sample.append(off)
+        check(st_f["fused"] == 1, f"env golden sample {si}: not on the fused fork")
+        check(abs(rays_f - rays_g) <= max(8, rays_g // 500),
+              f"env golden sample {si}: rays {rays_f} vs {rays_g}")
+        check(off < 0.02, f"env golden sample {si}: {off:.4f} of pixels off")
+
     d = json.load(open(MATERIALS))
     cam = d["render"]["cameras"][0]["prop"]
     cam["film"]["prop"]["resolution"] = [48, 48]
@@ -1554,6 +1778,7 @@ def phase_golden(torch, lt, device):
     emit({"phase": "golden", "cornell_fused_frac_pixels_off": frac_off(img, ref),
           "cornell_fused_mean_rel_diff": rel, "cornell_per_sample_frac_off": per_sample,
           "cornell_general_frac_pixels_off": frac_general,
+          "env_cornell_per_sample_frac_off": env_per_sample,
           "materials_general_frac_pixels_off": mfrac, "materials_mean_rel_diff": mrel,
           **{f"cornell_sphere{'' if r == 'cluster' else '_' + r}_frac_pixels_off": v[0]
              for r, v in sphere.items()},
@@ -1601,6 +1826,7 @@ def main():
 
     brute_k = phase_brute_kernels(torch, lt, brute, device)
     fused_k = phase_fused_kernel(torch, lt, fp, device)
+    fused_env = phase_fused_env(torch, lt, fp, device)
     compiled_mh, cap_mh = mesh_heavy_inputs(torch, lt, cluster, device)
     cluster_k = phase_cluster_kernels(torch, cluster, device, compiled_mh, cap_mh)
     mods = {"cluster": cluster, "wide8": wide8, "subpacket": subpacket, "trace": trace}
@@ -1630,6 +1856,8 @@ def main():
         ("fused_path", mat, main_recs["materials"]["launches"]["fused_path"]),
         ("fused_path_persistent", mat["persistent"],
          main_recs["megawave"]["launches"]["fused_path_persistent"]),
+        ("fused_path_env", fused_env["spherical"],
+         main_recs["env_cornell"]["launches"]["fused_path_env"]),
     ):
         entries.append({
             "name": name, "route": "cuda",
@@ -1640,6 +1868,13 @@ def main():
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
         })
+        if name == "fused_path_env":
+            # the environment mode (fused_path.py has_env): the candidates
+            # and the miss pass run beside the kernel
+            entries[-1].update({"mode": "env", "candidates_ms": rec["candidates_ms"],
+                                "candidates_device_ms": rec["candidates_device_ms"],
+                                "miss_pass_ms": rec["miss_pass_ms"],
+                                "miss_pass_device_ms": rec["miss_pass_device_ms"]})
     for name, kind_key in (("cluster_closest", "closest"), ("cluster_any", "any")):
         t = cluster_k[kind_key]["times"]["bounce1"]
         entries.append({

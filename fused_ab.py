@@ -7,9 +7,11 @@ one CUDA card, with the committed build among them.
 Each PATH is a CUDA source with csrc/fused_path.cu's C interface: another
 design of the kernel, or the source of an earlier commit (unpacked with `git
 archive` into a git-ignored directory). A library that exports
-`fused_path_blocks_per_sm` takes the interface of this tree (work counter
-and counters); one that does not, the earlier one-thread-a-pixel kernel's
-interface (no scratch).
+`fused_path_env_words` takes the interface of this tree (the environment
+mode's candidate and escape pointers, the work counter and counters); one
+that does not, the interface before the environment mode (work counter and
+counters). The environment mode is not timed here: chip_smoke.py's fused
+phase times it.
 `committed` is csrc/fused_path.cu. Every build runs on one 512^2 sample of
 scenes/materials.json (depth 10) and scenes/cornell.json (depth 8), on a
 pass of 4 samples of each (persistent mode), and on a pass of chip_smoke.py's
@@ -65,10 +67,11 @@ def build_all(build, sources):
 def launcher(torch, fp, lib, tables, cam, pxy, ns, kw):
     """A function (stats=None) -> (rgb, rays) that launches `lib` once."""
     ptr = ctypes.c_void_p
-    current = hasattr(lib, "fused_path_blocks_per_sm")
-    # the tables, pixels and outputs, and with this tree's interface the
-    # work counter and the counters; then the device and the stream
-    lib.fused_path.argtypes = [ptr] * (12 if current else 10) + [ctypes.c_int, ptr]
+    env_iface = hasattr(lib, "fused_path_env_words")
+    # the tables, pixels and outputs, with the environment mode's pointers
+    # where the interface has them, the work counter and the counters; then
+    # the device and the stream
+    lib.fused_path.argtypes = [ptr] * (14 if env_iface else 12) + [ctypes.c_int, ptr]
     lib.fused_path.restype = ctypes.c_int
     dev = pxy.device
     n = pxy.shape[0]
@@ -80,14 +83,17 @@ def launcher(torch, fp, lib, tables, cam, pxy, ns, kw):
         rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
         rays = torch.empty((n,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        extra = (work.data_ptr(), None if stats is None else stats.data_ptr()) if current else ()
-        err = lib.fused_path(ctypes.addressof(prm), pxy.data_ptr(), *ptrs, rgb.data_ptr(),
-                             rays.data_ptr(), *extra, dev.index or 0, stream)
+        extra = (work.data_ptr(), None if stats is None else stats.data_ptr())
+        if env_iface:
+            outs = (None, rgb.data_ptr(), rays.data_ptr(), None)
+        else:
+            outs = (rgb.data_ptr(), rays.data_ptr())
+        err = lib.fused_path(ctypes.addressof(prm), pxy.data_ptr(), *ptrs, *outs, *extra,
+                             dev.index or 0, stream)
         if err != 0:
             raise RuntimeError(f"fused_path launch failed: CUDA error {err}")
         return rgb, rays
 
-    run.current = current
     run.keep = sph
     return run
 
@@ -116,9 +122,10 @@ def main(argv):
     libs = build_all(build, sources)
     lines = [{"card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "ptxas": {k: v[1] for k, v in libs.items()},
-              "blocks_per_sm": {k: v[0].fused_path_blocks_per_sm(0)
-                                for k, v in libs.items()
-                                if hasattr(v[0], "fused_path_blocks_per_sm")}}]
+              "blocks_per_sm": {k: (v[0].fused_path_blocks_per_sm(0, 0)
+                                    if hasattr(v[0], "fused_path_env_words")
+                                    else v[0].fused_path_blocks_per_sm(0))
+                                for k, v in libs.items()}}]
     cs.emit(lines[0])
     names = list(libs)
     for label, path, depth, modes in CASES:
@@ -135,10 +142,9 @@ def main(argv):
                 b = {"share_bit_equal": float((rgb == rgb_p).all(-1).float().mean()),
                      "max_abs_err": float((rgb - rgb_p).abs().max()),
                      "lanes_rays_differ": int((rays != rays_p).sum()), "ms": []}
-                if runs[k].current:
-                    stats = torch.zeros(len(fp.STATS), dtype=torch.int64, device=device)
-                    runs[k](stats)
-                    b["lane_use"] = cs.lane_use(stats)
+                stats = torch.zeros(len(fp.STATS), dtype=torch.int64, device=device)
+                runs[k](stats)
+                b["lane_use"] = cs.lane_use(stats)
                 rec["builds"][k] = b
             for order in (names, names[::-1]):
                 for k in order:

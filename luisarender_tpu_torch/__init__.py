@@ -20,6 +20,8 @@ __version__ = "0.1.0"
 
 # plugin modules register themselves on import
 from .cameras import pinhole as _pinhole  # noqa: F401
+from .environments import impls as _env_impls  # noqa: F401
+from .environments import spherical as _env_spherical  # noqa: F401
 from .films import base as _films  # noqa: F401
 from .filters import impls as _filters  # noqa: F401
 from .integrators import mega_path as _int_mega  # noqa: F401
@@ -36,6 +38,8 @@ from .surfaces import mirror as _surf_mirror  # noqa: F401
 from .surfaces import null as _surf_null  # noqa: F401
 from .surfaces import plastic as _surf_plastic  # noqa: F401
 from .textures import constant as _tex_constant  # noqa: F401
+from .textures import procedural as _tex_procedural  # noqa: F401
+from .texturemappings import impls as _tex_mappings  # noqa: F401
 from .transforms import all as _transforms  # noqa: F401
 
 from .core.device import resolve_device

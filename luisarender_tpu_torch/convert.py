@@ -9,14 +9,17 @@ tri_opaque, shade_table, sph, the binary SAH tree (aabb_min, aabb_max,
 skip, node_first, node_count), cluster_nodes, cluster_tris and the 8-wide
 tables (cluster_woop, cluster_slab8, cluster_meta8, cluster_cboxes)}, instances.*,
 light_entries.*, the light alias tables and light-triangle rows, the
-surface / light rows with their constant textures, and the fused tables.
+surface / light / texture rows with their textures, the environment's
+tables, and the fused tables.
 
 Both packages keep triangles in the order of the same SAH tree, and the
 cluster tables carry each triangle's slot in it, so a converted scene's
 tables are the port compiler's own and its hit slots the reference's.
 The reference's per-instance constant-texture columns (`<name>__src`,
 rows of textures.constant.value) are hoisted into values here, as the
-port's own compiler does.
+port's own compiler does; a parameter whose texture varies keeps its
+handle as `<name>__h` (textures/base.py). Handles index the texture types
+in the reference's order, which the plan takes over.
 """
 
 from __future__ import annotations
@@ -40,13 +43,9 @@ _UNSUPPORTED_TEXTURES = ("normal_map", "alpha")
 
 
 def _hoist(table, const, name, default, channels):
+    """(hoisted values, handle column or None) of one texture parameter."""
     src = np.asarray(table[name + "__src"])
     handles = table.get(name)
-    if handles is not None and np.any((src < 0) & (np.asarray(handles) >= 0)):
-        raise NotImplementedError(
-            f"parameter '{name}' has a non-constant texture, which "
-            "luisarender_tpu_torch does not support yet"
-        )
     dflt = np.broadcast_to(np.asarray(default, np.float32), (src.shape[0], 4))
     if const is None:
         vals = dflt
@@ -54,10 +53,15 @@ def _hoist(table, const, name, default, channels):
         picked = const[np.clip(src, 0, const.shape[0] - 1)]
         vals = np.where((src >= 0)[:, None], picked, dflt)
     vals = np.ascontiguousarray(vals[:, :channels], np.float32)
-    return vals[:, 0] if channels == 1 else vals
+    h = None
+    if handles is not None:
+        h = np.where(src >= 0, -1, np.asarray(handles)).astype(np.int32)
+        if np.all(h < 0):
+            h = None
+    return (vals[:, 0] if channels == 1 else vals), h
 
 
-def _convert_rows(table, cls, const):
+def _convert_rows(table, cls, const, varying_ok=True):
     for name in _UNSUPPORTED_TEXTURES:
         if np.any(np.asarray(table.get(name + "__src", -1)) >= 0) or np.any(
             np.asarray(table.get(name, -1)) >= 0
@@ -73,18 +77,38 @@ def _convert_rows(table, cls, const):
         if not k.endswith("__src") and k not in tex_names
     }
     for name, default, channels in cls.texture_params:
-        out[name] = _hoist(table, const, name, default, channels)
+        out[name], h = _hoist(table, const, name, default, channels)
+        if h is not None:
+            if not varying_ok:
+                raise NotImplementedError(
+                    f"parameter '{name}' of {cls.impl_names[0]} has a texture that is "
+                    "not a constant, which luisarender_tpu_torch does not support there yet"
+                )
+            out[name + "__h"] = h
     return out
 
 
-def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4):
+def _numpy_tree(x):
+    if isinstance(x, dict):
+        return {k: _numpy_tree(v) for k, v in x.items()}
+    return np.asarray(x)
+
+
+def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
+                   texture_types=None, env_distance=0.0):
     """numpy reference tables -> (the port's numpy tables, ScenePlan).
 
-    surface_types / light_types: impl names in the reference plan's tag order
-    (`[c.impl_names[0] for c in plan.surface_types]`); bvh_leaf_size: the
+    surface_types / light_types / texture_types: impl names in the
+    reference plan's tag order (`[c.impl_names[0] for c in
+    plan.surface_types]`; the texture tables' own order, which is the
+    plan's, when texture_types is None); bvh_leaf_size, env_distance: the
     reference plan's."""
+    if texture_types is None:
+        texture_types = list(arrays.get("textures", {}))
     surf_cls = tuple(lookup(SceneNodeTag.SURFACE, n) for n in surface_types)
     light_cls = tuple(lookup(SceneNodeTag.LIGHT, n) for n in light_types)
+    tex_cls = tuple(lookup(SceneNodeTag.TEXTURE, n) for n in texture_types)
+    ref_tex = arrays.get("textures", {})
     const = arrays.get("textures", {}).get("constant", {}).get("value")
     if const is not None:
         const = np.asarray(const, np.float32)
@@ -107,10 +131,17 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4):
             _convert_rows(t, c, const) for t, c in zip(arrays["surfaces"], surf_cls)
         ],
         "lights": [
-            _convert_rows(t, c, const) for t, c in zip(arrays["lights"], light_cls)
+            _convert_rows(t, c, const, varying_ok=False)
+            for t, c in zip(arrays["lights"], light_cls)
         ],
+        "textures": {
+            c.impl_names[0]: _convert_rows(ref_tex[c.impl_names[0]], c, const)
+            for c in tex_cls if len(ref_tex.get(c.impl_names[0], {}))
+        },
         "trace": trace,
     }
+    if "environment" in arrays:
+        out["environment"] = _numpy_tree(arrays["environment"])
     if "fused" in arrays:
         out["fused"] = {k: np.asarray(v, np.float32) for k, v in arrays["fused"].items()}
     plan = ScenePlan(
@@ -123,17 +154,28 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4):
         bvh_leaf_size=int(bvh_leaf_size),
         bvh8_stack=(subpacket.stack8_need(trace["cluster_meta8"])
                     if "cluster_meta8" in trace else 0),
+        texture_types=tex_cls,
+        texture_type_used=tuple(c.impl_names[0] in out["textures"] for c in tex_cls),
+        has_environment="environment" in out,
+        env_distance=float(env_distance) if "environment" in out else 0.0,
+        needs_uv=any(c.impl_names[0] in out["textures"] and c.impl_names[0] != "constant"
+                     for c in tex_cls),
     )
     return out, plan
 
 
 def convert(arrays, surface_types, light_types, scene, device=None,
-            bvh_leaf_size=4) -> CompiledScene:
+            bvh_leaf_size=4, texture_types=None, env_distance=0.0) -> CompiledScene:
     """The reference's compiled tables as a port CompiledScene on `device`
     (default: the first CUDA card); `scene` is the port's Scene of the same
-    file, whose cameras and integrator render it."""
+    file, whose cameras, integrator and environment render it. The
+    environment node compiles its host state (a spherical map's constant
+    flag) and renders from the reference's tables."""
     dev = resolve_device(device)
-    tables, plan = convert_tables(arrays, surface_types, light_types, bvh_leaf_size)
+    tables, plan = convert_tables(arrays, surface_types, light_types, bvh_leaf_size,
+                                  texture_types, env_distance)
+    if plan.has_environment:
+        scene.environment.compile(None)
     return CompiledScene(
         arrays=tables_to_device(tables, dev),
         plan=plan,

@@ -27,16 +27,19 @@ _INV_U32 = 2.3283064365386963e-10
 ONE_MINUS_EPSILON = 1.0 - 2.0 ** -24
 
 
-def u32(x, device=None) -> torch.Tensor:
-    """int64 tensor of the uint32 value of x (an int or an integer tensor,
-    read as two's complement like `astype(uint32)`)."""
+def u32(x):
+    """The uint32 value of x, read as two's complement like
+    `astype(uint32)`: an int64 tensor for an integer tensor, an int for an
+    int (so that a constant word never becomes a tensor copied to the
+    device, which would wait for the card)."""
     if not torch.is_tensor(x):
-        x = torch.tensor(int(x), dtype=torch.int64, device=device)
+        return int(x) & MASK32
     return x.to(torch.int64) & MASK32
 
 
-def mul32(a, m: int):
-    """(a * m) mod 2^32 for a uint32 word tensor a and a constant m."""
+def mul32(a, m):
+    """(a * m) mod 2^32 for a uint32 word tensor a and a constant m (an
+    int, or an int64 tensor of constants that broadcasts against a)."""
     lo = m & 0xFFFF
     hi = (m >> 16) & 0xFFFF
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & MASK32
@@ -48,9 +51,8 @@ def _rotl(x, r):
 
 def xxhash32(*words):
     """xxhash32 over 1..4 uint32 words (tensors broadcast together)."""
-    device = next((w.device for w in words if torch.is_tensor(w)), None)
-    words = [u32(w, device) for w in words]
-    h = u32(PRIME32_5 + 4 * len(words), device)
+    words = [u32(w) for w in words]
+    h = u32(PRIME32_5 + 4 * len(words))
     for w in words:
         h = (h + mul32(w, PRIME32_3)) & MASK32
         h = mul32(_rotl(h, 17), PRIME32_4)
@@ -69,6 +71,30 @@ def lcg_step(state):
     """One LCG step: (state * A + C) mod 2^32. Returns (new_state, u)."""
     new_state = (mul32(u32(state), LCG_A) + LCG_C) & MASK32
     return new_state, uniform_u32_to_float(new_state)
+
+
+def lcg_jump(k: int):
+    """(A_k, C_k): k LCG steps as one, state_k = (A_k * state + C_k) mod
+    2^32 (exact modular arithmetic, so the states are the ones k single
+    steps give)."""
+    a, c = 1, 0
+    for _ in range(k):
+        a, c = (a * LCG_A) & MASK32, (c * LCG_A + LCG_C) & MASK32
+    return a, c
+
+
+_JUMPS: dict = {}  # (device, ks) -> the jumps' (A, C) columns, copied there once
+
+
+def lcg_states(state, ks):
+    """The states k steps after `state` (N,) for each k of ks: (len(ks), N),
+    in one batched jump."""
+    key = (state.device, tuple(ks))
+    if key not in _JUMPS:
+        jumps = torch.tensor([lcg_jump(k) for k in ks], dtype=torch.int64)
+        _JUMPS[key] = jumps.to(state.device)[:, :, None]
+    a, c = _JUMPS[key].unbind(1)
+    return (mul32(u32(state)[None, :], a) + c) & MASK32
 
 
 def seed_pixels(pixel_x, pixel_y, sample_index, seed):

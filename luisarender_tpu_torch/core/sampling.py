@@ -1,8 +1,9 @@
 """Monte-Carlo sampling primitives and alias tables.
 
-Counterpart of luisarender_tpu/core/sampling.py: triangle and cosine
-hemisphere sampling, the balance heuristic, and Vose alias tables (built on
-the host with numpy, sampled on the device).
+Counterpart of luisarender_tpu/core/sampling.py: triangle, cosine
+hemisphere, sphere and cone sampling, the balance heuristic, and Vose alias
+tables, 1D and the 2D (marginal rows, conditional columns) of environment
+maps (built on the host with numpy, sampled on the device).
 """
 
 from __future__ import annotations
@@ -53,6 +54,28 @@ def sample_cosine_hemisphere(u):
 
 def cosine_hemisphere_pdf(cos_theta):
     return cos_theta * INV_PI
+
+
+def sample_uniform_sphere(u):
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+UNIFORM_SPHERE_PDF = 1.0 / (4.0 * PI)
+
+
+def sample_uniform_cone(u, cos_theta_max):
+    cos_t = (1.0 - u[..., 0]) + u[..., 0] * cos_theta_max
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = 2.0 * PI * u[..., 1]
+    return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t], dim=-1)
+
+
+def uniform_cone_pdf(cos_theta_max):
+    """cos_theta_max: a float32 tensor."""
+    return 1.0 / (2.0 * PI * torch.clamp(1.0 - cos_theta_max, min=1e-8))
 
 
 def balance_heuristic(pdf_a, pdf_b):
@@ -118,3 +141,38 @@ def alias_sample(prob, alias, pdf, u):
     )
     u_remapped = torch.clamp(u_remapped, 0.0, 1.0 - 2.0 ** -24)
     return index, pdf[index], u_remapped
+
+
+class AliasTable2D(NamedTuple):
+    """Marginal table over rows (h,) and per-row conditional tables (h, w)."""
+
+    marginal: AliasTable
+    cond_prob: np.ndarray  # (h, w) float32
+    cond_alias: np.ndarray  # (h, w) int32
+    cond_pdf: np.ndarray  # (h, w) float32
+
+
+def build_alias_table_2d(weights_2d: np.ndarray) -> AliasTable2D:
+    w = np.asarray(weights_2d, dtype=np.float64)
+    h, wd = w.shape
+    marginal = build_alias_table(w.sum(axis=1))
+    cp = np.zeros((h, wd), dtype=np.float32)
+    ca = np.zeros((h, wd), dtype=np.int32)
+    cpdf = np.zeros((h, wd), dtype=np.float32)
+    for y in range(h):
+        t = build_alias_table(w[y])
+        cp[y], ca[y], cpdf[y] = t.prob, t.alias, t.pdf
+    return AliasTable2D(marginal=marginal, cond_prob=cp, cond_alias=ca, cond_pdf=cpdf)
+
+
+def alias_sample_2d(marg_prob, marg_alias, marg_pdf, cond_prob, cond_alias, cond_pdf, u):
+    """u: (..., 2) -> (x, y, pdf over the h * w texel grid), the tables as
+    device tensors."""
+    y, pdf_y, _ = alias_sample(marg_prob, marg_alias, marg_pdf, u[..., 1])
+    w = cond_prob.shape[1]
+    ux = u[..., 0] * w
+    xi = torch.clamp(ux.to(torch.int32), 0, w - 1)
+    up = ux - xi.to(torch.float32)
+    prob_i = cond_prob[y, xi]
+    x = torch.where(up >= prob_i, cond_alias[y, xi], xi)
+    return x, y, pdf_y * cond_pdf[y, x]

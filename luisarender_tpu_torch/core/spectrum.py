@@ -30,9 +30,15 @@ class SRGBSpectrum:
     dimension = 3
     is_fixed = True
 
+    def __init__(self):
+        self._lam = {}  # device -> the (3,) wavelengths, copied there once
+
     def sample_wavelengths(self, n, device):
-        lam = torch.tensor(SRGB_PEAK_WAVELENGTHS, dtype=torch.float32,
-                           device=device).expand(n, 3)
+        device = torch.device(device)
+        if device not in self._lam:
+            self._lam[device] = torch.tensor(SRGB_PEAK_WAVELENGTHS, dtype=torch.float32,
+                                             device=device)
+        lam = self._lam[device].expand(n, 3)
         pdf = torch.ones((n, 3), dtype=torch.float32, device=device)
         return SampledWavelengths(lam=lam, pdf=pdf)
 

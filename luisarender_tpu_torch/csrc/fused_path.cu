@@ -4,7 +4,8 @@
 //
 // Replaces the TPU kernel luisarender_tpu/ops/fused_path.py _fused_kernel
 // (fused_path.py:742, pl.pallas_call at :1631) with its BSDF closures from
-// luisarender_tpu/ops/fused_bsdf.py, in its camgen and persistent modes.
+// luisarender_tpu/ops/fused_bsdf.py, in its camgen and persistent modes and
+// its environment mode (has_env, fused_path.py:746-760).
 // Per path: the camera ray and the independent sampler's xxhash seed made
 // in the kernel; per bounce the closest trace over the triangle rows, then
 // the analytic spheres (strict t < best_t, so the lowest row wins an exact
@@ -72,6 +73,22 @@
 // whose rounding must match the plain version, not a matrix product; TMA,
 // since the tables are at most 14.2 KB, staged once per persistent block.
 //
+// The environment mode (fused_path_kernel<true>, megapath only) reads no
+// environment table, as in the reference. The caller pre-samples each
+// pixel's environment NEE candidate of every bounce, [wi.xyz, pdf * p_env,
+// L.rgb] as (max_depth, 7, n) floats (consecutive pixels in consecutive
+// words), from the pixel's own sampler stream (ops/fused_path.py
+// env_nee_candidates); NEE picks the environment when u_sel < p_env, reads
+// the candidate at (pixel, depth) and aims its shadow ray at p + wi *
+// env_distance with normal -wi; the area lights take u_sel's rest, (u_sel -
+// p_env) / (1 - p_env). A path that escapes ends there, so the slot's state
+// when its pixel retires is the escape state: the kernel writes it, 7 words
+// at the pixel's index (beta.rgb, pdf_bsdf, dir.xyz; dir (0, 0, 1) and the
+// rest 0 for a path that never escaped), and the caller adds the
+// environment's radiance in a dense pass. No per-slot state is added: beta,
+// pdf_bsdf and the direction are already in the slot. The non-environment
+// instantiation compiles the mode away.
+//
 // Build with --fmad=false and without fast math: the arithmetic rounds like
 // the plain version, except the transcendentals (sinf, cosf, powf, expf,
 // logf), which neither side rounds correctly; PyTorch's CUDA kernels call
@@ -115,6 +132,10 @@ struct FusedParams {
   int sample_index, n_samples, max_depth, rr_depth;
   int n, n_tri, n_sph, n_inst, n_entry, n_light_tri;
   int flat_normals;
+  int has_env;           // launch fused_path_kernel<true>: megapath only
+  float p_env;           // NEE picks the environment when u_sel < p_env
+  float env_area_scale;  // float32 of 1 / max(1 - p_env, 1e-8)
+  float env_distance;    // an environment shadow ray ends this far away
 };
 
 namespace {
@@ -811,11 +832,93 @@ __device__ __forceinline__ int shade_key(const Smem& S, const Hit& h) {
   return irow[18] > 0.5f ? (int)irow[0] : kKeyEnd;
 }
 
+// NEE's area-light sample (lightsamplers/uniform.py, lights/diffuse.py):
+// the entry that u_area picks, a triangle of it by its alias table and
+// u_l0, and a point on that triangle by u_l0's rest and u_l1; sets the
+// point and the light's normal, and returns the entry's row.
+__device__ __forceinline__ EntryRow area_light_point(const Smem& S, const FusedParams& P,
+                                                     float u_area, float u_l0, float u_l1,
+                                                     V3& lp, V3& lng) {
+  const float ne = (float)P.n_entry;
+  const float u_rel = clampf(u_area, 0.0f, kOneMinusEps);
+  const int e = (int)fminf(floorf(u_rel * ne), ne - 1.0f);
+  const EntryRow erow{S.entry + e};
+  const float al_off = erow[0], tri_cnt = erow[1];
+  const float ux = u_l0 * tri_cnt;
+  const float i0 = fmaxf(fminf(floorf(ux), tri_cnt - 1.0f), 0.0f);
+  const float up = ux - i0;
+  LightRow lrow{S.light + (int)(al_off + i0)};
+  if (up >= lrow[18]) lrow = LightRow{S.light + (int)(al_off + lrow[19])};
+  const float su = sqrtf(fmaxf(up, 0.0f));
+  const float b0 = 1.0f - su;
+  const float b1 = u_l1 * su;
+  const float b2 = 1.0f - b0 - b1;
+  lp = v3(lrow[0] + b1 * lrow[3] + b2 * lrow[6], lrow[1] + b1 * lrow[4] + b2 * lrow[7],
+          lrow[2] + b1 * lrow[5] + b2 * lrow[8]);
+  lng = v3(lrow[9], lrow[10], lrow[11]);
+  return erow;
+}
+
+// The vector from pos to the light point lp and its direction; returns its
+// squared length.
+__device__ __forceinline__ float toward(V3 pos, V3 lp, V3& wl, V3& wi) {
+  wl = v3(lp.x - pos.x, lp.y - pos.y, lp.z - pos.z);
+  const float wl2 = wl.x * wl.x + wl.y * wl.y + wl.z * wl.z;
+  const float inv_wl = 1.0f / fmaxf(sqrtf(fmaxf(wl2, 0.0f)), 1e-12f);
+  wi = v3(wl.x * inv_wl, wl.y * inv_wl, wl.z * inv_wl);
+  return wl2;
+}
+
+// The solid-angle pdf of an area-light sample seen along wi at squared
+// distance wl2, times the entry's pick probability; 0 where the light
+// faces away (one-sided) or is seen edge on.
+__device__ __forceinline__ float area_light_pdf(const FusedParams& P, EntryRow erow, V3 wi,
+                                                V3 lng, float wl2) {
+  const float cos_ll = dot3(neg3(wi), lng);
+  const bool lit_l = cos_ll > 1e-6f || (erow[7] > 0.5f && fabsf(cos_ll) > 1e-6f);
+  return lit_l ? wl2 / fmaxf(fabsf(cos_ll) * erow[2], 1e-12f) * P.p_light : 0.0f;
+}
+
+// NEE's shadow ray from pos toward the light point lp with normal lng
+// (core/types.py spawn_ray_to): sets the BSDF's value toward the light and
+// the MIS weight of a sample at pdf_nee, and returns whether the ray is
+// open. The caller adds the light's contribution, f * Ln * w_mis, where it
+// is.
+__device__ __forceinline__ bool nee_shadow(const Smem& S, const FusedParams& P, const Inst& ic,
+                                           const Frame& fr, V3 fn, V3 wol, float wo_ng,
+                                           float wo_ns, V3 pos, V3 ng, V3 lp, V3 lng, V3 wl,
+                                           V3 wi, float pdf_nee, Bsdf& fe, float& w_mis) {
+  const float sgn_f = dot3(ng, wl) >= 0.0f ? 1.0f : -1.0f;
+  const V3 so = v3(offset1(pos.x, sgn_f * ng.x), offset1(pos.y, sgn_f * ng.y),
+                   offset1(pos.z, sgn_f * ng.z));
+  const V3 bb = v3(so.x - lp.x, so.y - lp.y, so.z - lp.z);
+  const float sgn_t = dot3(lng, bb) >= 0.0f ? 1.0f : -1.0f;
+  const V3 se = v3(offset1(lp.x, sgn_t * lng.x), offset1(lp.y, sgn_t * lng.y),
+                   offset1(lp.z, sgn_t * lng.z));
+  V3 sd = v3(se.x - so.x, se.y - so.y, se.z - so.z);
+  const float s_len = sqrtf(fmaxf(sd.x * sd.x + sd.y * sd.y + sd.z * sd.z, 0.0f));
+  const float inv_s = 1.0f / fmaxf(s_len, 1e-20f);
+  sd = v3(sd.x * inv_s, sd.y * inv_s, sd.z * inv_s);
+  const float s_tmax = s_len * kShadowShrink;
+
+  const V3 wil = v3(dot3(wi, fr.s), dot3(wi, fr.t), dot3(wi, fn));
+  fe = eval_bsdf(ic, wol, wil);
+  if (!side_ok(ic.stype, wo_ng, wo_ns, dot3(wi, ng), dot3(wi, fn))) {
+    fe.f[0] = fe.f[1] = fe.f[2] = 0.0f;
+    fe.pdf = 0.0f;
+  }
+  w_mis = safe_div(balance(pdf_nee, fe.pdf), pdf_nee);
+  return !occluded(S, P, so, sd, s_tmax);
+}
+
 // The rest of one bounce of an active path at its closest hit h: the
 // interaction, the emissive-hit MIS, NEE and its shadow ray, BSDF sampling
 // and roulette; dep is its bounce depth. Counts the shadow ray in nrays.
+// kEnv: the environment mode; env_cand holds the candidates, pix is the
+// path's pixel.
+template <bool kEnv>
 __device__ void shade(const Smem& S, const FusedParams& P, Path& p, const Hit& h, float dep,
-                      int& nrays) {
+                      int& nrays, const float* env_cand, int pix) {
   if (h.tri < 0 && h.sph < 0) {  // the path escapes
     p.active = false;
     return;
@@ -898,59 +1001,65 @@ __device__ void shade(const Smem& S, const FusedParams& P, Path& p, const Hit& h
   const float wo_ng = dot3(wo, ng);
   const float wo_ns = dot3(wo, fn);
 
-  // NEE
-  if (P.n_entry > 0) {
-    const float ne = (float)P.n_entry;
-    const float u_rel = clampf(u_sel, 0.0f, kOneMinusEps);
-    const int e = (int)fminf(floorf(u_rel * ne), ne - 1.0f);
-    const EntryRow erow{S.entry + e};
-    const float al_off = erow[0], tri_cnt = erow[1], tot_area = erow[2];
-    const float ux = u_l0 * tri_cnt;
-    const float i0 = fmaxf(fminf(floorf(ux), tri_cnt - 1.0f), 0.0f);
-    const float up = ux - i0;
-    LightRow lrow{S.light + (int)(al_off + i0)};
-    if (up >= lrow[18]) lrow = LightRow{S.light + (int)(al_off + lrow[19])};
-    const float su = sqrtf(fmaxf(up, 0.0f));
-    const float b0 = 1.0f - su;
-    const float b1 = u_l1 * su;
-    const float b2 = 1.0f - b0 - b1;
-    const V3 lp = v3(lrow[0] + b1 * lrow[3] + b2 * lrow[6], lrow[1] + b1 * lrow[4] + b2 * lrow[7],
-                     lrow[2] + b1 * lrow[5] + b2 * lrow[8]);
-    const V3 lng = v3(lrow[9], lrow[10], lrow[11]);
-    const V3 wl = v3(lp.x - pos.x, lp.y - pos.y, lp.z - pos.z);
-    const float wl2 = wl.x * wl.x + wl.y * wl.y + wl.z * wl.z;
-    const float inv_wl = 1.0f / fmaxf(sqrtf(fmaxf(wl2, 0.0f)), 1e-12f);
-    const V3 wi = v3(wl.x * inv_wl, wl.y * inv_wl, wl.z * inv_wl);
-    const float cos_ll = dot3(neg3(wi), lng);
-    const bool lit_l = cos_ll > 1e-6f || (erow[7] > 0.5f && fabsf(cos_ll) > 1e-6f);
-    const float pdf_nee = lit_l ? wl2 / fmaxf(fabsf(cos_ll) * tot_area, 1e-12f) * P.p_light : 0.0f;
+  // NEE. The environment mode picks the environment's candidate for this
+  // bounce when u_sel < p_env, else an area light with u_sel's rest, and
+  // then traces one shadow ray either way, so that a warp whose lanes pick
+  // both runs the shadow ray once. The kernel without an environment takes
+  // the area light in a branch of its own: sharing the environment mode's
+  // branch costs it 4 registers (127 against 123). Both take their
+  // arithmetic from the helpers above.
+  if (kEnv) {
+    const bool env_pick = u_sel < P.p_env;
+    float ev[7];
+    V3 lp = pos, lng = v3(0.0f, 0.0f, 1.0f);
+    EntryRow erow{S.entry};
+    if (env_pick) {
+      // the candidate's target: a far point along it, facing back
+      const float* c = env_cand + (size_t)((int)dep * 7) * P.n + pix;
+#pragma unroll
+      for (int k = 0; k < 7; ++k) ev[k] = c[(size_t)k * P.n];
+      lp = v3(pos.x + ev[0] * P.env_distance, pos.y + ev[1] * P.env_distance,
+              pos.z + ev[2] * P.env_distance);
+      lng = v3(-ev[0], -ev[1], -ev[2]);
+    } else if (P.n_entry > 0) {
+      erow = area_light_point(S, P, (u_sel - P.p_env) * P.env_area_scale, u_l0, u_l1, lp, lng);
+    }
+    V3 wl, wi;
+    const float wl2 = toward(pos, lp, wl, wi);
+    float pdf_nee = 0.0f, Ln[3] = {0.0f, 0.0f, 0.0f};
+    if (env_pick) {
+      pdf_nee = ev[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) Ln[k] = ev[4 + k];
+    } else if (P.n_entry > 0) {
+      pdf_nee = area_light_pdf(P, erow, wi, lng, wl2);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) Ln[k] = erow[4 + k];
+    }
     if (pdf_nee > 0.0f) {
       nrays += 1;
-      // shadow ray (core/types.py spawn_ray_to)
-      const float sgn_f = dot3(ng, wl) >= 0.0f ? 1.0f : -1.0f;
-      const V3 so = v3(offset1(pos.x, sgn_f * ng.x), offset1(pos.y, sgn_f * ng.y),
-                       offset1(pos.z, sgn_f * ng.z));
-      const V3 bb = v3(so.x - lp.x, so.y - lp.y, so.z - lp.z);
-      const float sgn_t = dot3(lng, bb) >= 0.0f ? 1.0f : -1.0f;
-      const V3 se = v3(offset1(lp.x, sgn_t * lng.x), offset1(lp.y, sgn_t * lng.y),
-                       offset1(lp.z, sgn_t * lng.z));
-      V3 sd = v3(se.x - so.x, se.y - so.y, se.z - so.z);
-      const float s_len = sqrtf(fmaxf(sd.x * sd.x + sd.y * sd.y + sd.z * sd.z, 0.0f));
-      const float inv_s = 1.0f / fmaxf(s_len, 1e-20f);
-      sd = v3(sd.x * inv_s, sd.y * inv_s, sd.z * inv_s);
-      const float s_tmax = s_len * kShadowShrink;
-
-      const V3 wil = v3(dot3(wi, fr.s), dot3(wi, fr.t), dot3(wi, fn));
-      Bsdf fe = eval_bsdf(ic, wol, wil);
-      if (!side_ok(ic.stype, wo_ng, wo_ns, dot3(wi, ng), dot3(wi, fn))) {
-        fe.f[0] = fe.f[1] = fe.f[2] = 0.0f;
-        fe.pdf = 0.0f;
-      }
-      const float w_mis = safe_div(balance(pdf_nee, fe.pdf), pdf_nee);
-      if (!occluded(S, P, so, sd, s_tmax)) {
+      Bsdf fe;
+      float w_mis;
+      if (nee_shadow(S, P, ic, fr, fn, wol, wo_ng, wo_ns, pos, ng, lp, lng, wl, wi, pdf_nee, fe,
+                     w_mis)) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k)
-          p.L[k] = p.L[k] + p.beta[k] * fe.f[k] * (lit_l ? erow[4 + k] : 0.0f) * w_mis;
+        for (int k = 0; k < 3; ++k) p.L[k] = p.L[k] + p.beta[k] * fe.f[k] * Ln[k] * w_mis;
+      }
+    }
+  } else if (P.n_entry > 0) {
+    V3 lp, lng;
+    const EntryRow erow = area_light_point(S, P, u_sel, u_l0, u_l1, lp, lng);
+    V3 wl, wi;
+    const float wl2 = toward(pos, lp, wl, wi);
+    const float pdf_nee = area_light_pdf(P, erow, wi, lng, wl2);
+    if (pdf_nee > 0.0f) {
+      nrays += 1;
+      Bsdf fe;
+      float w_mis;
+      if (nee_shadow(S, P, ic, fr, fn, wol, wo_ng, wo_ns, pos, ng, lp, lng, wl, wi, pdf_nee, fe,
+                     w_mis)) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) p.L[k] = p.L[k] + p.beta[k] * fe.f[k] * erow[4 + k] * w_mis;
       }
     }
   }
@@ -1127,11 +1236,25 @@ __device__ int block_scan(int v, int* warp_sums, int& total) {
 
 // Slot s takes pixel k: its first sample's camera ray. A megapath pixel at
 // depth 0 is done at once (black, no ray) and leaves the slot empty.
+// The environment mode's escape state of pixel i: the path's (beta,
+// pdf_bsdf, dir) where it escaped, else 0 and dir (0, 0, 1).
+__device__ __forceinline__ void write_escape(const FusedParams& P, float* esc_out, int i,
+                                             const Path* p) {
+  const size_t n = (size_t)P.n;
+  const float w[7] = {p ? p->beta[0] : 0.0f, p ? p->beta[1] : 0.0f, p ? p->beta[2] : 0.0f,
+                      p ? p->pdf_bsdf : 0.0f, p ? p->d.x : 0.0f, p ? p->d.y : 0.0f,
+                      p ? p->d.z : 1.0f};
+#pragma unroll
+  for (int k = 0; k < 7; ++k) esc_out[k * n + i] = w[k];
+}
+
+template <bool kEnv>
 __device__ void start_pixel(const Pool& q, const FusedParams& P, const int* pixel_xy,
-                            float* rgb_out, int* rays_out, int s, int k) {
+                            float* rgb_out, int* rays_out, float* esc_out, int s, int k) {
   if (P.n_samples == 0 && P.max_depth == 0) {
     rgb_out[3 * k] = rgb_out[3 * k + 1] = rgb_out[3 * k + 2] = 0.0f;
     rays_out[k] = 0;
+    if (kEnv) write_escape(P, esc_out, k, nullptr);
     return;
   }
   Path p;
@@ -1149,14 +1272,18 @@ __device__ void start_pixel(const Pool& q, const FusedParams& P, const int* pixe
 // that ends adds to its pixel's sum and, in persistent mode, starts the
 // pixel's next sample; a pixel that is done writes its outputs and empties
 // the slot.
+template <bool kEnv>
 __device__ void shade_slot(const Smem& S, const Pool& q, const FusedParams& P,
-                           const int* pixel_xy, float* rgb_out, int* rays_out, int s) {
+                           const int* pixel_xy, float* rgb_out, int* rays_out,
+                           const float* env_cand, float* esc_out, int s) {
   Path p;
   load_path(q, s, p);
   const Hit h{q.f(W_HT, s), q.f(W_HU, s), q.f(W_HV, s), q.i(W_HTRI, s), q.i(W_HSPH, s)};
   float dep = q.f(W_DEP, s);
   int nrays = q.i(W_NRAYS, s) + 1;  // the closest ray
-  shade(S, P, p, h, dep, nrays);
+  // the environment mode reads the pixel's candidates; the other reads
+  // the pixel after shading, as it did before the mode
+  shade<kEnv>(S, P, p, h, dep, nrays, env_cand, kEnv ? q.i(W_PIX, s) : 0);
   const int i = q.i(W_PIX, s);
   if (P.n_samples == 0) {
     if (!p.active) {
@@ -1164,6 +1291,8 @@ __device__ void shade_slot(const Smem& S, const Pool& q, const FusedParams& P,
       rgb_out[3 * i + 1] = p.L[1];
       rgb_out[3 * i + 2] = p.L[2];
       rays_out[i] = nrays;
+      // an escape leaves the path's state as it was when it escaped
+      if (kEnv) write_escape(P, esc_out, i, h.tri < 0 && h.sph < 0 ? &p : nullptr);
       q.seti(W_PIX, s, -1);
       return;
     }
@@ -1199,12 +1328,14 @@ __device__ void shade_slot(const Smem& S, const Pool& q, const FusedParams& P,
   store_path(q, s, p, dep, nrays);
 }
 
+template <bool kEnv>
 __global__ void __launch_bounds__(kThreads)
     fused_path_kernel(const FusedParams P, const int* __restrict__ pixel_xy,
                       const float* __restrict__ tri, const float* __restrict__ shade_t,
                       const float* __restrict__ sph, const float* __restrict__ inst,
                       const float* __restrict__ entry, const float* __restrict__ light,
-                      float* __restrict__ rgb_out, int* __restrict__ rays_out,
+                      const float* __restrict__ env_cand, float* __restrict__ rgb_out,
+                      int* __restrict__ rays_out, float* __restrict__ esc_out,
                       int* __restrict__ work, unsigned long long* __restrict__ stats) {
   __shared__ Smem S;
   __shared__ int warp_sums[kWarps];
@@ -1239,7 +1370,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < kPasses; ++k) {
           if (empty[k] && base + rank < P.n)
-            start_pixel(q, P, pixel_xy, rgb_out, rays_out, kPasses * tid + k, base + rank);
+            start_pixel<kEnv>(q, P, pixel_xy, rgb_out, rays_out, esc_out, kPasses * tid + k,
+                              base + rank);
           rank += empty[k];
         }
         exhausted = base + total >= P.n;
@@ -1329,7 +1461,8 @@ __global__ void __launch_bounds__(kThreads)
         }
         st[STAT_SHADED] += k != kKeyEnd;
       }
-      if (on) shade_slot(S, q, P, pixel_xy, rgb_out, rays_out, order[e]);
+      if (on)
+        shade_slot<kEnv>(S, q, P, pixel_xy, rgb_out, rays_out, env_cand, esc_out, order[e]);
     }
     __syncthreads();
   }
@@ -1343,22 +1476,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Blocks of fused_path_kernel resident on one SM of `device`, queried once
-// (after raising the kernel's dynamic shared memory limit to its pool).
-int fused_path_blocks_per_sm(int device) {
+// Blocks of fused_path_kernel<kEnv> resident on one SM of `device`, queried
+// once (after raising the kernel's dynamic shared memory limit to its pool).
+template <bool kEnv>
+int blocks_per_sm(int device) {
   static int cached[64] = {};
   if (device < 0 || device >= 64) return 0;
   if (!cached[device]) {
     if (cudaSetDevice(device) != cudaSuccess) return 0;
-    if (cudaFuncSetAttribute(fused_path_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if (cudaFuncSetAttribute(fused_path_kernel<kEnv>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kPoolBytes) != cudaSuccess)
       return 0;
     int nb = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fused_path_kernel, kThreads,
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fused_path_kernel<kEnv>, kThreads,
                                                       kPoolBytes) != cudaSuccess)
       return 0;
     cached[device] = nb;
@@ -1366,23 +1497,42 @@ int fused_path_blocks_per_sm(int device) {
   return cached[device];
 }
 
+}  // namespace
+
+extern "C" {
+
+// Blocks of the kernel resident on one SM of `device` (the environment
+// mode's when env is nonzero).
+int fused_path_blocks_per_sm(int device, int env) {
+  return env ? blocks_per_sm<true>(device) : blocks_per_sm<false>(device);
+}
+
 // Bytes of dynamic shared memory a block of fused_path_kernel takes (its
 // slot pool; ptxas reports only the static tables).
 int fused_path_pool_bytes() { return kPoolBytes; }
 
+// Words of a pixel's escape state in the environment mode (beta.rgb,
+// pdf_bsdf, dir.xyz); its presence marks this C interface.
+int fused_path_env_words() { return 7; }
+
 // Launches on `stream` of device `device`, does not synchronise, and returns
 // the first CUDA error (0 = success). `work` is one int of device scratch,
 // zeroed here on the stream before the launch; `stats`, when not null,
-// kStats uint64 counters the kernel adds to.
+// kStats uint64 counters the kernel adds to. With P.has_env (megapath only)
+// env_cand holds the (max_depth, 7, n) candidates and esc_out receives the
+// (7, n) escape state; both are ignored otherwise.
 int fused_path(const FusedParams* params, const int* pixel_xy, const float* tri,
                const float* shade, const float* sph, const float* inst,
-               const float* entry, const float* light, float* rgb_out, int* rays_out,
-               int* work, unsigned long long* stats, int device, void* stream) {
+               const float* entry, const float* light, const float* env_cand,
+               float* rgb_out, int* rays_out, float* esc_out, int* work,
+               unsigned long long* stats, int device, void* stream) {
   const FusedParams& P = *params;
   if (P.n_tri < 1 || P.n_tri > kMaxTris || P.n_sph < 0 || P.n_sph > kMaxSpheres ||
       P.n_inst < 1 || P.n_inst > kMaxInst || P.n_entry < 0 || P.n_entry > kMaxEntries ||
       P.n_light_tri < 1 || P.n_light_tri > kMaxLightTris || P.n < 0 || P.max_depth < 0 ||
       P.n_samples < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (P.has_env && (P.n_samples != 0 || !env_cand || !esc_out))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1393,12 +1543,18 @@ int fused_path(const FusedParams* params, const int* pixel_xy, const float* tri,
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int per_sm = fused_path_blocks_per_sm(device);
+  const int per_sm = fused_path_blocks_per_sm(device, P.has_env);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int need = (P.n + kThreads - 1) / kThreads;
   const int blocks = need < per_sm * sms ? need : per_sm * sms;
-  fused_path_kernel<<<blocks, kThreads, kPoolBytes, s>>>(
-      P, pixel_xy, tri, shade, sph, inst, entry, light, rgb_out, rays_out, work, stats);
+  if (P.has_env)
+    fused_path_kernel<true><<<blocks, kThreads, kPoolBytes, s>>>(
+        P, pixel_xy, tri, shade, sph, inst, entry, light, env_cand, rgb_out, rays_out,
+        esc_out, work, stats);
+  else
+    fused_path_kernel<false><<<blocks, kThreads, kPoolBytes, s>>>(
+        P, pixel_xy, tri, shade, sph, inst, entry, light, env_cand, rgb_out, rays_out,
+        esc_out, work, stats);
   return static_cast<int>(cudaGetLastError());
 }
 

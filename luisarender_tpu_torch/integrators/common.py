@@ -3,7 +3,9 @@
 Counterpart of luisarender_tpu/integrators/common.py (`init_carry`,
 `has_work`, `shade_surface`, `bounce_step`) on the reference's default
 branch: compute-all surface dispatch, the NEE shadow ray traced in the same
-bounce (FUSE_SHADOW_TRACES=False), no environment, no dispersion. The carry
+bounce (FUSE_SHADOW_TRACES=False), no dispersion. A ray that escapes adds
+the environment's radiance with its MIS weight against the BSDF sample that
+made it, and NEE picks the environment as the light sampler says. The carry
 is a dict of per-path tensors; every path draws its 7 uniforms per bounce in
 the reference's order whether or not it is still active, so the sampler
 streams stay aligned with the reference's.
@@ -55,7 +57,7 @@ def shade_surface(compiled, light_sampler, it, wo, swl, L, ray, beta,
     u_sel, u_light, u_lobe, u_bsdf = uniforms
     zeros = it.p.new_zeros((n,))
 
-    do_nee = compiled.plan.num_lights > 0
+    do_nee = compiled.plan.num_lights > 0 or compiled.plan.has_environment
     if do_nee:
         ls = light_sampler.sample(compiled, it, u_sel, u_light, swl)
         f_eval = surf_base.dispatch(
@@ -137,8 +139,15 @@ def bounce_step(compiled, sampler, light_sampler, carry, *,
     # dead lanes keep their last ray; t_max = 0 makes the trace skip them
     trace_ray = ray._replace(t_max=torch.where(active, ray.t_max, 0.0))
     hit = traverse.trace_closest(geom, trace_ray)
-    it = surface_interaction(compiled.arrays, hit, ray)
+    it = surface_interaction(compiled.arrays, hit, ray, needs_uv=compiled.plan.needs_uv)
     it = it._replace(valid=it.valid & active)
+
+    # --- miss: the environment ---
+    if compiled.plan.has_environment:
+        env_eval = light_sampler.evaluate_miss(compiled, ray.direction, swl)
+        mis_w = sampling.balance_heuristic(pdf_bsdf, env_eval["pdf"])
+        contrib = beta * env_eval["L"] * mis_w[..., None]
+        L = torch.where((active & ~it.valid)[..., None], L + contrib, L)
     active = active & it.valid
 
     # --- hit an emissive instance ---

@@ -10,7 +10,8 @@ of two forks, as in the reference:
            traces on the brute-force kernels.
 The megawave integrator renders `samples_per_pass` samples of every pixel
 in one persistent launch of the fused kernel; outside the fused kernel's
-scenes it renders as megapath.
+scenes, and on scenes with an environment (whose pre-sampled NEE candidates
+need the megapath mode's static draw offsets), it renders as megapath.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ def path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
     cam = fused_camera(compiled, camera, sampler, light_sampler)
     if cam is not None:
         rgb, n_rays = fused_path.trace_paths_fused_camgen(
-            compiled, cam, pixel_xy, sample_index, **kw)
+            compiled, cam, pixel_xy, sample_index, light_sampler=light_sampler, **kw)
         weight = torch.ones((pixel_xy.shape[0],), dtype=torch.float32, device=pixel_xy.device)
         stats = {"rays": n_rays, "bounces": 0, "fused": 1}
     else:
@@ -127,7 +128,7 @@ class MegakernelPathTracing(ProgressiveIntegrator):
         rays = torch.zeros((), dtype=torch.int64, device=dev)
         accum = film.prepare(dev)
         cam = fused_camera(compiled, camera, self.sampler, self.light_sampler)
-        if self.persistent and cam is not None:
+        if self.persistent and cam is not None and not compiled.plan.has_environment:
             # one persistent launch per pass of samples_per_pass samples; the
             # pass's mean enters the film with weight n, as in the reference
             spd = max(min(self.samples_per_pass, camera.spp), 1)

@@ -33,7 +33,7 @@ class DiffuseLight(Light):
         return {
             "scale": np.float32(self.scale),
             "two_sided": np.float32(1.0 if self.two_sided else 0.0),
-            **compile_tex_params(self),
+            **compile_tex_params(self, compiler),
         }
 
     @staticmethod

@@ -78,7 +78,8 @@ def compile_source(src: Path, out: Path) -> None:
 def _kernel_name(mangled: str) -> str:
     """The kernel's own name in a mangled `_ZN<len><name>...E...` name: the
     last of its length-prefixed identifiers (the anonymous namespace's
-    comes first), with the integer arguments of a template as `<128>`."""
+    comes first), with the integer and bool arguments of a template as
+    `<128>` or `<true>`."""
     import re
 
     names, rest = [], mangled[3 if mangled.startswith("_ZN") else 2:]
@@ -88,9 +89,11 @@ def _kernel_name(mangled: str) -> str:
         rest = rest[len(n) + int(n):]
     if not names:
         return mangled
-    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
     if args:
-        return f"{names[-1]}<{','.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+        vals = [v if k == "i" else ("true" if v == "1" else "false")
+                for k, v in re.findall(r"L([ib])(-?\d+)E", args.group(1))]
+        return f"{names[-1]}<{','.join(vals)}>"
     return names[-1]
 
 

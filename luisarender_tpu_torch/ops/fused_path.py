@@ -16,11 +16,24 @@ Two modes share the kernel:
               regenerating its pixel's next sample when a path ends (the
               megawave integrator); the output is the sum over the samples.
 
+A scene with a spherical or directional environment runs the megapath mode
+with the environment inputs of the reference's kernel (its `has_env`
+mode): the kernel never reads an environment table. `env_nee_candidates`
+pre-samples, from each lane's own sampler stream, the environment NEE
+candidate of every bounce, [wi.xyz, pdf * p_env, L.rgb] (a (max_depth, 7,
+N) tensor); the kernel picks the environment when u_sel < p_env, and writes
+each pixel's escape state (beta.rgb, pdf_bsdf, dir.xyz; dir (0, 0, 1) where
+the path never escapes) for `miss_pass`, which adds the environment's
+radiance with its MIS weight afterwards. The persistent mode takes no
+environment (its draw offsets per bounce are not static), as in the
+reference.
+
 On CUDA tensors `paths` launches csrc/fused_path.cu; on CPU tensors it runs
 `paths_plain`, a batched PyTorch program over all lanes with the kernel's
 operation order (ops/fused_bsdf.py holds its BSDF math). There is no
-fallback: a CUDA tensor launches the kernel or raises. `launches` and
-`persistent_launches` count kernel launches of the two modes.
+fallback: a CUDA tensor launches the kernel or raises. `launches`,
+`env_launches` and `persistent_launches` count kernel launches of the
+three forms (megapath without and with an environment, persistent).
 
 The kernel schedules paths, it does not change them. What bounds it on the
 H100 is divergence: with one thread a pixel, a warp ran until its longest
@@ -37,10 +50,8 @@ launch's stream before every launch; `stats` receives the kernel's
 counters (STATS: lane-slots, paths traced and shaded, distinct surface
 types a warp shades).
 
-The environment inputs of the reference's kernel (pre-sampled NEE
-candidates and the deferred miss pass) and its ray-input entry
-`trace_paths_fused` are not ported: the port has no environments and no
-camera that the in-kernel camera generation cannot make.
+The reference's ray-input entry `trace_paths_fused` is not ported: the port
+has no camera that the in-kernel camera generation cannot make.
 """
 
 from __future__ import annotations
@@ -86,6 +97,7 @@ _FUSED_SURFACES = ("matte", "mirror", "metal", "plastic", "glass", "disney")
 _F32_BIG = 3e38
 
 launches = 0
+env_launches = 0
 persistent_launches = 0
 
 
@@ -113,6 +125,8 @@ def _fold_surface(name, row, out):
     """Fill one inst_table row's surface columns from the surface's
     (constant-hoisted) parameter row; False if the fused kernel does not
     cover it."""
+    if any(k.endswith("__h") and int(v) >= 0 for k, v in row.items()):
+        return False  # a texture that varies: the kernel reads constants only
     out[17] = float(row.get("two_sided", 0.0))
     if name == "matte":
         sg = float(_vec(row, "sigma")[0]) * (np.pi / 180.0)
@@ -219,13 +233,19 @@ def _fold_surface(name, row, out):
 
 def build_fused_pack(surface_types, surface_rows, light_types, light_rows,
                      instances, light_entries, spectrum, num_tris, all_opaque,
-                     n_spheres=0):
+                     n_spheres=0, environment=None):
     """{"inst_table": (NI, INST_COLS), "entry_table": (max(NL, 1),
     ENTRY_COLS)} numpy tables when the scene qualifies for the fused
     kernel, else None. surface_rows / light_rows: per type, the list of
     hoisted parameter rows; instances / light_entries: the compiler's
-    per-instance and per-light-entry columns."""
+    per-instance and per-light-entry columns; environment: the scene's
+    environment node, if it has one (spherical and directional ones
+    qualify: their candidates and miss pass run outside the kernel)."""
     if not all_opaque:
+        return None
+    if environment is not None and type(environment).__name__ not in (
+        "SphericalEnvironment", "DirectionalEnvironment"
+    ):
         return None
     if num_tris > MAX_TRIS or n_spheres > MAX_SPHERES:
         return None
@@ -472,11 +492,21 @@ def _balance(pdf_a, pdf_b):
     return pdf_a / torch.clamp(pdf_a + pdf_b, min=1e-20)
 
 
+class EnvInputs(NamedTuple):
+    """The environment mode's inputs: the pre-sampled NEE candidates and the
+    light sampler's split."""
+
+    cand: torch.Tensor  # (max_depth, 7, N) float32: wi.xyz, pdf * p_env, L.rgb
+    p_env: float  # probability of picking the environment for NEE
+    env_distance: float  # an environment shadow ray ends this far away
+
+
 class _Plain:
     """paths_plain's state: the scene tables as host floats where the
     kernel reads scalars, and the per-lane path carry."""
 
-    def __init__(self, t: FusedTables, cam, pixel_xy, max_depth, rr_depth, rr_threshold):
+    def __init__(self, t: FusedTables, cam, pixel_xy, max_depth, rr_depth, rr_threshold,
+                 env: EnvInputs = None):
         self.t = t
         self.cam = {k: (v if k == "sampler_seed" else _f32(v)) for k, v in cam.items()}
         self.px = pixel_xy[:, 0].to(torch.int64)
@@ -484,7 +514,13 @@ class _Plain:
         self.max_depth = max_depth
         self.rr_depth = float(rr_depth)
         self.rr_threshold = _f32(rr_threshold)
-        self.p_light = _f32(1.0 / max(t.n_entry, 1))
+        p_env = env.p_env if env is not None else 0.0
+        self.p_light = _f32((1.0 - p_env) / max(t.n_entry, 1))
+        self.env = env
+        if env is not None:
+            self.p_env = _f32(p_env)
+            self.env_area_scale = _f32(1.0 / max(1.0 - p_env, 1e-8))
+            self.env_distance = _f32(env.env_distance)
         # every triangle row as a (P,) column, against rays as (N, 1)
         # columns; moller_trumbore's ok excludes padding rows (col 9 == 0)
         self.tri_cols = t.tri.unbind(-1)
@@ -509,9 +545,13 @@ class _Plain:
     def fresh(self, si):
         st, o, d = self.gen_from_cam(si)
         zero = torch.zeros_like(o[0])
-        return {"o": o, "d": d, "tmin": zero, "tmax": zero + _F32_BIG, "st": st,
-                "beta": (zero + 1.0,) * 3, "L": (zero,) * 3, "active": zero < 1.0,
-                "pdf_bsdf": zero + 1e16, "eta_scale": zero + 1.0}
+        s = {"o": o, "d": d, "tmin": zero, "tmax": zero + _F32_BIG, "st": st,
+             "beta": (zero + 1.0,) * 3, "L": (zero,) * 3, "active": zero < 1.0,
+             "pdf_bsdf": zero + 1e16, "eta_scale": zero + 1.0}
+        if self.env is not None:
+            # the escape state: beta.rgb, pdf_bsdf, dir.xyz
+            s["esc"] = (zero,) * 6 + (zero + 1.0,)
+        return s
 
     def closest(self, o, d, tmin, tmax):
         """Closest hit over the triangle rows, then the spheres: the
@@ -558,8 +598,9 @@ class _Plain:
             occ = occ | ((disc > 0.0) & (((t0 > 0.0) & (t0 < s_tmax)) | ((t1 > 0.0) & (t1 < s_tmax))))
         return occ
 
-    def bounce(self, s, dep, nrays):
-        """One bounce of every lane; returns nrays. dep: per-lane depth."""
+    def bounce(self, s, dep, nrays, dep_i=0):
+        """One bounce of every lane; returns nrays. dep: per-lane depth;
+        dep_i: the bounce (the environment mode's candidate row)."""
         t = self.t
         where = torch.where
         o, d = s["o"], s["d"]
@@ -595,6 +636,11 @@ class _Plain:
 
         wo = [-x for x in d]
         valid = hitv & active
+        if self.env is not None:
+            # the escape latch: a path escapes at most once
+            miss_now = active & ~hitv
+            now = (*s["beta"], s["pdf_bsdf"], *d)
+            s["esc"] = tuple(where(miss_now, a, b) for a, b in zip(now, s["esc"]))
         ic = _instance_consts(t.inst, inst_f.to(torch.int64), valid)
 
         # emissive hit
@@ -626,34 +672,58 @@ class _Plain:
         wo_ng = fb.dot3(*wo, *ng)
         wo_ns = fb.dot3(*wo, *fn)
 
-        if t.n_entry > 0:
-            ne = float(t.n_entry)
-            u_rel = torch.clamp(u_sel, 0.0, rng.ONE_MINUS_EPSILON)
-            entry_f = torch.clamp(torch.floor(u_rel * ne), max=ne - 1.0)
-            erow = t.entry[entry_f.to(torch.int64)]
-            al_off, tri_cnt, tot_area = erow[:, 0], erow[:, 1], erow[:, 2]
-            ux = u_l0 * tri_cnt
-            i0 = torch.clamp(torch.minimum(torch.floor(ux), tri_cnt - 1.0), min=0.0)
-            up = ux - i0
-            g0 = (al_off + i0).to(torch.int64)
-            lrow0 = t.light[g0]
-            take_alias = up >= lrow0[:, 18]
-            g = where(take_alias, (al_off + lrow0[:, 19]).to(torch.int64), g0)
-            lrow = t.light[g]
-            su = torch.sqrt(torch.clamp(up, min=0.0))
-            b0 = 1.0 - su
-            b1 = u_l1 * su
-            b2 = 1.0 - b0 - b1
-            lp = [lrow[:, k] + b1 * lrow[:, 3 + k] + b2 * lrow[:, 6 + k] for k in range(3)]
-            lng = [lrow[:, 9 + k] for k in range(3)]
+        env = self.env
+        if t.n_entry > 0 or env is not None:
+            zero = torch.zeros_like(u_sel)
+            if env is not None:
+                ev = env.cand[dep_i].unbind(0)  # this bounce's candidate
+                pick_env = u_sel < self.p_env
+            if t.n_entry > 0:
+                u_area = u_sel
+                if env is not None:
+                    u_area = (u_sel - self.p_env) * self.env_area_scale
+                ne = float(t.n_entry)
+                u_rel = torch.clamp(u_area, 0.0, rng.ONE_MINUS_EPSILON)
+                entry_f = torch.clamp(torch.floor(u_rel * ne), max=ne - 1.0)
+                erow = t.entry[entry_f.to(torch.int64)]
+                al_off, tri_cnt, tot_area = erow[:, 0], erow[:, 1], erow[:, 2]
+                ux = u_l0 * tri_cnt
+                i0 = torch.clamp(torch.minimum(torch.floor(ux), tri_cnt - 1.0), min=0.0)
+                up = ux - i0
+                g0 = (al_off + i0).to(torch.int64)
+                lrow0 = t.light[g0]
+                take_alias = up >= lrow0[:, 18]
+                g = where(take_alias, (al_off + lrow0[:, 19]).to(torch.int64), g0)
+                lrow = t.light[g]
+                su = torch.sqrt(torch.clamp(up, min=0.0))
+                b0 = 1.0 - su
+                b1 = u_l1 * su
+                b2 = 1.0 - b0 - b1
+                lp = [lrow[:, k] + b1 * lrow[:, 3 + k] + b2 * lrow[:, 6 + k] for k in range(3)]
+                lng = [lrow[:, 9 + k] for k in range(3)]
+            else:
+                lp = list(p)
+                lng = [zero, zero, zero + 1.0]
+            if env is not None:
+                # the environment's target: a far point along the candidate,
+                # facing back
+                lp = [where(pick_env, p[k] + ev[k] * self.env_distance, lp[k]) for k in range(3)]
+                lng = [where(pick_env, -ev[k], lng[k]) for k in range(3)]
             wl = [lp[k] - p[k] for k in range(3)]
             wl2 = wl[0] * wl[0] + wl[1] * wl[1] + wl[2] * wl[2]
             inv_wl = 1.0 / torch.clamp(torch.sqrt(torch.clamp(wl2, min=0.0)), min=1e-12)
             wi = [x * inv_wl for x in wl]
-            cos_ll = fb.dot3(-wi[0], -wi[1], -wi[2], *lng)
-            lit_l = (cos_ll > 1e-6) | ((erow[:, 7] > 0.5) & (torch.abs(cos_ll) > 1e-6))
-            pdf_nee = where(lit_l, wl2 / torch.clamp(torch.abs(cos_ll) * tot_area, min=1e-12), 0.0) * self.p_light
-            Ln = [where(lit_l, erow[:, 4 + k], 0.0) for k in range(3)]
+            if t.n_entry > 0:
+                cos_ll = fb.dot3(-wi[0], -wi[1], -wi[2], *lng)
+                lit_l = (cos_ll > 1e-6) | ((erow[:, 7] > 0.5) & (torch.abs(cos_ll) > 1e-6))
+                pdf_nee = where(lit_l, wl2 / torch.clamp(torch.abs(cos_ll) * tot_area, min=1e-12), 0.0) * self.p_light
+                Ln = [where(lit_l, erow[:, 4 + k], 0.0) for k in range(3)]
+            else:
+                pdf_nee = zero
+                Ln = [zero, zero, zero]
+            if env is not None:
+                pdf_nee = where(pick_env, ev[3], pdf_nee)
+                Ln = [where(pick_env, ev[4 + k], Ln[k]) for k in range(3)]
             pending = active & (pdf_nee > 0.0)
             nrays = nrays + pending.to(torch.int32)
 
@@ -719,11 +789,12 @@ class _Plain:
 
 
 def paths_plain(t: FusedTables, cam, pixel_xy, sample_index, n_samples, *,
-                max_depth, rr_depth, rr_threshold):
-    """Plain version of the kernel: (rgb (N, 3) float32, rays (N,) int32).
+                max_depth, rr_depth, rr_threshold, env: EnvInputs = None):
+    """Plain version of the kernel: (rgb (N, 3) float32, rays (N,) int32),
+    and with `env` (megapath only) the escape state (7, N) float32 third.
     n_samples == 0: one sample, index sample_index; else the sum of
     n_samples samples from sample_index on, regenerated per lane."""
-    pl = _Plain(t, cam, pixel_xy, max_depth, rr_depth, rr_threshold)
+    pl = _Plain(t, cam, pixel_xy, max_depth, rr_depth, rr_threshold, env)
     n = pixel_xy.shape[0]
     si0 = torch.full((n,), int(sample_index), dtype=torch.int64, device=pixel_xy.device)
     s = pl.fresh(si0)
@@ -732,8 +803,12 @@ def paths_plain(t: FusedTables, cam, pixel_xy, sample_index, n_samples, *,
         for i in range(max_depth):
             if not bool(s["active"].any()):
                 break
-            nrays = pl.bounce(s, float(i), nrays)
+            nrays = pl.bounce(s, float(i), nrays, i)
+        if env is not None:
+            return torch.stack(s["L"], dim=-1), nrays, torch.stack(s["esc"], dim=0)
         return torch.stack(s["L"], dim=-1), nrays
+    if env is not None:
+        raise ValueError("the persistent mode takes no environment")
     zero = torch.zeros((n,), dtype=torch.float32, device=pixel_xy.device)
     samp = torch.zeros_like(si0)
     dep = zero
@@ -776,6 +851,8 @@ class _Params(ctypes.Structure):
         ("rr_depth", ctypes.c_int), ("n", ctypes.c_int), ("n_tri", ctypes.c_int),
         ("n_sph", ctypes.c_int), ("n_inst", ctypes.c_int), ("n_entry", ctypes.c_int),
         ("n_light_tri", ctypes.c_int), ("flat_normals", ctypes.c_int),
+        ("has_env", ctypes.c_int), ("p_env", ctypes.c_float),
+        ("env_area_scale", ctypes.c_float), ("env_distance", ctypes.c_float),
     ]
 
 
@@ -792,9 +869,9 @@ def _library():
 
         lib = load_library("fused_path")
         ptr = ctypes.c_void_p
-        lib.fused_path.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
+        lib.fused_path.argtypes = [ptr] * 14 + [ctypes.c_int, ptr]
         lib.fused_path.restype = ctypes.c_int
-        lib.fused_path_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.fused_path_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.fused_path_blocks_per_sm.restype = ctypes.c_int
         lib.fused_path_pool_bytes.argtypes = []
         lib.fused_path_pool_bytes.restype = ctypes.c_int
@@ -802,10 +879,11 @@ def _library():
     return _LIB
 
 
-def blocks_per_sm(device) -> int:
-    """Blocks of the kernel resident on one SM of a CUDA device, as the
-    occupancy query gives it (the launch sizes its grid from it)."""
-    return _library().fused_path_blocks_per_sm(torch.device(device).index or 0)
+def blocks_per_sm(device, env=False) -> int:
+    """Blocks of the kernel (its environment mode with env) resident on one
+    SM of a CUDA device, as the occupancy query gives it (the launch sizes
+    its grid from it)."""
+    return _library().fused_path_blocks_per_sm(torch.device(device).index or 0, int(env))
 
 
 def pool_bytes() -> int:
@@ -813,8 +891,16 @@ def pool_bytes() -> int:
     return _library().fused_path_pool_bytes()
 
 
-def _check(t: FusedTables, pixel_xy):
+def _check(t: FusedTables, pixel_xy, env=None, n_samples=0, max_depth=0):
     dev = pixel_xy.device
+    if env is not None:
+        c = env.cand
+        if n_samples:
+            raise ValueError("the persistent mode takes no environment")
+        if (c.device != dev or c.dtype != torch.float32 or not c.is_contiguous()
+                or tuple(c.shape) != (max_depth, 7, pixel_xy.shape[0])):
+            raise ValueError(f"env candidates must be a contiguous float32 (max_depth, 7, N) "
+                             f"tensor on {dev}, got {tuple(c.shape)} {c.dtype} on {c.device}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     if pixel_xy.dtype != torch.int32 or pixel_xy.dim() != 2 or pixel_xy.shape[1] != 2:
@@ -839,14 +925,15 @@ def _check(t: FusedTables, pixel_xy):
 
 
 def params(t: FusedTables, cam, n, sample_index, n_samples, max_depth, rr_depth,
-           rr_threshold) -> _Params:
+           rr_threshold, env: EnvInputs = None) -> _Params:
     """The kernel's FusedParams for n lanes."""
     prm = _Params()
     for k, name in enumerate(f"c{r}{c}" for r in range(3) for c in range(4)):
         prm.cam[k] = cam[name]
     prm.s, prm.radius, prm.resx, prm.resy = cam["s"], cam["radius"], cam["resx"], cam["resy"]
     prm.rr_threshold = rr_threshold
-    prm.p_light = 1.0 / max(t.n_entry, 1)
+    p_env = env.p_env if env is not None else 0.0
+    prm.p_light = (1.0 - p_env) / max(t.n_entry, 1)
     prm.seed = cam["sampler_seed"]
     prm.sample_index = int(sample_index)
     prm.n_samples = int(n_samples)
@@ -854,6 +941,11 @@ def params(t: FusedTables, cam, n, sample_index, n_samples, max_depth, rr_depth,
     prm.n_tri, prm.n_sph, prm.n_inst = t.tri.shape[0], t.sph.shape[0], t.inst.shape[0]
     prm.n_entry, prm.n_light_tri = t.n_entry, t.light.shape[0]
     prm.flat_normals = int(t.flat_normals)
+    if env is not None:
+        prm.has_env = 1
+        prm.p_env = p_env
+        prm.env_area_scale = 1.0 / max(1.0 - p_env, 1e-8)
+        prm.env_distance = env.env_distance
     return prm
 
 
@@ -866,55 +958,120 @@ def table_ptrs(t: FusedTables):
 
 
 def paths(t: FusedTables, cam, pixel_xy, sample_index, n_samples=0, *,
-          max_depth, rr_depth, rr_threshold, stats=None):
+          max_depth, rr_depth, rr_threshold, stats=None, env: EnvInputs = None):
     """The fused kernel on CUDA tensors, its plain version on CPU tensors:
-    (rgb (N, 3) float32, rays (N,) int32); see paths_plain. `stats`, a
-    CUDA int64 tensor of len(STATS), receives the kernel's counters (added
-    to it)."""
-    global launches, persistent_launches
-    _check(t, pixel_xy)
+    (rgb (N, 3) float32, rays (N,) int32), and with `env` the escape state
+    (7, N) float32 third; see paths_plain. `stats`, a CUDA int64 tensor of
+    len(STATS), receives the kernel's counters (added to it)."""
+    global launches, env_launches, persistent_launches
+    _check(t, pixel_xy, env, n_samples, max_depth)
     kw = dict(max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
     if pixel_xy.device.type == "cpu":
-        return paths_plain(t, cam, pixel_xy, sample_index, n_samples, **kw)
+        return paths_plain(t, cam, pixel_xy, sample_index, n_samples, env=env, **kw)
     dev = pixel_xy.device
     n = pixel_xy.shape[0]
     rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rays = torch.empty((n,), dtype=torch.int32, device=dev)
+    esc = torch.empty((7, n), dtype=torch.float32, device=dev) if env is not None else None
+    out = (rgb, rays) if env is None else (rgb, rays, esc)
     if n == 0:
-        return rgb, rays
+        return out
     if stats is not None and (stats.device != dev or stats.dtype != torch.int64
                               or stats.shape != (len(STATS),) or not stats.is_contiguous()):
         raise ValueError(f"stats must be a contiguous int64 ({len(STATS)},) tensor on {dev}")
-    prm = params(t, cam, n, sample_index, n_samples, **kw)
+    prm = params(t, cam, n, sample_index, n_samples, env=env, **kw)
     ptrs, _sph = table_ptrs(t)
     work = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the C function
     err = _library().fused_path(
-        ctypes.addressof(prm), pixel_xy.data_ptr(), *ptrs, rgb.data_ptr(), rays.data_ptr(),
-        work.data_ptr(), None if stats is None else stats.data_ptr(), dev.index or 0,
+        ctypes.addressof(prm), pixel_xy.data_ptr(), *ptrs,
+        None if env is None else env.cand.data_ptr(), rgb.data_ptr(), rays.data_ptr(),
+        None if esc is None else esc.data_ptr(), work.data_ptr(),
+        None if stats is None else stats.data_ptr(), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_path kernel launch failed: CUDA error {err}")
     if n_samples:
         persistent_launches += 1
+    elif env is not None:
+        env_launches += 1
     else:
         launches += 1
-    return rgb, rays
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the environment mode's candidates and miss pass (PyTorch, before and after
+# the launch)
+# ---------------------------------------------------------------------------
+
+
+def env_nee_candidates(compiled, cam, pixel_xy, sample_index, max_depth, p_env):
+    """Each lane's environment NEE candidate of every bounce, (max_depth, 7,
+    N) float32: wi.xyz, pdf * p_env, L.rgb. The kernel draws 7 uniforms a
+    bounce (u_sel, u_light.xy, u_lobe, u_bsdf.xy, u_rr) after the seed and
+    the camera's 2, so the environment sample a bounce would draw is
+    reproduced here from the same stream: draws 2-3 of bounce d are LCG
+    steps 7d + 4 and 7d + 5 after the seed, jumped to directly
+    (core/rng.py lcg_states) and sampled for every bounce at once. An
+    environment's directions do not depend on the shading point, which
+    makes the hoist exact."""
+    env = compiled.scene.environment
+    n = pixel_xy.shape[0]
+    dev = pixel_xy.device
+    si = torch.full((n,), int(sample_index), dtype=torch.int64, device=dev)
+    seed = rng.seed_pixels(pixel_xy[:, 0].to(torch.int64), pixel_xy[:, 1].to(torch.int64),
+                           si, int(cam["sampler_seed"]))
+    ks = [7 * d + 4 for d in range(max_depth)] + [7 * d + 5 for d in range(max_depth)]
+    u = rng.uniform_u32_to_float(rng.lcg_states(seed, ks))  # (2 * max_depth, N)
+    u = torch.stack([u[:max_depth].reshape(-1), u[max_depth:].reshape(-1)], dim=-1)
+    m = max_depth * n
+    s = env.sample(compiled, torch.zeros((m, 3), dtype=torch.float32, device=dev), u,
+                   compiled.spectrum.sample_wavelengths(m, dev))
+    rows = torch.cat([s["wi"], (s["pdf"] * _f32(p_env))[:, None], s["L"]], dim=-1)
+    return rows.reshape(max_depth, n, 7).transpose(1, 2).contiguous()
+
+
+def miss_pass(compiled, rgb, esc, p_env):
+    """rgb (N, 3) plus the environment's radiance at each pixel's escape
+    direction, with its MIS weight against the escaping BSDF sample:
+    beta * L_env * balance(pdf_bsdf, pdf_env * p_env). esc: the kernel's
+    escape state (7, N)."""
+    env = compiled.scene.environment
+    n = rgb.shape[0]
+    swl = compiled.spectrum.sample_wavelengths(n, rgb.device)
+    ev = env.evaluate(compiled, esc[4:7].T, swl)
+    w = _balance(esc[3], ev["pdf"] * _f32(p_env))
+    return rgb + esc[0:3].T * ev["L"] * w[..., None]
 
 
 def trace_paths_fused_camgen(compiled, cam, pixel_xy, sample_index, *, max_depth,
-                             rr_depth, rr_threshold):
+                             rr_depth, rr_threshold, light_sampler=None):
     """One sample of each pixel of pixel_xy (N, 2) int32 in one launch:
-    (rgb (N, 3), rays traced (a 0-dim int64 tensor))."""
-    rgb, rays = paths(fused_tables(compiled), cam, pixel_xy, sample_index, 0,
-                      max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
-    return rgb, rays.sum(dtype=torch.int64)
+    (rgb (N, 3), rays traced (a 0-dim int64 tensor)). A scene with an
+    environment makes its candidates first and runs the miss pass after."""
+    kw = dict(max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
+    t = fused_tables(compiled)
+    if not compiled.plan.has_environment:
+        rgb, rays = paths(t, cam, pixel_xy, sample_index, 0, **kw)
+        return rgb, rays.sum(dtype=torch.int64)
+    p_env = light_sampler.selection_probs(compiled)[0]
+    env = EnvInputs(
+        cand=env_nee_candidates(compiled, cam, pixel_xy, sample_index, max_depth, p_env),
+        p_env=p_env, env_distance=compiled.plan.env_distance,
+    )
+    rgb, rays, esc = paths(t, cam, pixel_xy, sample_index, 0, env=env, **kw)
+    return miss_pass(compiled, rgb, esc, p_env), rays.sum(dtype=torch.int64)
 
 
 def trace_paths_fused_persistent(compiled, cam, pixel_xy, sample_index0, n_samples, *,
                                  max_depth, rr_depth, rr_threshold):
     """n_samples samples of each pixel in one launch: (the SUM of their rgb
-    (N, 3), rays traced)."""
+    (N, 3), rays traced). Scenes with an environment take the megapath
+    mode instead: regeneration makes a lane's draw offsets depend on its
+    path lengths, so no candidate could be pre-sampled."""
+    if compiled.plan.has_environment:
+        raise ValueError("the persistent fused mode does not take environments")
     rgb, rays = paths(fused_tables(compiled), cam, pixel_xy, sample_index0, n_samples,
                       max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
     return rgb, rays.sum(dtype=torch.int64)

@@ -19,9 +19,13 @@ Every scene keeps the binary SAH tree (`aabb_min`, `aabb_max`, `skip`,
 `node_first`, `node_count`; `bvh_leaf_size` on the plan), the tree of
 ops/trace.py. Spheres that qualify
 (`analytic_sphere`) are exact quadrics in their own table instead of
-triangles. A scene the fused kernel covers also gets its per-instance
-tables (`arrays["fused"]`, see ops/fused_path.py build_fused_pack).
-Two-level instancing, media and environments raise.
+triangles. Textures compile to handles and rows of per-type tables
+(`arrays["textures"]`, textures/base.py); the environment, when the scene
+has one, to its own tables (`arrays["environment"]`) and the plan's
+`env_distance`, twice the diagonal of the real geometry's bounds plus one.
+A scene the fused kernel covers also gets its per-instance tables
+(`arrays["fused"]`, see ops/fused_path.py build_fused_pack). Two-level
+instancing and media raise.
 """
 
 from __future__ import annotations
@@ -60,6 +64,11 @@ class ScenePlan:
     fused_path: bool = False  # the fused kernel covers the scene
     bvh_leaf_size: int = 4  # triangles a leaf of the binary SAH tree at most
     bvh8_stack: int = 0  # the 8-wide walk's stack bound; 0 without its tables
+    texture_types: tuple = ()  # Texture classes; index == handle type tag
+    texture_type_used: tuple = ()  # bool per texture type
+    has_environment: bool = False
+    env_distance: float = 0.0  # NEE towards the environment ends this far away
+    needs_uv: bool = False  # a texture that reads the hit's uv is present
 
 
 @dataclass
@@ -115,10 +124,18 @@ def tables_to_device(arrays_np: dict, device) -> dict:
 
 
 def stack_rows(rows_list):
-    """Per-type lists of row dicts -> per-type dicts of stacked columns."""
-    return [
-        {k: np.stack([r[k] for r in rows]) for k in rows[0]} for rows in rows_list
-    ]
+    """Per-type lists of row dicts -> per-type dicts of stacked columns. A
+    texture parameter's handle column (`<name>__h`, textures/base.py) is
+    dropped where no row has a varying texture, so such a type never
+    evaluates textures."""
+    out = []
+    for rows in rows_list:
+        d = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+        for k in [k for k in d if k.endswith("__h")]:
+            if np.all(d[k] < 0):
+                del d[k]
+        out.append(d)
+    return out
 
 
 class SceneCompiler:
@@ -131,6 +148,26 @@ class SceneCompiler:
         self._light_types: list = []
         self._light_rows: list = []
         self._light_cache: dict = {}
+        self._texture_types: list = []
+        self._texture_rows: list = []
+        self._texture_cache: dict = {}  # id(node) -> handle
+
+    def register_texture_row(self, cls, row: dict) -> int:
+        from ..textures.base import make_handle
+
+        if cls not in self._texture_types:
+            self._texture_types.append(cls)
+            self._texture_rows.append([])
+        type_id = self._texture_types.index(cls)
+        rows = self._texture_rows[type_id]
+        rows.append(row)
+        return make_handle(type_id, len(rows) - 1)
+
+    def compile_texture(self, node) -> int:
+        key = id(node)
+        if key not in self._texture_cache:
+            self._texture_cache[key] = node.compile(self)
+        return self._texture_cache[key]
 
     def compile_surface(self, node):
         key = id(node)
@@ -319,6 +356,11 @@ class SceneCompiler:
         tri_inst = np.concatenate(all_ti, axis=0)
         num_tris = triangles.shape[0]
 
+        env = scene.environment
+        has_env = env is not None and not env.is_null
+        if has_env:
+            env.compile(self)
+
         # shadow blockers: anything with a surface or a light
         inst_blocks = (np.asarray(inst_rows["surface_tag"]) >= 0) | (
             np.asarray(inst_rows["light_tag"]) >= 0
@@ -332,6 +374,28 @@ class SceneCompiler:
         tv1 = vertex_p[sorted_tris[:, 1]]
         tv2 = vertex_p[sorted_tris[:, 2]]
 
+        env_distance = 0.0
+        if has_env:
+            # world bounds of the real geometry (not the far padding triangle
+            # of a spheres-only scene, which would put env_distance out of
+            # float32's squared range)
+            real_p = vertex_p[np.abs(vertex_p).max(axis=-1) < 1e29]
+            mins = [real_p.min(axis=0)] if real_p.size else []
+            maxs = [real_p.max(axis=0)] if real_p.size else []
+            for _, center, radius, _ in sphere_rows:
+                mins.append(center - radius)
+                maxs.append(center + radius)
+            if not mins:
+                mins, maxs = [vertex_p.min(axis=0)], [vertex_p.max(axis=0)]
+            extent = np.maximum.reduce(maxs) - np.minimum.reduce(mins)
+            env_distance = float(np.linalg.norm(extent)) * 2.0 + 1.0
+
+        lights = stack_rows(self._light_rows)
+        if any(k.endswith("__h") for t in lights for k in t):
+            raise NotImplementedError(
+                "a light whose emission is a texture other than a constant is "
+                "not supported by luisarender_tpu_torch yet"
+            )
         arrays = {
             "instances": {
                 k: np.asarray(v, np.int32) for k, v in inst_rows.items()
@@ -348,7 +412,11 @@ class SceneCompiler:
                 else np.zeros((1, 24), np.float32)
             ),
             "surfaces": stack_rows(self._surface_rows),
-            "lights": stack_rows(self._light_rows),
+            "lights": lights,
+            "textures": {
+                cls.impl_names[0]: stack_rows([rows])[0]
+                for cls, rows in zip(self._texture_types, self._texture_rows) if rows
+            },
             "trace": {
                 "tri_v0": tv0,
                 "tri_e1": tv1 - tv0,
@@ -395,10 +463,13 @@ class SceneCompiler:
                 sph[si, 13] = float(iid)
                 sph[si, 14] = 1.0  # opaque: an analytic sphere has a surface
             arrays["trace"]["sph"] = sph
+        if has_env:
+            arrays["environment"] = env.device_arrays()
         fused = build_fused_pack(
             self._surface_types, self._surface_rows, self._light_types,
             self._light_rows, inst_rows, light_entries, self.spectrum,
             int(tv0.shape[0]), bool(np.all(inst_blocks)), n_spheres=len(sphere_rows),
+            environment=env if has_env else None,
         )
         if fused is not None:
             arrays["fused"] = fused
@@ -412,6 +483,12 @@ class SceneCompiler:
             fused_path=fused is not None,
             bvh_leaf_size=int(bvh.leaf_size),
             bvh8_stack=bvh8_stack,
+            texture_types=tuple(self._texture_types),
+            texture_type_used=tuple(bool(rows) for rows in self._texture_rows),
+            has_environment=has_env,
+            env_distance=env_distance,
+            needs_uv=any(rows and cls.impl_names[0] != "constant"
+                         for cls, rows in zip(self._texture_types, self._texture_rows)),
         )
         return arrays, plan
 

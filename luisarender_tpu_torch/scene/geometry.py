@@ -101,10 +101,11 @@ def build_shade_table(
     return table
 
 
-def surface_interaction(arrays, hit: Hit, ray) -> Interaction:
+def surface_interaction(arrays, hit: Hit, ray, needs_uv: bool = True) -> Interaction:
     """Interaction at each hit: one shade-row gather + interpolation, or, for
     an analytic-sphere hit (prim = P + sphere index), the exact quadric's
-    point, normal and tangent rebuilt from its (u, v)."""
+    point, normal and tangent rebuilt from its (u, v). needs_uv (the plan's:
+    a texture reads uv) False leaves uv at zero and skips interpolating it."""
     shade = arrays["trace"]["shade_table"]
     row = shade[torch.clamp(hit.prim, 0, shade.shape[0] - 1)]
     valid = (hit.prim >= 0) & (row[..., 32] > 0.0)
@@ -143,11 +144,14 @@ def surface_interaction(arrays, hit: Hit, ray) -> Interaction:
     # keep the shading normal in the geometric normal's hemisphere
     ns = torch.where((fr.dot(ns, ng) < 0.0)[..., None], -ns, ns)
 
-    uv = (
-        w[..., None] * row[..., 22:24]
-        + u[..., None] * row[..., 24:26]
-        + v[..., None] * row[..., 26:28]
-    )
+    if needs_uv:
+        uv = (
+            w[..., None] * row[..., 22:24]
+            + u[..., None] * row[..., 24:26]
+            + v[..., None] * row[..., 26:28]
+        )
+    else:
+        uv = torch.zeros_like(hit.bary)
     tangent = row[..., 28:31]
     inst = row[..., 31].to(torch.int32)
 
@@ -179,7 +183,8 @@ def surface_interaction(arrays, hit: Hit, ray) -> Interaction:
         t_w = torch.where((st > 1e-6)[..., None], t_w, fr.make_frame(n_w)["s"])
         m = is_sph[..., None]
         p = torch.where(m, p_sph, p)
-        uv = torch.where(m, hit.bary, uv)
+        if needs_uv:
+            uv = torch.where(m, hit.bary, uv)
         ng = torch.where(m, n_w, ng)
         ns = torch.where(m, n_w, ns)
         tangent = torch.where(m, t_w, tangent)

@@ -109,6 +109,9 @@ class Scene:
     def load_texture(self, desc):
         return self.load_node(SceneNodeTag.TEXTURE, desc)
 
+    def load_texture_mapping(self, desc):
+        return self.load_node(SceneNodeTag.TEXTURE_MAPPING, desc)
+
     def load_spectrum(self, desc):
         return self.load_node(SceneNodeTag.SPECTRUM, desc)
 

@@ -5,7 +5,9 @@ parameter row per instance; the device closures are static `evaluate` /
 `sample` methods over gathered rows. `dispatch` is the reference's
 compute-all form: every surface type present runs on every lane and a tag
 mask selects (its tag-sorted alternative is off by default there and is not
-ported).
+ported). Texture parameters arrive hoisted in the rows; where a row names a
+texture that varies, `dispatch` evaluates it at the hit first
+(textures/base.py evaluate_tex_params).
 
 Conventions: `f` includes |cos(theta_i)|; pdf is in solid angle and 0 marks
 an invalid sample; wo points away from the surface.
@@ -18,6 +20,7 @@ import torch
 
 from ..core import frame as fr
 from ..scene.scene import SceneNode
+from ..textures.base import evaluate_tex_params
 
 # surface event codes
 EVENT_REFLECT = 0
@@ -100,6 +103,7 @@ def dispatch(ctx, it, method, *args, init):
     for t, surf_cls in enumerate(ctx.plan.surface_types):
         mask = it.valid & (tag == t)
         rows = gather_rows(ctx.arrays["surfaces"][t], index)
+        rows = evaluate_tex_params(ctx, rows, it, surf_cls.texture_params)
         value = getattr(surf_cls, method)(rows, ctx, it, *args)
         result = {k: _select(mask, value[k], result[k]) for k in result}
     return result

@@ -78,7 +78,7 @@ class DisneySurface(Surface):
     def compile(self, compiler) -> dict:
         return {
             **self.compile_common(),
-            **compile_tex_params(self),
+            **compile_tex_params(self, compiler),
             "thin": np.float32(1.0 if self.thin else 0.0),
             "remap_roughness": np.float32(1.0 if self.remap_roughness else 0.0),
         }

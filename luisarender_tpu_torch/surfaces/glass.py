@@ -124,7 +124,7 @@ class GlassSurface(Surface):
     def compile(self, compiler) -> dict:
         return {
             **self.compile_common(),
-            **compile_tex_params(self),
+            **compile_tex_params(self, compiler),
             **roughness_row(self),
             "cauchy_a": np.float32(self.cauchy[0]),
             "cauchy_b": np.float32(self.cauchy[1]),

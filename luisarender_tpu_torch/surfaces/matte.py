@@ -28,7 +28,7 @@ class MatteSurface(Surface):
         self.sigma = scene.load_texture(desc.node("sigma"))
 
     def compile(self, compiler) -> dict:
-        return {**self.compile_common(), **compile_tex_params(self)}
+        return {**self.compile_common(), **compile_tex_params(self, compiler)}
 
     # --- device closure ---
 

@@ -150,7 +150,7 @@ class MetalSurface(Surface):
         ld = self.ld
         return {
             **self.compile_common(),
-            **compile_tex_params(self),
+            **compile_tex_params(self, compiler),
             **roughness_row(self),
             "eta_n": self.n3,
             "eta_k": self.k3,

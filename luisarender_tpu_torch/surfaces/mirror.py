@@ -90,7 +90,7 @@ class MirrorSurface(Surface):
         self.remap_roughness = desc.bool("remap_roughness", True)
 
     def compile(self, compiler) -> dict:
-        return {**self.compile_common(), **compile_tex_params(self), **roughness_row(self)}
+        return {**self.compile_common(), **compile_tex_params(self, compiler), **roughness_row(self)}
 
     @staticmethod
     def _eval_local(params, ctx, swl, wo_l, wi_l):

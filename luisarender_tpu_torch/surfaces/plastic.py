@@ -43,7 +43,7 @@ class PlasticSurface(Surface):
         self.remap_roughness = desc.bool("remap_roughness", True)
 
     def compile(self, compiler) -> dict:
-        return {**self.compile_common(), **compile_tex_params(self), **roughness_row(self)}
+        return {**self.compile_common(), **compile_tex_params(self, compiler), **roughness_row(self)}
 
     @staticmethod
     def _ctx(params, ctx, swl):

@@ -174,13 +174,15 @@ def cornell_sphere(resolution=(48, 48), spp=8, depth=5):
 
 def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5):
     """The reference's bedroom-class scene (luisarender_tpu/testing.py
-    mesh_heavy) with two parts replaced until their modules are ported:
-    n x n icosphere meshes (subdivision `subdiv`, 20 * 4^subdiv triangles
-    each) with Disney surfaces over a 1000 x 1000 floor quad, lit by a
-    diffuse panel with a `null` surface. The defaults give 512,004
-    triangles at 1280 x 720. Replaced: the floor's checkerboard Kd is the
-    constant [0.725, 0.71, 0.68] (its "on" colour), and the `spherical`
-    environment is left out. The dict renders on both packages."""
+    mesh_heavy, textured=False): n x n icosphere meshes (subdivision
+    `subdiv`, 20 * 4^subdiv triangles each) with Disney surfaces over a
+    1000 x 1000 floor quad with a checkerboard Kd, lit by a diffuse panel
+    with a `null` surface and a constant spherical environment [0.4, 0.5,
+    0.7]. The defaults give 512,004 triangles at 1280 x 720. As in the
+    reference, the checkerboard's "scale" is no property of the texture
+    (its scale is `uv_scale`), and the floor quad has no uvs, so the
+    checkerboard reads its "on" colour everywhere while it still runs the
+    texture evaluation. The dict renders on both packages."""
 
     def quad(p0, p1, p2, p3, surface, light=None):
         prop = {
@@ -192,8 +194,12 @@ def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5):
             prop["light"] = light
         return {"impl": "inlinemesh", "prop": prop}
 
-    floor_mat = {"impl": "matte", "prop": {
-        "Kd": {"impl": "constant", "prop": {"v": [0.725, 0.71, 0.68]}}}}
+    checker = {"impl": "checkerboard", "prop": {
+        "on": {"impl": "constant", "prop": {"v": [0.725, 0.71, 0.68]}},
+        "off": {"impl": "constant", "prop": {"v": [0.2, 0.2, 0.25]}},
+        "scale": [16.0, 16.0],
+    }}
+    floor_mat = {"impl": "matte", "prop": {"Kd": checker}}
     size = 1000.0
     shapes = [
         quad([0, 0, 0], [size, 0, 0], [size, 0, size], [0, 0, size], floor_mat),
@@ -245,6 +251,9 @@ def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5):
                 },
             }],
             "integrator": {"impl": "megapath", "prop": {"depth": depth}},
+            "environment": {"impl": "spherical", "prop": {
+                "emission": {"impl": "constant", "prop": {"v": [0.4, 0.5, 0.7]}},
+            }},
             "shapes": shapes,
         }
     }

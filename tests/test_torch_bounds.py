@@ -5,7 +5,9 @@ occluder among the opaque rows, and a dead lane counts no rows and no ray
 bytes. Its bound of the subpacket kernels (tree_bound) on
 torch_parity.woop_ties_bvh8: the bytes of the rays, the popped nodes and
 13 (or 22) columns of each valid row of the tested clusters, and one of
-each padding row.
+each padding row. Its bound of the fused kernel's environment mode
+(plain_counted, fused_bound) on a 16^2 env Cornell box: the candidates
+that NEE picks and the area-light samples it takes, and no others.
 
 The row is the triangle v0 = 0, e1 = x, e2 = y; a ray from (x, y, 1) along
 -z meets it at u = x, v = y, t = 1, exactly in float32.
@@ -108,3 +110,44 @@ def test_subpacket_bound_counts_woop_columns(kind):
     for cols, (ms, by) in bounds.items():
         assert by == "bytes"
         assert ms == pytest.approx((base + 6 * cols * 4) / cs.PEAK_BYTES_PER_S * 1e3, rel=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["spherical", "env_only"])
+def test_fused_env_bound_counts_the_picked_candidates(kind):
+    """Every surface lane's NEE picks the environment or an area light
+    (only the environment without area lights); a constant map's
+    candidates all have pdf > 0. Bytes: 24 B of pixel ids, rgb and rays and
+    28 B of escape state a lane, and 28 B a picked candidate; operations:
+    the area-light sample (and u_sel's rest) only where NEE takes it, the
+    environment's far point where it picks the environment."""
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+    from luisarender_tpu_torch.ops import fused_path as fp
+
+    res, depth = 16, 3
+    scene = cs.env_scene(lt, kind, res=res, depth=depth)
+    compiled = lt.compile_scene(scene, device="cpu")
+    integ = scene.integrator
+    cam = fp.camgen_params(scene.cameras[0], integ.sampler.seed)
+    pxy = pixel_grid(res, res, "cpu")
+    tables = fp.fused_tables(compiled)
+    p_env = integ.light_sampler.selection_probs(compiled)[0]
+    env = fp.EnvInputs(fp.env_nee_candidates(compiled, cam, pxy, 0, depth, p_env), p_env,
+                       compiled.plan.env_distance)
+    with cs.plain_counted(torch, fp, tables, pxy, env) as counts:
+        fp.paths_plain(tables, cam, pxy, 0, 0, env=env, max_depth=depth,
+                       rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
+    surf = sum(counts["shaded_by_type"].values())
+    assert counts["env_picked"] + counts["area_picked"] == surf
+    if kind == "env_only":
+        assert counts["area_picked"] == 0
+    else:
+        assert 0.3 * surf < counts["env_picked"] < 0.7 * surf
+    assert counts["env_pdf_positive"] == counts["env_picked"]
+    n = pxy.shape[0]
+    b = cs.fused_bound(tables, counts, n, env=True)
+    assert b["bytes"] == n * 52 + counts["env_picked"] * 28
+    plain = cs.fused_bound(tables, counts, n)
+    assert b["flops"] - plain["flops"] == (
+        counts["area_picked"] * 2
+        + counts["env_picked"] * (cs.FLOPS_ENV_PICK - cs.FLOPS_AREA_PICK))

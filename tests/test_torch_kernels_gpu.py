@@ -4,7 +4,8 @@ ops/brute.py), the cluster traces (cluster.cu against ops/cluster.py
 walk_plain), the 8-wide traces (wide8.cu and subpacket.cu against
 ops/wide8.py wide8_plain and ops/subpacket.py subpacket_plain), the
 binary-tree trace (trace.cu against ops/trace.py walk_plain) and the fused
-whole-path kernel (fused_path.cu against ops/fused_path.py paths_plain).
+whole-path kernel (fused_path.cu against ops/fused_path.py paths_plain),
+its environment mode included.
 
 Marked `gpu`; every test skips where no card is present. On a machine with
 a card and without JAX:
@@ -514,6 +515,78 @@ def test_fused_wrapper_rejects_bad_inputs(cuda):
         fp.paths(tables, cam, pxy, 0, stats=torch.zeros(len(fp.STATS), device=cuda), **kw)
     rgb, rays = fp.paths(tables, cam, pxy[:0], 0, **kw)
     assert rgb.shape == (0, 3) and rays.shape == (0,)
+
+
+def _fused_env_case(cuda, kind, res, depth):
+    """testing.cornell_box with an environment (chip_smoke.py env_scene) and
+    its environment-mode inputs on a permuted pixel list."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+    from luisarender_tpu_torch.ops import fused_path as fp
+
+    scene = chip_smoke.env_scene(lt, kind, res=res, depth=depth)
+    compiled = lt.compile_scene(scene, device=cuda)
+    assert compiled.plan.fused_path and compiled.plan.has_environment
+    integ = scene.integrator
+    cam = fp.camgen_params(scene.cameras[0], integ.sampler.seed)
+    pxy = pixel_grid(res, res, cuda)
+    perm = torch.randperm(pxy.shape[0], generator=torch.Generator().manual_seed(res))
+    pxy = pxy[perm.to(cuda)].contiguous()
+    kw = dict(max_depth=depth, rr_depth=0, rr_threshold=0.95)
+    p_env = integ.light_sampler.selection_probs(compiled)[0]
+    env = fp.EnvInputs(fp.env_nee_candidates(compiled, cam, pxy, 2, depth, p_env), p_env,
+                       compiled.plan.env_distance)
+    return fp, compiled, fp.fused_tables(compiled), cam, pxy, kw, env
+
+
+@pytest.mark.parametrize("kind", ["spherical", "directional", "env_only"])
+def test_fused_env_mode_matches_plain(cuda, kind):
+    """The environment mode: rgb, rays and the 7 escape words bit for bit
+    on every lane of a permuted pixel list, one launch counted as an
+    environment launch; the miss pass lights the escaped pixels."""
+    fp, compiled, tables, cam, pxy, kw, env = _fused_env_case(cuda, kind, 128, 6)
+    n0, e0 = fp.launches, fp.env_launches
+    rgb, rays, esc = fp.paths(tables, cam, pxy, 2, 0, env=env, **kw)
+    torch.cuda.synchronize()
+    assert (fp.launches, fp.env_launches) == (n0, e0 + 1)
+    rgb_p, rays_p, esc_p = fp.paths_plain(tables, cam, pxy, 2, 0, env=env, **kw)
+    assert torch.equal(rgb, rgb_p), (rgb - rgb_p).abs().max().item()
+    assert torch.equal(rays, rays_p)
+    assert torch.equal(esc, esc_p), (esc - esc_p).abs().max().item()
+    escaped = esc[3] > 0.0
+    assert bool(escaped.any())
+    out = fp.miss_pass(compiled, rgb, esc, env.p_env)
+    assert torch.isfinite(out).all() and bool((out[escaped] >= rgb[escaped]).all())
+
+
+@pytest.mark.parametrize("n", [1, 129, 300], ids=["n1", "n129", "under_one_pool"])
+def test_fused_env_mode_ragged_counts(cuda, n):
+    """Part-filled blocks, warps and slot pools: the candidates and escape
+    words are read and written at the pixel's index, never the slot's."""
+    fp, compiled, tables, cam, pxy, kw, env = _fused_env_case(cuda, "spherical", 64, 4)
+    idx = torch.randperm(pxy.shape[0], generator=torch.Generator().manual_seed(n))[:n].to(cuda)
+    sub = pxy[idx].contiguous()
+    env_sub = env._replace(cand=env.cand[:, :, idx].contiguous())
+    out = fp.paths(tables, cam, sub, 2, 0, env=env_sub, **kw)
+    torch.cuda.synchronize()
+    ref = fp.paths_plain(tables, cam, sub, 2, 0, env=env_sub, **kw)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+def test_fused_env_wrapper_rejects_bad_inputs(cuda):
+    fp, compiled, tables, cam, pxy, kw, env = _fused_env_case(cuda, "spherical", 16, 2)
+    with pytest.raises(ValueError):  # the persistent mode takes no environment
+        fp.paths(tables, cam, pxy, 0, 2, env=env, **kw)
+    with pytest.raises(ValueError):  # candidates of another depth
+        fp.paths(tables, cam, pxy, 0, 0, env=env, **{**kw, "max_depth": 3})
+    with pytest.raises(ValueError):
+        fp.paths(tables, cam, pxy, 0, 0, env=env._replace(cand=env.cand.cpu()), **kw)
 
 
 def _bvh8_case(cuda, n_tris, n_rays, seed):

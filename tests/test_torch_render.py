@@ -12,8 +12,12 @@
     rendering its own compiler's tables: the same tables, the same image;
 (d) scenes above 512 triangles, which trace with the cluster kernel (its
     plain version here): the Cornell box with a 1,280-triangle sphere and
-    the mesh-heavy scene at test size, sample by sample against the
-    reference's path_trace_batch (its CPU run walks its skip-link BVH).
+    the mesh-heavy scene at test size (its checkerboard floor and
+    environment included), sample by sample against the reference's
+    path_trace_batch (its CPU run walks its skip-link BVH);
+(e) the Cornell box with a constant spherical environment: the port's
+    fused fork (its environment mode) and general fork against the
+    reference's general fork.
 
 The rule is the reference's own for its fused kernel against its bounce
 loop (tests/test_fused_path.py): ray counts within 4, and under 2% of
@@ -176,8 +180,9 @@ def test_converted_tables_render_like_own_compiler():
 ])
 def test_cluster_scene_matches_reference(name, res, n_samples, n_tris):
     """Depth 3, each sample by this file's rule. The mesh-heavy scene is
-    testing.mesh_heavy(n=2, subdiv=2): four Disney icospheres, the floor,
-    and the light panel with its null surface."""
+    testing.mesh_heavy(n=2, subdiv=2), the reference's scene at test size:
+    four Disney icospheres, the checkerboard floor, the light panel with
+    its null surface and the constant spherical environment."""
     require_reference_builder()
     w, h = res
     if name == "mesh_heavy":
@@ -204,6 +209,40 @@ def test_cluster_scene_matches_reference(name, res, n_samples, n_tris):
         assert abs(int(st["rays"]) - int(st_ref["rays"])) <= 4
         assert _frac_off(rgb.numpy(), np.asarray(rgb_ref)) < 0.02
         assert float(rgb.mean()) > 0.0
+
+
+def test_env_cornell_matches_reference():
+    """testing.cornell_box with the constant spherical environment of the
+    reference's TestFusedEnvironment (tests/test_fused_path.py:269-277),
+    16^2, depth 3, two samples: the reference's general fork (its CPU run)
+    against the port's fused fork (its environment mode: candidates, escape
+    state, miss pass) and the port's general fork (the miss term and the
+    light sampler's environment pick), by this file's rule."""
+    res, depth = 16, 3
+    d = jtesting.cornell_box(resolution=(res, res), spp=2, depth=depth)
+    d["render"]["environment"] = {"impl": "spherical", "prop": {
+        "emission": {"impl": "constant", "prop": {"v": [0.4, 0.5, 0.7]}}}}
+    jscene = lr.Scene.from_dict(d)
+    jcomp = lr.compile_scene(jscene)
+    tscene = lt.Scene.from_dict(d)
+    tcomp = lt.compile_scene(tscene, device="cpu")
+    assert tcomp.plan.fused_path and tcomp.plan.has_environment
+    pxy = _pixels(res)
+    kw = dict(max_depth=depth, rr_depth=0, rr_threshold=0.95)
+    for si in range(2):
+        rgb_ref, _, st_ref = jax_ptb(
+            jcomp, jcomp.arrays, jscene.cameras[0], jscene.integrator.sampler,
+            jscene.integrator.light_sampler, jnp.asarray(pxy), jnp.int32(si),
+            with_stats=True, **kw)
+        args = (tcomp, tscene.cameras[0], tscene.integrator.sampler,
+                tscene.integrator.light_sampler, torch.as_tensor(pxy), si)
+        rgb_f, _, st_f = path_trace_batch(*args, with_stats=True, **kw)
+        rgb_g, _, st_g = general_path_trace_batch(*args, **kw)
+        assert st_f["fused"] == 1 and st_g["bounces"] >= 1
+        for rgb, st in ((rgb_f, st_f), (rgb_g, st_g)):
+            assert abs(int(st["rays"]) - int(st_ref["rays"])) <= 4
+            assert _frac_off(rgb.numpy(), np.asarray(rgb_ref)) < 0.02
+        assert float(rgb_f.mean()) > 0.0
 
 
 def test_cluster_render_matches_golden():

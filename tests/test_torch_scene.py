@@ -96,8 +96,9 @@ def test_unsupported_plugins_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="layered"):
         lt.Scene.from_dict(d)
     d = testing.cornell_box(resolution=(8, 8), spp=1)
-    d["render"]["environment"] = {"impl": "spherical", "prop": {}}
-    with pytest.raises(NotImplementedError, match="spherical"):
+    d["render"]["shapes"][0]["prop"]["surface"] = {"impl": "matte", "prop": {
+        "Kd": {"impl": "image", "prop": {"file": "floor.png"}}}}
+    with pytest.raises(NotImplementedError, match="image"):
         lt.Scene.from_dict(d)
 
 
