@@ -39,7 +39,18 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              (the candidates and escape words in its bytes) and lane use,
              and the times of the candidates and the miss pass beside it
              (CUDA events around the calls, and the profiler's device
-             time). The cluster
+             time). The fused kernel's ray-input mode against its plain
+             version on one 512^2 sample, depth 8, of each ray_scene:
+             scenes/cornell.json with a thin lens and a gaussian filter,
+             with a mitchell filter and a near clip plane, and
+             testing.cornell_box with the constant spherical environment
+             and the thin lens: rgb, rays (and the escape words) bit for
+             bit on every lane, 20 launches back to back equal; its time,
+             bound (the 40 B ray a lane in its bytes) and lane use, the
+             camera generation's time (and the miss pass's) beside it;
+             and the mode fed the camgen mode's own rays and states on
+             scenes/cornell.json, bit for bit against the camgen kernel.
+             The cluster
              traces against their plain version on the full mesh-heavy
              scene (512,004 triangles: camera rays, bounce-1 rays and the
              shadow rays of both bounces, 1280 x 720), on a random
@@ -86,7 +97,13 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              fused launch a sample in the environment mode and no other
              kernel launch, the image lit, and on the megawave integrator
              (256^2, 8 spp, depth 5) the per-pass route: no persistent
-             launch; testing.mesh_heavy (1280 x 720, depth 5, 4 spp,
+             launch; the ray-input mode: the thin-lens Cornell box
+             (scenes/cornell.json, 512^2, depth 8, 256 spp) and the
+             thin-lens env Cornell box (the same) with one ray-input launch
+             a sample (its environment form for the second) and no other
+             kernel launch, and the first on megawave (256^2, 8 spp, depth
+             5) a sample a launch, no persistent pass;
+             testing.mesh_heavy (1280 x 720, depth 5, 4 spp,
              512,004 triangles, its checkerboard floor and constant
              environment) on the general fork with the cluster kernels
              launched once a bounce each and no brute-force or fused
@@ -117,7 +134,8 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              by more than 1e-3; testing.cornell_box with the constant
              spherical environment (64^2, 8 spp, depth 5; no golden), each
              sample of the fused fork against the general fork by that
-             rule; scenes/materials.json at 48^2, 8 spp,
+             rule; the three ray-input scenes (64^2, 8 spp, depth 5; no
+             golden) likewise; scenes/materials.json at 48^2, 8 spp,
              depth 5 through the general fork against
              tests/golden/materials_48_8spp.exr under that rule;
              testing.cornell_sphere (48^2, 8 spp, depth 5, 1,312
@@ -181,6 +199,9 @@ SURFACE_TYPES = {0: "matte", 1: "mirror", 2: "metal", 3: "plastic", 4: "glass", 
 # the bound this script gave before it counted types; fused_bound reports it
 # beside the typed one, so the two stay comparable
 FLOPS_SHADE_BOUNCE = 400
+# the ray-input mode's ray a lane (ops/fused_path.py RAY_WORDS): origin,
+# direction, t_min, t_max, camera weight, sampler state
+RAY_BYTES = 40
 # clock cycles of the spin kernel that the timed launches queue behind:
 # ~0.1 s at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 200_000_000
@@ -225,6 +246,7 @@ def reset_counts(brute, fused_path):
         mod.closest_launches = mod.any_launches = 0
     trace.launches = 0
     fused_path.launches = fused_path.env_launches = fused_path.persistent_launches = 0
+    fused_path.ray_launches = fused_path.ray_env_launches = 0
 
 
 def read_counts(brute, fused_path):
@@ -238,6 +260,8 @@ def read_counts(brute, fused_path):
     counts["fused_path"] = fused_path.launches
     counts["fused_path_env"] = fused_path.env_launches
     counts["fused_path_persistent"] = fused_path.persistent_launches
+    counts["fused_path_rays"] = fused_path.ray_launches
+    counts["fused_path_rays_env"] = fused_path.ray_env_launches
     return counts
 
 
@@ -596,27 +620,31 @@ def plain_counted(torch, fp, tables, pxy, env=None):
     counts["simt_share_pixel_order"] = simt_share(lane_bounces)
 
 
-def fused_work(torch, fp, tables, cam, pxy, n_samples, kw, env=None):
-    """The plain version's run (its environment mode with `env`), timed
+def fused_work(torch, fp, tables, cam, pxy, n_samples, kw, env=None, rays=None):
+    """The plain version's run (its environment mode with `env`, its
+    ray-input mode from `rays`, pxy then only giving the lane count), timed
     with CUDA events, and its work counted (plain_counted). Returns
     (outputs, counts, ms)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with plain_counted(torch, fp, tables, pxy, env) as counts:
         start.record()
-        out = fp.paths_plain(tables, cam, pxy, 0, n_samples, env=env, **kw)
+        out = fp.paths_plain(tables, cam, None if rays is not None else pxy, 0, n_samples,
+                             env=env, rays=rays, **kw)
         end.record()
         end.synchronize()
     return out, counts, start.elapsed_time(end)
 
 
-def fused_bound(tables, counts, n, env=False):
+def fused_bound(tables, counts, n, env=False, rays=False):
     """The least time of the fused kernel's work: the larger of its
     operations over fp32 peak and its bytes over the memory rate (pixel ids
-    in and rgb and a ray count out, 24 B a lane; in the environment mode
-    also the escape state written once, 7 words a lane, and the candidates
-    that NEE picks read once: the pdf word of each, and the other 6 words
-    where the pdf is > 0). Shading is counted per surface type of the
+    in and rgb and a ray count out, 24 B a lane; in the ray-input mode the
+    ray in place of the pixel ids, RAY_BYTES, so 56 B a lane; in the
+    environment mode also the escape state written once, 7 words a lane,
+    and the candidates that NEE picks read once: the pdf word of each, and
+    the other 6 words where the pdf is > 0). Neither mode is charged the
+    camera's arithmetic. Shading is counted per surface type of the
     shaded lanes (FLOPS_BSDF); in the environment mode the area-light
     sample only where NEE picks an area light, and the environment's far
     point where it picks the environment. `matte_*` counts every shaded
@@ -632,7 +660,7 @@ def fused_bound(tables, counts, n, env=False):
     flops = trace + sum(k * (FLOPS_SHADE_COMMON + FLOPS_BSDF[name])
                         for name, k in counts["shaded_by_type"].items())
     matte = trace + counts["shaded"] * FLOPS_SHADE_BOUNCE
-    n_bytes = n * 24
+    n_bytes = n * (RAY_BYTES + 16 if rays else 24)
     if env:
         picks = (counts["area_picked"] * (FLOPS_AREA_PICK + 2)
                  + counts["env_picked"] * FLOPS_ENV_PICK
@@ -849,6 +877,173 @@ def phase_fused_env(torch, lt, fp, device):
                "blocks_per_sm": fp.blocks_per_sm(device, env=True)}
         emit(rec)
         results[kind] = rec
+    return results
+
+
+# the ray-input scenes' camera: a thin lens whose 33.6 mm focal length on
+# the 24 mm sensor gives the pinhole's 39.3 degree field, focused on the
+# box's centre, at f/0.005 (a lens radius of 3.36 scene units)
+THINLENS = {"focal_length": 33.6, "focus_position": [278.0, 273.0, 279.6], "aperture": 0.005}
+RAY_SCENES = ("thinlens", "mitchell_clip", "env_thinlens")
+
+
+def ray_scene(lt, kind, res=512, spp=1, depth=8, integrator="megapath"):
+    """The scenes of the fused kernel's ray-input mode: `thinlens`
+    scenes/cornell.json with the thin-lens camera above and a gaussian
+    filter (its defaults); `mitchell_clip` scenes/cornell.json with a
+    mitchell filter and a clip plane at depth 1000 (the camera stands 800
+    in front of the box, so the near plane culls its front fifth);
+    `env_thinlens` testing.cornell_box with the constant spherical
+    environment [0.4, 0.5, 0.7] and the thin-lens camera and gaussian
+    filter."""
+    from luisarender_tpu_torch import testing
+
+    if kind == "env_thinlens":
+        d = testing.cornell_box(resolution=(res, res), spp=spp, depth=depth,
+                                integrator=integrator)
+        d["render"]["environment"] = {"impl": "spherical", "prop": {
+            "emission": {"impl": "constant", "prop": {"v": [0.4, 0.5, 0.7]}}}}
+    else:
+        d = json.loads(MAIN_SCENE.read_text())
+        d["render"]["integrator"] = {"impl": integrator, "prop": {"depth": depth}}
+    cam = d["render"]["cameras"][0]
+    cam["prop"]["film"]["prop"]["resolution"] = [res, res]
+    cam["prop"]["spp"] = spp
+    if kind == "mitchell_clip":
+        cam["prop"]["filter"] = {"impl": "mitchell", "prop": {}}
+        cam["prop"]["clip"] = [1000.0, 1e10]
+    else:
+        cam["impl"] = "thinlens"
+        cam["prop"].pop("fov")
+        cam["prop"].update(THINLENS)
+        cam["prop"]["filter"] = {"impl": "gaussian", "prop": {}}
+    return lt.Scene.from_dict(d)
+
+
+def ray_inputs(fp, compiled, scene, pxy, sample_index, depth):
+    """One sample's ray-input lanes of a scene, as the fused fork makes them
+    (integrators/mega_path.py camera_rays, ops/fused_path.py pack_rays):
+    (rays, state0, env inputs or None)."""
+    from luisarender_tpu_torch.integrators.mega_path import camera_rays
+
+    integ = scene.integrator
+    state0, ray, weight = camera_rays(scene.cameras[0], integ.sampler, pxy, sample_index)
+    rays = fp.pack_rays(ray, weight, state0)
+    env = None
+    if compiled.plan.has_environment:
+        p_env = integ.light_sampler.selection_probs(compiled)[0]
+        env = fp.EnvInputs(fp.env_nee_candidates_from_state(compiled, state0, depth, p_env),
+                           p_env, compiled.plan.env_distance)
+    return rays, state0, env
+
+
+def phase_fused_rays(torch, lt, fp, device):
+    """The fused kernel's ray-input mode against its plain version on one
+    512^2 sample, depth 8, of the three ray_scene scenes: rgb, rays (and the
+    escape words with the environment) bit for bit on every lane, 20
+    launches back to back equal to the first; its time, bound (the 40 B ray
+    a lane in its bytes) and lane use, and beside it the camera
+    generation's time (the seed, the filter's and the lens's draws, the
+    rays, pack_rays; with the environment also its candidates) and the miss
+    pass's. Then the ray-input mode fed the camgen mode's own rays and
+    states on scenes/cornell.json against the camgen kernel, bit for bit."""
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+
+    results = {}
+    depth = 8
+    pxy = pixel_grid(512, 512, device)
+    for kind in RAY_SCENES:
+        scene = ray_scene(lt, kind, depth=depth)
+        compiled = lt.compile_scene(scene, device=device)
+        integ = scene.integrator
+        check(compiled.plan.fused_path
+              and fp.camgen_params(scene.cameras[0], integ.sampler.seed) is None,
+              f"rays {kind}: not on the fused kernel's ray-input mode")
+        kw = dict(max_depth=depth, rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
+        tables = fp.fused_tables(compiled)
+        rays, _, env = ray_inputs(fp, compiled, scene, pxy, 0, depth)
+        out_k = fp.paths_rays(tables, rays, env=env, **kw)
+        torch.cuda.synchronize()
+        out_p, counts, plain_ms = fused_work(torch, fp, tables, None, pxy, 0, kw, env=env,
+                                             rays=rays)
+        share, err, _ = bit_equal(torch, f"fused rays {kind}", out_k[0], out_k[1], out_p[0],
+                                  out_p[1])
+        rec = {"phase": "kernels", "kernel": "fused_path_rays" + ("_env" if env else ""),
+               "scene": kind, "n": pxy.shape[0], "depth": depth,
+               "rays": int(out_k[1].sum()), "rays_plain": int(out_p[1].sum()),
+               "share_bit_equal": share, "max_abs_err": err,
+               "cam_weight_min": float(rays[8].min()), "cam_weight_max": float(rays[8].max())}
+        rgb = out_k[0]
+        if env is not None:
+            esc_share = float((out_k[2] == out_p[2]).all(0).float().mean())
+            esc_err = float((out_k[2] - out_p[2]).abs().max())
+            check(esc_share == 1.0 and esc_err == 0.0,
+                  f"fused rays {kind}: escape state {esc_share:.6f} of lanes bit-equal")
+            rgb = fp.miss_pass(compiled, out_k[0], out_k[2], env.p_env)
+            rec.update(escape_share_bit_equal=esc_share,
+                       escaped_lanes=int((out_k[2][3] > 0.0).sum()))
+        check(bool(torch.isfinite(rgb).all()) and float(rgb.mean()) > 0.0,
+              f"fused rays {kind}: non-finite or black")
+        again = [fp.paths_rays(tables, rays, env=env, **kw) for _ in range(20)]
+        torch.cuda.synchronize()
+        check(all(all(torch.equal(a, b) for a, b in zip(o, out_k)) for o in again),
+              f"fused rays {kind}: back-to-back launches differ")
+        del again
+        stats = torch.zeros(len(fp.STATS), dtype=torch.int64, device=device)
+        fp.paths_rays(tables, rays, env=env, stats=stats, **kw)
+        use = lane_use(stats)
+        check(use["traced"] == counts["closest"],
+              f"fused rays {kind}: traced {use['traced']} != {counts['closest']}")
+        ms = device_ms(torch, lambda: fp.paths_rays(tables, rays, env=env, **kw), iters=20)
+
+        # the camera generation (and with the environment its candidates)
+        # and the miss pass are PyTorch calls that wait for the card on the
+        # way: CUDA events around the calls, host dispatch included, and
+        # the profiler's device time beside
+        def camera():
+            return ray_inputs(fp, compiled, scene, pxy, 0, depth)
+
+        cam_dev = profile_one(torch, camera, ("",), 5)
+        rec.update({"work": counts, "ms": ms, "plain_ms": plain_ms,
+                    **fused_bound(tables, counts, pxy.shape[0], env=env is not None,
+                                  rays=True),
+                    "profiler_ms": profile_one(
+                        torch, lambda: fp.paths_rays(tables, rays, env=env, **kw),
+                        ("fused_path_kernel",), 20)["kernels_ms"],
+                    "camera_ms": events_ms(torch, camera, 10),
+                    "camera_device_ms": cam_dev["device_busy_ms"],
+                    "camera_device_ops": cam_dev["device_ops"], "lane_use": use,
+                    "blocks_per_sm": fp.blocks_per_sm(device, env=env is not None, rays=True)})
+        if env is not None:
+            def miss():
+                return fp.miss_pass(compiled, out_k[0], out_k[2], env.p_env)
+
+            rec["miss_pass_ms"] = events_ms(torch, miss, 20)
+            rec["miss_pass_device_ms"] = profile_one(torch, miss, ("",), 10)["device_busy_ms"]
+        emit(rec)
+        results[kind] = rec
+
+    # the ray-input mode fed the camgen mode's rays and states
+    tables, cam, pxy, kw = fused_case(torch, lt, fp, MAIN_SCENE, depth, device)
+    pl = fp._Plain(tables, cam, pxy, depth, kw["rr_depth"], kw["rr_threshold"])
+    st, o, d = pl.gen_from_cam(torch.zeros(pxy.shape[0], dtype=torch.int64, device=device))
+    from luisarender_tpu_torch.core.types import make_ray
+
+    ray = make_ray(torch.stack(o, -1), torch.stack(d, -1), 0.0, math.inf)
+    rays = fp.pack_rays(ray, torch.ones(pxy.shape[0], device=device), st)
+    rgb_r, rays_r = fp.paths_rays(tables, rays, **kw)
+    rgb_c, rays_c = fp.paths(tables, cam, pxy, 0, 0, **kw)
+    torch.cuda.synchronize()
+    share, err, _ = bit_equal(torch, "ray input fed camgen's rays vs camgen", rgb_r, rays_r,
+                              rgb_c, rays_c)
+    rec = {"phase": "kernels", "kernel": "fused_path_rays", "scene": "cornell.json camgen rays",
+           "n": pxy.shape[0], "depth": depth, "share_bit_equal_vs_camgen": share,
+           "max_abs_err_vs_camgen": err, "rays": int(rays_r.sum()),
+           "ms": device_ms(torch, lambda: fp.paths_rays(tables, rays, **kw), iters=20),
+           "camgen_ms": device_ms(torch, lambda: fp.paths(tables, cam, pxy, 0, 0, **kw),
+                                  iters=20)}
+    emit(rec)
+    results["camgen_rays"] = rec
     return results
 
 
@@ -1516,6 +1711,37 @@ def phase_main(torch, lt, brute, fp, device):
                             "launches": counts, "image_mean": float(img.mean())}
     emit(recs["env_megawave"])
 
+    # the ray-input mode: scenes/cornell.json with the thin lens and a
+    # gaussian filter, nothing cut, one ray-input launch a sample and no
+    # other kernel launch; the env Cornell box with the same camera (one
+    # launch a sample in the mode's environment form); and the first on
+    # megawave, which renders a ray-input scene a sample a launch
+    for key, kind, res, spp, depth, integrator, launch in (
+        ("rays_cornell", "thinlens", 512, 256, 8, "megapath", "fused_path_rays"),
+        ("rays_env_cornell", "env_thinlens", 512, 256, 8, "megapath", "fused_path_rays_env"),
+        ("rays_megawave", "thinlens", 256, 8, 5, "megawave", "fused_path_rays"),
+    ):
+        scene = ray_scene(lt, kind, res=res, spp=spp, depth=depth, integrator=integrator)
+        cam, integ = scene.cameras[0], scene.integrator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lt.compile_scene(scene, device=device)
+        torch.cuda.synchronize()
+        compile_seconds = time.perf_counter() - t0
+        img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+        check_image(img, res, res, key)
+        others = {k: v for k, v in counts.items() if k != launch}
+        check(counts[launch] == cam.spp and not any(others.values())
+              and integ.bounces_run == 0, f"{key}: launches {counts}, spp {cam.spp}")
+        recs[key] = {"phase": "main", "scene": f"ray_scene {kind} {integrator}",
+                     "resolution": [res, res], "depth": depth, "spp": cam.spp,
+                     "cut": None if key != "rays_megawave" else "256^2, 8 spp, depth 5",
+                     "seconds": seconds, "compile_seconds": compile_seconds,
+                     "rays": integ.rays_traced,
+                     "mray_per_s": integ.rays_traced / seconds / 1e6,
+                     "launches": counts, "image_mean": float(img.mean())}
+        emit(recs[key])
+
     # the mesh-heavy scene on the general fork: the cluster kernels
     scene = lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY))
     cam, integ = scene.cameras[0], scene.integrator
@@ -1740,6 +1966,27 @@ def phase_golden(torch, lt, device):
               f"env golden sample {si}: rays {rays_f} vs {rays_g}")
         check(off < 0.02, f"env golden sample {si}: {off:.4f} of pixels off")
 
+    # the ray-input scenes: each sample of the fused fork (the ray-input
+    # mode) against the general fork by the same rule
+    ray_per_sample = {}
+    for kind in RAY_SCENES:
+        rscene = ray_scene(lt, kind, res=64, spp=8, depth=5)
+        rcompiled = lt.compile_scene(rscene, device=device)
+        rinteg = rscene.integrator
+        offs = []
+        for si in range(8):
+            args = (rcompiled, rscene.cameras[0], rinteg.sampler, rinteg.light_sampler, pxy, si)
+            rgb_f, _, st_f = path_trace_batch(*args, with_stats=True, **kw)
+            rgb_g, _, st_g = general_path_trace_batch(*args, **kw)
+            rays_f, rays_g = int(st_f["rays"]), int(st_g["rays"])
+            off = frac_off(rgb_f.cpu(), rgb_g.cpu())
+            offs.append(off)
+            check(st_f["fused"] == 1, f"{kind} golden sample {si}: not on the fused fork")
+            check(abs(rays_f - rays_g) <= max(8, rays_g // 500),
+                  f"{kind} golden sample {si}: rays {rays_f} vs {rays_g}")
+            check(off < 0.02, f"{kind} golden sample {si}: {off:.4f} of pixels off")
+        ray_per_sample[kind] = offs
+
     d = json.load(open(MATERIALS))
     cam = d["render"]["cameras"][0]["prop"]
     cam["film"]["prop"]["resolution"] = [48, 48]
@@ -1779,6 +2026,7 @@ def phase_golden(torch, lt, device):
           "cornell_fused_mean_rel_diff": rel, "cornell_per_sample_frac_off": per_sample,
           "cornell_general_frac_pixels_off": frac_general,
           "env_cornell_per_sample_frac_off": env_per_sample,
+          **{f"rays_{k}_per_sample_frac_off": v for k, v in ray_per_sample.items()},
           "materials_general_frac_pixels_off": mfrac, "materials_mean_rel_diff": mrel,
           **{f"cornell_sphere{'' if r == 'cluster' else '_' + r}_frac_pixels_off": v[0]
              for r, v in sphere.items()},
@@ -1822,11 +2070,15 @@ def main():
           "seconds": time.perf_counter() - t0,
           "ptxas": {src: build.ptxas_report(src) for src in sources},
           "fused_path_dynamic_smem_bytes": fp.pool_bytes(),
-          "fused_path_blocks_per_sm": fp.blocks_per_sm(device)})
+          "fused_path_blocks_per_sm": fp.blocks_per_sm(device),
+          "fused_path_blocks_per_sm_by_mode": {
+              f"env={e},rays={r}": fp.blocks_per_sm(device, env=e, rays=r)
+              for e in (False, True) for r in (False, True)}})
 
     brute_k = phase_brute_kernels(torch, lt, brute, device)
     fused_k = phase_fused_kernel(torch, lt, fp, device)
     fused_env = phase_fused_env(torch, lt, fp, device)
+    fused_rays = phase_fused_rays(torch, lt, fp, device)
     compiled_mh, cap_mh = mesh_heavy_inputs(torch, lt, cluster, device)
     cluster_k = phase_cluster_kernels(torch, cluster, device, compiled_mh, cap_mh)
     mods = {"cluster": cluster, "wide8": wide8, "subpacket": subpacket, "trace": trace}
@@ -1858,6 +2110,10 @@ def main():
          main_recs["megawave"]["launches"]["fused_path_persistent"]),
         ("fused_path_env", fused_env["spherical"],
          main_recs["env_cornell"]["launches"]["fused_path_env"]),
+        ("fused_path_rays", fused_rays["thinlens"],
+         main_recs["rays_cornell"]["launches"]["fused_path_rays"]),
+        ("fused_path_rays_env", fused_rays["env_thinlens"],
+         main_recs["rays_env_cornell"]["launches"]["fused_path_rays_env"]),
     ):
         entries.append({
             "name": name, "route": "cuda",
@@ -1875,6 +2131,15 @@ def main():
                                 "candidates_device_ms": rec["candidates_device_ms"],
                                 "miss_pass_ms": rec["miss_pass_ms"],
                                 "miss_pass_device_ms": rec["miss_pass_device_ms"]})
+        if name.startswith("fused_path_rays"):
+            # the ray-input mode (fused_path.py cam is None): the camera
+            # rays are made beside the kernel
+            entries[-1].update({"mode": "rays" + ("_env" if "env" in name else ""),
+                                "camera_ms": rec["camera_ms"],
+                                "camera_device_ms": rec["camera_device_ms"]})
+            if "miss_pass_ms" in rec:
+                entries[-1].update({"miss_pass_ms": rec["miss_pass_ms"],
+                                    "miss_pass_device_ms": rec["miss_pass_device_ms"]})
     for name, kind_key in (("cluster_closest", "closest"), ("cluster_any", "any")):
         t = cluster_k[kind_key]["times"]["bounce1"]
         entries.append({

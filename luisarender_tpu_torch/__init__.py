@@ -19,6 +19,7 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 # plugin modules register themselves on import
+from .cameras import impls as _cam_impls  # noqa: F401
 from .cameras import pinhole as _pinhole  # noqa: F401
 from .environments import impls as _env_impls  # noqa: F401
 from .environments import spherical as _env_spherical  # noqa: F401

@@ -1,9 +1,10 @@
 """Camera interface with filter-sampled ray generation.
 
 Counterpart of luisarender_tpu/cameras/base.py: per-camera film, filter,
-transform, spp and output path; `generate_rays` = filter-sampled pixel
-offset -> subclass camera-space ray -> camera-to-world transform. Shutter
-spans (motion blur) and clip planes are not ported yet.
+transform, spp, output path and near / far clip planes; `generate_rays` =
+filter-sampled pixel offset -> subclass camera-space ray -> camera-to-world
+transform, the clip planes' depths turned into the ray's t range. Shutter
+spans (motion blur) are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,15 +35,28 @@ class Camera(SceneNode):
         self.spp = desc.int("spp", 1024)
         self.file = desc.string("file", "render.exr")
         span = desc.float2("shutter_span", (0.0, 0.0))
-        for name, unsupported in (
-            ("shutter_span", span[1] > span[0]),
-            ("clip", desc.has_property("clip") or desc.has_property("clip_plane")),
-        ):
-            if unsupported:
-                raise NotImplementedError(
-                    f"camera '{desc.identifier}': '{name}' is not supported by "
-                    "luisarender_tpu_torch yet"
-                )
+        if span[1] > span[0]:
+            raise NotImplementedError(
+                f"camera '{desc.identifier}': 'shutter_span' is not supported by "
+                "luisarender_tpu_torch yet"
+            )
+        # near / far clip planes at camera-space depth: `clip` = (near, far)
+        # (a scalar broadcasts to both, as float2 reads it); `clip_plane` a
+        # near plane, (near, 1e10). Sorted and clamped to [0, 1e10].
+        clip = desc.float2("clip", None)
+        if clip is None:
+            clip_f = desc.float("clip", None)
+            if clip_f is None:
+                clip_f = desc.float("clip_plane", None)
+            clip = None if clip_f is None else (float(clip_f), 1e10)
+        self.clip_plane = None
+        if clip is not None:
+            lo, hi = sorted((max(float(clip[0]), 0.0), min(float(clip[1]), 1e10)))
+            self.clip_plane = (lo, hi)
+
+    @property
+    def requires_lens_sampling(self) -> bool:
+        return False
 
     def camera_to_world(self) -> np.ndarray:
         if self.transform is None:
@@ -74,4 +88,12 @@ class Camera(SceneNode):
 
         o = rot(o_c) + torch.as_tensor(c2w[:3, 3], device=o_c.device)
         d = fr.normalize(rot(d_c))
+        if self.clip_plane is not None:
+            # depth -> ray parameter: camera rays leave along -z in camera
+            # space, so t = depth / dz with dz the unit d_c's -z
+            dz = -d_c[..., 2] / torch.clamp(fr.length(d_c), min=1e-12)
+            inv = 1.0 / torch.clamp(dz, min=1e-6)
+            ray = make_ray(o, d, t_min=self.clip_plane[0] * inv,
+                           t_max=self.clip_plane[1] * inv)
+            return ray, pixel, weight * filter_weight
         return make_ray(o, d), pixel, weight * filter_weight

@@ -4,8 +4,9 @@
 //
 // Replaces the TPU kernel luisarender_tpu/ops/fused_path.py _fused_kernel
 // (fused_path.py:742, pl.pallas_call at :1631) with its BSDF closures from
-// luisarender_tpu/ops/fused_bsdf.py, in its camgen and persistent modes and
-// its environment mode (has_env, fused_path.py:746-760).
+// luisarender_tpu/ops/fused_bsdf.py, in its camgen and persistent modes, its
+// environment mode (has_env, fused_path.py:746-760) and its ray-input mode
+// (cam is None, fused_path.py:748-750 and :777-789).
 // Per path: the camera ray and the independent sampler's xxhash seed made
 // in the kernel; per bounce the closest trace over the triangle rows, then
 // the analytic spheres (strict t < best_t, so the lowest row wins an exact
@@ -89,6 +90,22 @@
 // pdf_bsdf and the direction are already in the slot. The non-environment
 // instantiation compiles the mode away.
 //
+// The ray-input mode (fused_path_kernel<kEnv, true>, megapath only, with or
+// without an environment) starts each path from a ray the caller made (any
+// camera, filter or clip plane; ops/fused_path.py trace_paths_fused): rays_in
+// holds RAY_WORDS = 10 floats a pixel as (10, n), consecutive pixels in
+// consecutive words: origin, direction, t_min, t_max, the camera weight
+// (beta's three channels; negative under a filter's negative lobe) and the
+// sampler state's bits, already past the camera's draws. The refill loads
+// the path's 8 words of it into the slot in place of the camera ray. The
+// first bounce's t range (t_min, min(t_max, 3e38)) is read from rays_in
+// again in the trace phase while the slot's depth is 0, so the pool keeps
+// its size (two more slot words would take it from 190,464 to 202,752 B);
+// every later bounce, as in the camgen mode, tests (0, 3e38). The
+// candidates of the environment mode come from the given states, which
+// the kernel does not see: it reads them as it does in the camgen mode.
+// The camgen instantiations compile the mode away.
+//
 // Build with --fmad=false and without fast math: the arithmetic rounds like
 // the plain version, except the transcendentals (sinf, cosf, powf, expf,
 // logf), which neither side rounds correctly; PyTorch's CUDA kernels call
@@ -132,10 +149,11 @@ struct FusedParams {
   int sample_index, n_samples, max_depth, rr_depth;
   int n, n_tri, n_sph, n_inst, n_entry, n_light_tri;
   int flat_normals;
-  int has_env;           // launch fused_path_kernel<true>: megapath only
+  int has_env;           // launch fused_path_kernel<true, *>: megapath only
   float p_env;           // NEE picks the environment when u_sel < p_env
   float env_area_scale;  // float32 of 1 / max(1 - p_env, 1e-8)
   float env_distance;    // an environment shadow ray ends this far away
+  int has_rays;          // launch fused_path_kernel<*, true>: the paths start from rays_in
 };
 
 namespace {
@@ -741,8 +759,9 @@ __device__ bool occluded(const Smem& S, const FusedParams& P, V3 o, V3 d, float 
 
 // --- the path ----------------------------------------------------------------
 
-// A path's carried state. Its ray's t range is always (0, kBig): the
-// camera ray and every continuation ray start there.
+// A path's carried state. Its ray's t range is (0, kBig), as the camgen
+// mode's camera ray and every continuation ray have it, except a ray-input
+// path's first ray, whose range the trace phase reads from rays_in.
 struct Path {
   V3 o, d;
   uint32_t st;
@@ -790,13 +809,15 @@ struct Hit {
 // The closest hit over the triangle rows, then the analytic spheres (strict
 // t < best t, so the lowest row wins an exact tie, a triangle a tie with a
 // sphere).
-__device__ Hit trace_closest(const Smem& S, const FusedParams& P, V3 o, V3 d) {
-  Hit h{kBig, 0.0f, 0.0f, -1, -1};
+// The ray's t range is (t_min, t_max).
+__device__ Hit trace_closest(const Smem& S, const FusedParams& P, V3 o, V3 d, float t_min,
+                             float t_max) {
+  Hit h{t_max, 0.0f, 0.0f, -1, -1};
   for (int j = 0; j < P.n_tri; ++j) {
     const TriRow r{S.tri + j};
     if (r[9] == 0.0f) continue;
     float t, u, v;
-    if (moller_trumbore(r, o, d, t, u, v) && t > 0.0f && t < h.t) {
+    if (moller_trumbore(r, o, d, t, u, v) && t > t_min && t < h.t) {
       h.t = t;
       h.u = u;
       h.v = v;
@@ -807,8 +828,8 @@ __device__ Hit trace_closest(const Smem& S, const FusedParams& P, V3 o, V3 d) {
     const SphRow r{S.sph + j};
     float disc, t0, t1;
     sphere_roots(r, o, d, disc, t0, t1);
-    const float t = (t0 > 0.0f && t0 < h.t) ? t0 : t1;
-    if (disc > 0.0f && t > 0.0f && t < h.t) {
+    const float t = (t0 > t_min && t0 < h.t) ? t0 : t1;
+    if (disc > 0.0f && t > t_min && t < h.t) {
       h.t = t;
       h.sph = j;
     }
@@ -1248,9 +1269,25 @@ __device__ __forceinline__ void write_escape(const FusedParams& P, float* esc_ou
   for (int k = 0; k < 7; ++k) esc_out[k * n + i] = w[k];
 }
 
-template <bool kEnv>
+// The ray-input mode's start of pixel k: its ray, camera weight and state
+// from rays_in (word w of pixel k at [w * n + k]).
+__device__ void load_ray(const FusedParams& P, const float* rays_in, int k, Path& p) {
+  const size_t n = (size_t)P.n;
+  p.o = v3(rays_in[k], rays_in[n + k], rays_in[2 * n + k]);
+  p.d = v3(rays_in[3 * n + k], rays_in[4 * n + k], rays_in[5 * n + k]);
+  const float beta0 = rays_in[8 * n + k];
+  p.beta[0] = p.beta[1] = p.beta[2] = beta0;
+  p.st = __float_as_uint(rays_in[9 * n + k]);
+  p.L[0] = p.L[1] = p.L[2] = 0.0f;
+  p.active = true;
+  p.pdf_bsdf = 1e16f;
+  p.eta_scale = 1.0f;
+}
+
+template <bool kEnv, bool kRays>
 __device__ void start_pixel(const Pool& q, const FusedParams& P, const int* pixel_xy,
-                            float* rgb_out, int* rays_out, float* esc_out, int s, int k) {
+                            const float* rays_in, float* rgb_out, int* rays_out,
+                            float* esc_out, int s, int k) {
   if (P.n_samples == 0 && P.max_depth == 0) {
     rgb_out[3 * k] = rgb_out[3 * k + 1] = rgb_out[3 * k + 2] = 0.0f;
     rays_out[k] = 0;
@@ -1258,7 +1295,10 @@ __device__ void start_pixel(const Pool& q, const FusedParams& P, const int* pixe
     return;
   }
   Path p;
-  gen_from_cam(P, pixel_xy[2 * k], pixel_xy[2 * k + 1], P.sample_index, p);
+  if (kRays)
+    load_ray(P, rays_in, k, p);
+  else
+    gen_from_cam(P, pixel_xy[2 * k], pixel_xy[2 * k + 1], P.sample_index, p);
   store_path(q, s, p, 0.0f, 0);
   q.seti(W_PIX, s, k);
   q.seti(W_SAMP, s, 0);
@@ -1328,10 +1368,11 @@ __device__ void shade_slot(const Smem& S, const Pool& q, const FusedParams& P,
   store_path(q, s, p, dep, nrays);
 }
 
-template <bool kEnv>
+template <bool kEnv, bool kRays>
 __global__ void __launch_bounds__(kThreads)
     fused_path_kernel(const FusedParams P, const int* __restrict__ pixel_xy,
-                      const float* __restrict__ tri, const float* __restrict__ shade_t,
+                      const float* __restrict__ rays_in, const float* __restrict__ tri,
+                      const float* __restrict__ shade_t,
                       const float* __restrict__ sph, const float* __restrict__ inst,
                       const float* __restrict__ entry, const float* __restrict__ light,
                       const float* __restrict__ env_cand, float* __restrict__ rgb_out,
@@ -1370,8 +1411,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < kPasses; ++k) {
           if (empty[k] && base + rank < P.n)
-            start_pixel<kEnv>(q, P, pixel_xy, rgb_out, rays_out, esc_out, kPasses * tid + k,
-                              base + rank);
+            start_pixel<kEnv, kRays>(q, P, pixel_xy, rays_in, rgb_out, rays_out, esc_out,
+                                     kPasses * tid + k, base + rank);
           rank += empty[k];
         }
         exhausted = base + total >= P.n;
@@ -1406,8 +1447,16 @@ __global__ void __launch_bounds__(kThreads)
     // 3. trace: entry e of the live list on thread e mod kThreads
     for (int e = tid; e < n_live; e += kThreads) {
       const int s = live[e];
+      float t_min = 0.0f, t_max = kBig;
+      if (kRays && q.f(W_DEP, s) == 0.0f) {  // a ray-input path's first ray
+        const size_t n = (size_t)P.n;
+        const int k = q.i(W_PIX, s);
+        t_min = rays_in[6 * n + k];
+        const float tm = rays_in[7 * n + k];
+        t_max = tm > kBig ? kBig : tm;  // min(t_max, 3e38); a NaN stays NaN
+      }
       const Hit h = trace_closest(S, P, v3(q.f(W_OX, s), q.f(W_OY, s), q.f(W_OZ, s)),
-                                  v3(q.f(W_DX, s), q.f(W_DY, s), q.f(W_DZ, s)));
+                                  v3(q.f(W_DX, s), q.f(W_DY, s), q.f(W_DZ, s)), t_min, t_max);
       q.set(W_HT, s, h.t);
       q.set(W_HU, s, h.u);
       q.set(W_HV, s, h.v);
@@ -1476,21 +1525,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Blocks of fused_path_kernel<kEnv> resident on one SM of `device`, queried
-// once (after raising the kernel's dynamic shared memory limit to its pool).
-template <bool kEnv>
+// Blocks of fused_path_kernel<kEnv, kRays> resident on one SM of `device`,
+// queried once (after raising the kernel's dynamic shared memory limit to
+// its pool).
+template <bool kEnv, bool kRays>
 int blocks_per_sm(int device) {
   static int cached[64] = {};
   if (device < 0 || device >= 64) return 0;
   if (!cached[device]) {
     if (cudaSetDevice(device) != cudaSuccess) return 0;
-    if (cudaFuncSetAttribute(fused_path_kernel<kEnv>,
+    if (cudaFuncSetAttribute(fused_path_kernel<kEnv, kRays>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kPoolBytes) != cudaSuccess)
       return 0;
     int nb = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fused_path_kernel<kEnv>, kThreads,
-                                                      kPoolBytes) != cudaSuccess)
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fused_path_kernel<kEnv, kRays>,
+                                                      kThreads, kPoolBytes) != cudaSuccess)
       return 0;
     cached[device] = nb;
   }
@@ -1502,9 +1552,10 @@ int blocks_per_sm(int device) {
 extern "C" {
 
 // Blocks of the kernel resident on one SM of `device` (the environment
-// mode's when env is nonzero).
-int fused_path_blocks_per_sm(int device, int env) {
-  return env ? blocks_per_sm<true>(device) : blocks_per_sm<false>(device);
+// mode's when env is nonzero, the ray-input mode's when rays is).
+int fused_path_blocks_per_sm(int device, int env, int rays) {
+  if (rays) return env ? blocks_per_sm<true, true>(device) : blocks_per_sm<false, true>(device);
+  return env ? blocks_per_sm<true, false>(device) : blocks_per_sm<false, false>(device);
 }
 
 // Bytes of dynamic shared memory a block of fused_path_kernel takes (its
@@ -1515,14 +1566,21 @@ int fused_path_pool_bytes() { return kPoolBytes; }
 // pdf_bsdf, dir.xyz); its presence marks this C interface.
 int fused_path_env_words() { return 7; }
 
+// Words of a pixel's ray in the ray-input mode (origin, direction, t_min,
+// t_max, camera weight, sampler state); its presence marks this C
+// interface.
+int fused_path_ray_words() { return 10; }
+
 // Launches on `stream` of device `device`, does not synchronise, and returns
 // the first CUDA error (0 = success). `work` is one int of device scratch,
 // zeroed here on the stream before the launch; `stats`, when not null,
 // kStats uint64 counters the kernel adds to. With P.has_env (megapath only)
 // env_cand holds the (max_depth, 7, n) candidates and esc_out receives the
-// (7, n) escape state; both are ignored otherwise.
-int fused_path(const FusedParams* params, const int* pixel_xy, const float* tri,
-               const float* shade, const float* sph, const float* inst,
+// (7, n) escape state; both are ignored otherwise. With P.has_rays
+// (megapath only) the paths start from rays_in, (10, n) floats, and
+// pixel_xy is not read; without it rays_in is not read.
+int fused_path(const FusedParams* params, const int* pixel_xy, const float* rays_in,
+               const float* tri, const float* shade, const float* sph, const float* inst,
                const float* entry, const float* light, const float* env_cand,
                float* rgb_out, int* rays_out, float* esc_out, int* work,
                unsigned long long* stats, int device, void* stream) {
@@ -1534,6 +1592,8 @@ int fused_path(const FusedParams* params, const int* pixel_xy, const float* tri,
     return static_cast<int>(cudaErrorInvalidValue);
   if (P.has_env && (P.n_samples != 0 || !env_cand || !esc_out))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (P.has_rays ? (P.n_samples != 0 || !rays_in) : !pixel_xy)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (P.n == 0) return 0;
@@ -1543,18 +1603,23 @@ int fused_path(const FusedParams* params, const int* pixel_xy, const float* tri,
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int per_sm = fused_path_blocks_per_sm(device, P.has_env);
+  const int per_sm = fused_path_blocks_per_sm(device, P.has_env, P.has_rays);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int need = (P.n + kThreads - 1) / kThreads;
   const int blocks = need < per_sm * sms ? need : per_sm * sms;
-  if (P.has_env)
-    fused_path_kernel<true><<<blocks, kThreads, kPoolBytes, s>>>(
-        P, pixel_xy, tri, shade, sph, inst, entry, light, env_cand, rgb_out, rays_out,
-        esc_out, work, stats);
+#define FUSED_PATH_LAUNCH(kEnv, kRays)                                                  \
+  fused_path_kernel<kEnv, kRays><<<blocks, kThreads, kPoolBytes, s>>>(                    \
+      P, pixel_xy, rays_in, tri, shade, sph, inst, entry, light, env_cand, rgb_out, rays_out, \
+      esc_out, work, stats)
+  if (P.has_rays && P.has_env)
+    FUSED_PATH_LAUNCH(true, true);
+  else if (P.has_rays)
+    FUSED_PATH_LAUNCH(false, true);
+  else if (P.has_env)
+    FUSED_PATH_LAUNCH(true, false);
   else
-    fused_path_kernel<false><<<blocks, kThreads, kPoolBytes, s>>>(
-        P, pixel_xy, tri, shade, sph, inst, entry, light, env_cand, rgb_out, rays_out,
-        esc_out, work, stats);
+    FUSED_PATH_LAUNCH(false, false);
+#undef FUSED_PATH_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,14 +4,19 @@ persistent-threads form ("megawave").
 Counterpart of luisarender_tpu/integrators/mega_path.py. A sample takes one
 of two forks, as in the reference:
   fused    a scene the fused kernel covers (ops/fused_path.py use_fused)
-           renders a sample of every pixel in one kernel launch;
+           renders a sample of every pixel in one kernel launch: the kernel
+           makes the camera rays itself for a pinhole camera with a box
+           filter and no clip plane (camgen_params), and takes them from
+           the caller (trace_paths_fused, its ray-input entry) for every
+           other camera, filter or clip plane;
   general  every other scene advances all rays together through a host
            loop over bounces (integrators/common.py bounce_step), its
            traces on the brute-force kernels.
 The megawave integrator renders `samples_per_pass` samples of every pixel
 in one persistent launch of the fused kernel; outside the fused kernel's
-scenes, and on scenes with an environment (whose pre-sampled NEE candidates
-need the megapath mode's static draw offsets), it renders as megapath.
+in-kernel cameras, and on scenes with an environment (whose pre-sampled NEE
+candidates need the megapath mode's static draw offsets), it renders as
+megapath.
 """
 
 from __future__ import annotations
@@ -25,6 +30,21 @@ from . import common
 from .base import ProgressiveIntegrator
 
 
+def camera_rays(camera, sampler, pixel_xy, sample_index):
+    """Each pixel's sampler state past its camera draws, and its camera ray
+    and weight: the filter's 2D draw, then the lens's where the camera
+    samples a lens (u_lens 0.5 elsewhere). Returns (state, ray, weight)."""
+    state = sampler.start(pixel_xy, sample_index)
+    state, u_filter = sampler.generate_pixel_2d(state)
+    if camera.requires_lens_sampling:
+        state, u_lens = sampler.generate_2d(state)
+    else:
+        u_lens = torch.full((pixel_xy.shape[0], 2), 0.5, dtype=torch.float32,
+                            device=pixel_xy.device)
+    ray, _, cam_weight = camera.generate_rays(pixel_xy, u_filter, u_lens)
+    return state, ray, cam_weight
+
+
 def general_path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
                              sample_index, *, max_depth, rr_depth, rr_threshold):
     """The general fork: one sample of each pixel of pixel_xy (N, 2) int32
@@ -35,10 +55,7 @@ def general_path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
     n = pixel_xy.shape[0]
     c = compiled.plan.spectral_dim
 
-    state = sampler.start(pixel_xy, sample_index)
-    state, u_filter = sampler.generate_pixel_2d(state)
-    u_lens = torch.full((n, 2), 0.5, dtype=torch.float32, device=pixel_xy.device)
-    ray, _, cam_weight = camera.generate_rays(pixel_xy, u_filter, u_lens)
+    state, ray, cam_weight = camera_rays(camera, sampler, pixel_xy, sample_index)
     swl = spectrum.sample_wavelengths(n, pixel_xy.device)
 
     carry = common.init_carry(ray, cam_weight[..., None].expand(n, c), state, swl)
@@ -54,21 +71,6 @@ def general_path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
     return rgb, weight, {"rays": carry["n_rays"], "bounces": bounces}
 
 
-def fused_camera(compiled, camera, sampler, light_sampler):
-    """The in-kernel camera parameters when the scene takes the fused
-    fork, else None."""
-    if not fused_path.use_fused(compiled, sampler, light_sampler):
-        return None
-    cam = fused_path.camgen_params(camera, sampler.seed)
-    if cam is None:
-        raise NotImplementedError(
-            "this camera needs the fused kernel's ray-input entry "
-            "(luisarender_tpu ops/fused_path.py trace_paths_fused), which "
-            "luisarender_tpu_torch does not have yet"
-        )
-    return cam
-
-
 def path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
                      sample_index, *, max_depth, rr_depth, rr_threshold,
                      with_stats=False):
@@ -79,10 +81,15 @@ def path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
     with 'rays' (closest + shadow rays traced, a device tensor), 'bounces'
     (bounce steps of the general fork) and 'fused' (1 on the fused fork)."""
     kw = dict(max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
-    cam = fused_camera(compiled, camera, sampler, light_sampler)
-    if cam is not None:
-        rgb, n_rays = fused_path.trace_paths_fused_camgen(
-            compiled, cam, pixel_xy, sample_index, light_sampler=light_sampler, **kw)
+    if fused_path.use_fused(compiled, sampler, light_sampler):
+        cam = fused_path.camgen_params(camera, sampler.seed)
+        if cam is not None:
+            rgb, n_rays = fused_path.trace_paths_fused_camgen(
+                compiled, cam, pixel_xy, sample_index, light_sampler=light_sampler, **kw)
+        else:
+            state0, ray, cam_weight = camera_rays(camera, sampler, pixel_xy, sample_index)
+            rgb, n_rays = fused_path.trace_paths_fused(
+                compiled, ray, cam_weight, state0, light_sampler=light_sampler, **kw)
         weight = torch.ones((pixel_xy.shape[0],), dtype=torch.float32, device=pixel_xy.device)
         stats = {"rays": n_rays, "bounces": 0, "fused": 1}
     else:
@@ -120,6 +127,16 @@ class MegakernelPathTracing(ProgressiveIntegrator):
         return dict(max_depth=self.max_depth, rr_depth=self.rr_depth,
                     rr_threshold=self.rr_threshold)
 
+    def _persistent_camera(self, compiled, camera):
+        """The in-kernel camera's parameters where this integrator renders
+        the camera in persistent passes (megawave, on the fused fork, with a
+        camera the kernel makes, without an environment), else None."""
+        if not self.persistent or compiled.plan.has_environment:
+            return None
+        if not fused_path.use_fused(compiled, self.sampler, self.light_sampler):
+            return None
+        return fused_path.camgen_params(camera, self.sampler.seed)
+
     def _render_one_camera(self, compiled, camera):
         w, h = camera.film.resolution
         dev = compiled.device
@@ -127,8 +144,8 @@ class MegakernelPathTracing(ProgressiveIntegrator):
         film = camera.film
         rays = torch.zeros((), dtype=torch.int64, device=dev)
         accum = film.prepare(dev)
-        cam = fused_camera(compiled, camera, self.sampler, self.light_sampler)
-        if self.persistent and cam is not None and not compiled.plan.has_environment:
+        cam = self._persistent_camera(compiled, camera)
+        if cam is not None:
             # one persistent launch per pass of samples_per_pass samples; the
             # pass's mean enters the film with weight n, as in the reference
             spd = max(min(self.samples_per_pass, camera.spp), 1)
@@ -166,6 +183,7 @@ class MegawaveIntegrator(MegakernelPathTracing):
     """Persistent threads: each launch of the fused kernel runs a pass of
     samples_per_pass samples per pixel, and a lane whose path ends starts its
     pixel's next sample in the kernel, so no lane idles at a path boundary.
-    Scenes outside the fused kernel render as megapath."""
+    Scenes outside the fused kernel's in-kernel cameras render as megapath
+    (a ray-input scene: one ray-input launch a sample)."""
 
     persistent = True

@@ -10,18 +10,29 @@ triangle and sphere tables, the emissive-hit MIS, NEE with its alias light
 pick and shadow ray, BSDF evaluation and sampling, Russian roulette, and
 the independent sampler's 7 draws a bounce in the reference's order.
 
-Two modes share the kernel:
-  megapath    one sample per lane (`n_samples == 0`);
+Three modes share the kernel:
+  megapath    one sample per lane (`n_samples == 0`), its camera ray made
+              in the kernel (a pinhole camera, a box filter, no clip plane:
+              camgen_params);
+  ray input   one sample per lane from rays the caller made (every other
+              camera, filter or clip plane; the reference's `cam is None`
+              entry, trace_paths_fused): per lane the origin, direction,
+              t_min, t_max, the camera weight (which carries the filter's,
+              and may be negative) and the sampler state past the camera's
+              draws, packed by `pack_rays`; the first bounce tests t_min <
+              t < min(t_max, 3e38), every later one (0, 3e38);
   persistent  `n_samples` samples per lane in one launch, each lane
               regenerating its pixel's next sample when a path ends (the
-              megawave integrator); the output is the sum over the samples.
+              megawave integrator, in-kernel cameras only); the output is
+              the sum over the samples.
 
-A scene with a spherical or directional environment runs the megapath mode
-with the environment inputs of the reference's kernel (its `has_env`
-mode): the kernel never reads an environment table. `env_nee_candidates`
-pre-samples, from each lane's own sampler stream, the environment NEE
-candidate of every bounce, [wi.xyz, pdf * p_env, L.rgb] (a (max_depth, 7,
-N) tensor); the kernel picks the environment when u_sel < p_env, and writes
+A scene with a spherical or directional environment runs the megapath or
+ray-input mode with the environment inputs of the reference's kernel (its
+`has_env` mode): the kernel never reads an environment table.
+`env_nee_candidates` pre-samples, from each lane's own sampler stream (the
+given states in the ray-input mode), the environment NEE candidate of
+every bounce, [wi.xyz, pdf * p_env, L.rgb] (a (max_depth, 7, N) tensor);
+the kernel picks the environment when u_sel < p_env, and writes
 each pixel's escape state (beta.rgb, pdf_bsdf, dir.xyz; dir (0, 0, 1) where
 the path never escapes) for `miss_pass`, which adds the environment's
 radiance with its MIS weight afterwards. The persistent mode takes no
@@ -32,8 +43,9 @@ On CUDA tensors `paths` launches csrc/fused_path.cu; on CPU tensors it runs
 `paths_plain`, a batched PyTorch program over all lanes with the kernel's
 operation order (ops/fused_bsdf.py holds its BSDF math). There is no
 fallback: a CUDA tensor launches the kernel or raises. `launches`,
-`env_launches` and `persistent_launches` count kernel launches of the
-three forms (megapath without and with an environment, persistent).
+`env_launches`, `ray_launches`, `ray_env_launches` and
+`persistent_launches` count kernel launches of the five forms (megapath
+and ray input, each without and with an environment; persistent).
 
 The kernel schedules paths, it does not change them. What bounds it on the
 H100 is divergence: with one thread a pixel, a warp ran until its longest
@@ -49,9 +61,6 @@ of scratch for the work counter, which the C function zeroes on the
 launch's stream before every launch; `stats` receives the kernel's
 counters (STATS: lane-slots, paths traced and shaded, distinct surface
 types a warp shades).
-
-The reference's ray-input entry `trace_paths_fused` is not ported: the port
-has no camera that the in-kernel camera generation cannot make.
 """
 
 from __future__ import annotations
@@ -98,7 +107,13 @@ _F32_BIG = 3e38
 
 launches = 0
 env_launches = 0
+ray_launches = 0
+ray_env_launches = 0
 persistent_launches = 0
+
+# the ray-input mode's words a lane (pack_rays): origin, direction, t_min,
+# t_max, the camera weight, the sampler state's bits
+RAY_WORDS = 10
 
 
 # ---------------------------------------------------------------------------
@@ -310,10 +325,12 @@ def use_fused(compiled, sampler, light_sampler) -> bool:
 
 def camgen_params(camera, sampler_seed):
     """The in-kernel camera generation's scalars (pinhole camera, box
-    filter), or None for a camera it cannot make."""
+    filter, no clip plane), or None for a camera it cannot make."""
     if type(camera).__name__ != "PinholeCamera":
         return None
     if type(camera.filter).__name__ != "BoxFilter":
+        return None
+    if camera.clip_plane is not None:
         return None
     c2w = np.asarray(camera.camera_to_world(), np.float32)
     resx, resy = camera.film.resolution
@@ -506,11 +523,13 @@ class _Plain:
     kernel reads scalars, and the per-lane path carry."""
 
     def __init__(self, t: FusedTables, cam, pixel_xy, max_depth, rr_depth, rr_threshold,
-                 env: EnvInputs = None):
+                 env: EnvInputs = None, rays=None):
         self.t = t
-        self.cam = {k: (v if k == "sampler_seed" else _f32(v)) for k, v in cam.items()}
-        self.px = pixel_xy[:, 0].to(torch.int64)
-        self.py = pixel_xy[:, 1].to(torch.int64)
+        self.rays = rays
+        if rays is None:
+            self.cam = {k: (v if k == "sampler_seed" else _f32(v)) for k, v in cam.items()}
+            self.px = pixel_xy[:, 0].to(torch.int64)
+            self.py = pixel_xy[:, 1].to(torch.int64)
         self.max_depth = max_depth
         self.rr_depth = float(rr_depth)
         self.rr_threshold = _f32(rr_threshold)
@@ -543,10 +562,21 @@ class _Plain:
         return st, o, d
 
     def fresh(self, si):
-        st, o, d = self.gen_from_cam(si)
-        zero = torch.zeros_like(o[0])
-        s = {"o": o, "d": d, "tmin": zero, "tmax": zero + _F32_BIG, "st": st,
-             "beta": (zero + 1.0,) * 3, "L": (zero,) * 3, "active": zero < 1.0,
+        """A path's start: the camera ray of sample index si, or in the
+        ray-input mode the given ray, camera weight and state."""
+        if self.rays is None:
+            st, o, d = self.gen_from_cam(si)
+            zero = torch.zeros_like(o[0])
+            tmin, tmax, beta = zero, zero + _F32_BIG, (zero + 1.0,) * 3
+        else:
+            r = self.rays
+            o, d = (r[0], r[1], r[2]), (r[3], r[4], r[5])
+            zero = torch.zeros_like(r[0])
+            tmin, tmax = r[6], torch.clamp(r[7], max=_F32_BIG)
+            beta = (r[8],) * 3
+            st = unpack_state(r[9])
+        s = {"o": o, "d": d, "tmin": tmin, "tmax": tmax, "st": st,
+             "beta": beta, "L": (zero,) * 3, "active": zero < 1.0,
              "pdf_bsdf": zero + 1e16, "eta_scale": zero + 1.0}
         if self.env is not None:
             # the escape state: beta.rgb, pdf_bsdf, dir.xyz
@@ -789,16 +819,20 @@ class _Plain:
 
 
 def paths_plain(t: FusedTables, cam, pixel_xy, sample_index, n_samples, *,
-                max_depth, rr_depth, rr_threshold, env: EnvInputs = None):
+                max_depth, rr_depth, rr_threshold, env: EnvInputs = None, rays=None):
     """Plain version of the kernel: (rgb (N, 3) float32, rays (N,) int32),
-    and with `env` (megapath only) the escape state (7, N) float32 third.
-    n_samples == 0: one sample, index sample_index; else the sum of
-    n_samples samples from sample_index on, regenerated per lane."""
-    pl = _Plain(t, cam, pixel_xy, max_depth, rr_depth, rr_threshold, env)
-    n = pixel_xy.shape[0]
-    si0 = torch.full((n,), int(sample_index), dtype=torch.int64, device=pixel_xy.device)
+    and with `env` (megapath and ray input) the escape state (7, N) float32
+    third. n_samples == 0: one sample, index sample_index; else the sum of
+    n_samples samples from sample_index on, regenerated per lane. With
+    `rays` (RAY_WORDS, N) (pack_rays; cam and pixel_xy None) the paths
+    start from the given rays, weights and states."""
+    if rays is not None and n_samples:
+        raise ValueError("the persistent mode takes no rays")
+    pl = _Plain(t, cam, pixel_xy, max_depth, rr_depth, rr_threshold, env, rays)
+    n, dev = (pixel_xy.shape[0], pixel_xy.device) if rays is None else (rays.shape[1], rays.device)
+    si0 = torch.full((n,), int(sample_index), dtype=torch.int64, device=dev)
     s = pl.fresh(si0)
-    nrays = torch.zeros((n,), dtype=torch.int32, device=pixel_xy.device)
+    nrays = torch.zeros((n,), dtype=torch.int32, device=dev)
     if not n_samples:
         for i in range(max_depth):
             if not bool(s["active"].any()):
@@ -809,7 +843,7 @@ def paths_plain(t: FusedTables, cam, pixel_xy, sample_index, n_samples, *,
         return torch.stack(s["L"], dim=-1), nrays
     if env is not None:
         raise ValueError("the persistent mode takes no environment")
-    zero = torch.zeros((n,), dtype=torch.float32, device=pixel_xy.device)
+    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
     samp = torch.zeros_like(si0)
     dep = zero
     acc = [zero, zero, zero]
@@ -853,6 +887,7 @@ class _Params(ctypes.Structure):
         ("n_light_tri", ctypes.c_int), ("flat_normals", ctypes.c_int),
         ("has_env", ctypes.c_int), ("p_env", ctypes.c_float),
         ("env_area_scale", ctypes.c_float), ("env_distance", ctypes.c_float),
+        ("has_rays", ctypes.c_int),
     ]
 
 
@@ -869,9 +904,9 @@ def _library():
 
         lib = load_library("fused_path")
         ptr = ctypes.c_void_p
-        lib.fused_path.argtypes = [ptr] * 14 + [ctypes.c_int, ptr]
+        lib.fused_path.argtypes = [ptr] * 15 + [ctypes.c_int, ptr]
         lib.fused_path.restype = ctypes.c_int
-        lib.fused_path_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.fused_path_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.fused_path_blocks_per_sm.restype = ctypes.c_int
         lib.fused_path_pool_bytes.argtypes = []
         lib.fused_path_pool_bytes.restype = ctypes.c_int
@@ -879,11 +914,12 @@ def _library():
     return _LIB
 
 
-def blocks_per_sm(device, env=False) -> int:
-    """Blocks of the kernel (its environment mode with env) resident on one
-    SM of a CUDA device, as the occupancy query gives it (the launch sizes
-    its grid from it)."""
-    return _library().fused_path_blocks_per_sm(torch.device(device).index or 0, int(env))
+def blocks_per_sm(device, env=False, rays=False) -> int:
+    """Blocks of the kernel (its environment mode with env, its ray-input
+    mode with rays) resident on one SM of a CUDA device, as the occupancy
+    query gives it (the launch sizes its grid from it)."""
+    return _library().fused_path_blocks_per_sm(torch.device(device).index or 0, int(env),
+                                               int(rays))
 
 
 def pool_bytes() -> int:
@@ -891,29 +927,26 @@ def pool_bytes() -> int:
     return _library().fused_path_pool_bytes()
 
 
-def _check(t: FusedTables, pixel_xy, env=None, n_samples=0, max_depth=0):
-    dev = pixel_xy.device
+def _check(t: FusedTables, dev, n, env=None, n_samples=0, max_depth=0):
+    """Checks the tables, and the candidates with `env`, against the lanes'
+    device and count."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     if env is not None:
         c = env.cand
         if n_samples:
             raise ValueError("the persistent mode takes no environment")
         if (c.device != dev or c.dtype != torch.float32 or not c.is_contiguous()
-                or tuple(c.shape) != (max_depth, 7, pixel_xy.shape[0])):
+                or tuple(c.shape) != (max_depth, 7, n)):
             raise ValueError(f"env candidates must be a contiguous float32 (max_depth, 7, N) "
                              f"tensor on {dev}, got {tuple(c.shape)} {c.dtype} on {c.device}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    if pixel_xy.dtype != torch.int32 or pixel_xy.dim() != 2 or pixel_xy.shape[1] != 2:
-        raise ValueError(f"pixel_xy must be (N, 2) int32, got {tuple(pixel_xy.shape)} {pixel_xy.dtype}")
-    if not pixel_xy.is_contiguous():
-        raise ValueError("pixel_xy must be contiguous")
     for name, x, cols, most in (
         ("tri", t.tri, 16, MAX_TRIS), ("shade", t.shade, 16, MAX_TRIS),
         ("sph", t.sph, 16, MAX_SPHERES), ("inst", t.inst, INST_COLS, MAX_INSTANCES),
         ("entry", t.entry, ENTRY_COLS, MAX_LIGHTS), ("light", t.light, 24, MAX_LIGHT_TRIS),
     ):
         if x.device != dev:
-            raise ValueError(f"table {name} is on {x.device}, pixel_xy on {dev}")
+            raise ValueError(f"table {name} is on {x.device}, the lanes on {dev}")
         if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != cols:
             raise ValueError(f"table {name} must be (R, {cols}) float32")
         if x.shape[0] > most:
@@ -924,17 +957,34 @@ def _check(t: FusedTables, pixel_xy, env=None, n_samples=0, max_depth=0):
         raise ValueError("tri and shade tables differ in rows")
 
 
+def _check_pixels(pixel_xy):
+    if pixel_xy.dtype != torch.int32 or pixel_xy.dim() != 2 or pixel_xy.shape[1] != 2:
+        raise ValueError(f"pixel_xy must be (N, 2) int32, got {tuple(pixel_xy.shape)} {pixel_xy.dtype}")
+    if not pixel_xy.is_contiguous():
+        raise ValueError("pixel_xy must be contiguous")
+
+
+def _check_rays(rays):
+    if (rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != RAY_WORDS
+            or not rays.is_contiguous()):
+        raise ValueError(f"rays must be a contiguous float32 ({RAY_WORDS}, N) tensor "
+                         f"(pack_rays), got {tuple(rays.shape)} {rays.dtype}")
+
+
 def params(t: FusedTables, cam, n, sample_index, n_samples, max_depth, rr_depth,
            rr_threshold, env: EnvInputs = None) -> _Params:
-    """The kernel's FusedParams for n lanes."""
+    """The kernel's FusedParams for n lanes; cam None: the ray-input mode."""
     prm = _Params()
-    for k, name in enumerate(f"c{r}{c}" for r in range(3) for c in range(4)):
-        prm.cam[k] = cam[name]
-    prm.s, prm.radius, prm.resx, prm.resy = cam["s"], cam["radius"], cam["resx"], cam["resy"]
+    if cam is not None:
+        for k, name in enumerate(f"c{r}{c}" for r in range(3) for c in range(4)):
+            prm.cam[k] = cam[name]
+        prm.s, prm.radius, prm.resx, prm.resy = cam["s"], cam["radius"], cam["resx"], cam["resy"]
+        prm.seed = cam["sampler_seed"]
+    else:
+        prm.has_rays = 1
     prm.rr_threshold = rr_threshold
     p_env = env.p_env if env is not None else 0.0
     prm.p_light = (1.0 - p_env) / max(t.n_entry, 1)
-    prm.seed = cam["sampler_seed"]
     prm.sample_index = int(sample_index)
     prm.n_samples = int(n_samples)
     prm.max_depth, prm.rr_depth, prm.n = int(max_depth), int(rr_depth), n
@@ -957,23 +1007,15 @@ def table_ptrs(t: FusedTables):
             t.entry.data_ptr(), t.light.data_ptr()), sph
 
 
-def paths(t: FusedTables, cam, pixel_xy, sample_index, n_samples=0, *,
-          max_depth, rr_depth, rr_threshold, stats=None, env: EnvInputs = None):
-    """The fused kernel on CUDA tensors, its plain version on CPU tensors:
-    (rgb (N, 3) float32, rays (N,) int32), and with `env` the escape state
-    (7, N) float32 third; see paths_plain. `stats`, a CUDA int64 tensor of
-    len(STATS), receives the kernel's counters (added to it)."""
-    global launches, env_launches, persistent_launches
-    _check(t, pixel_xy, env, n_samples, max_depth)
-    kw = dict(max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
-    if pixel_xy.device.type == "cpu":
-        return paths_plain(t, cam, pixel_xy, sample_index, n_samples, env=env, **kw)
-    dev = pixel_xy.device
-    n = pixel_xy.shape[0]
+def _launch(t, cam, n, dev, pixel_xy, rays, sample_index, n_samples, env, stats, kw):
+    """One launch of the kernel on n lanes of CUDA device dev: the camgen
+    or persistent mode from pixel_xy, the ray-input mode from rays. Returns
+    (rgb, rays), and the escape state third with env."""
+    global launches, env_launches, ray_launches, ray_env_launches, persistent_launches
     rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    rays = torch.empty((n,), dtype=torch.int32, device=dev)
+    n_rays = torch.empty((n,), dtype=torch.int32, device=dev)
     esc = torch.empty((7, n), dtype=torch.float32, device=dev) if env is not None else None
-    out = (rgb, rays) if env is None else (rgb, rays, esc)
+    out = (rgb, n_rays) if env is None else (rgb, n_rays, esc)
     if n == 0:
         return out
     if stats is not None and (stats.device != dev or stats.dtype != torch.int64
@@ -983,8 +1025,9 @@ def paths(t: FusedTables, cam, pixel_xy, sample_index, n_samples=0, *,
     ptrs, _sph = table_ptrs(t)
     work = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the C function
     err = _library().fused_path(
-        ctypes.addressof(prm), pixel_xy.data_ptr(), *ptrs,
-        None if env is None else env.cand.data_ptr(), rgb.data_ptr(), rays.data_ptr(),
+        ctypes.addressof(prm), None if pixel_xy is None else pixel_xy.data_ptr(),
+        None if rays is None else rays.data_ptr(), *ptrs,
+        None if env is None else env.cand.data_ptr(), rgb.data_ptr(), n_rays.data_ptr(),
         None if esc is None else esc.data_ptr(), work.data_ptr(),
         None if stats is None else stats.data_ptr(), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream,
@@ -993,11 +1036,61 @@ def paths(t: FusedTables, cam, pixel_xy, sample_index, n_samples=0, *,
         raise RuntimeError(f"fused_path kernel launch failed: CUDA error {err}")
     if n_samples:
         persistent_launches += 1
+    elif rays is not None:
+        if env is not None:
+            ray_env_launches += 1
+        else:
+            ray_launches += 1
     elif env is not None:
         env_launches += 1
     else:
         launches += 1
     return out
+
+
+def paths(t: FusedTables, cam, pixel_xy, sample_index, n_samples=0, *,
+          max_depth, rr_depth, rr_threshold, stats=None, env: EnvInputs = None):
+    """The fused kernel on CUDA tensors, its plain version on CPU tensors:
+    (rgb (N, 3) float32, rays (N,) int32), and with `env` the escape state
+    (7, N) float32 third; see paths_plain. `stats`, a CUDA int64 tensor of
+    len(STATS), receives the kernel's counters (added to it)."""
+    dev = pixel_xy.device
+    _check_pixels(pixel_xy)
+    _check(t, dev, pixel_xy.shape[0], env, n_samples, max_depth)
+    kw = dict(max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
+    if dev.type == "cpu":
+        return paths_plain(t, cam, pixel_xy, sample_index, n_samples, env=env, **kw)
+    return _launch(t, cam, pixel_xy.shape[0], dev, pixel_xy, None, sample_index, n_samples,
+                   env, stats, kw)
+
+
+def paths_rays(t: FusedTables, rays, *, max_depth, rr_depth, rr_threshold, stats=None,
+               env: EnvInputs = None):
+    """The kernel's ray-input mode on CUDA tensors, its plain version on CPU
+    tensors: one path a lane from rays (RAY_WORDS, N) (pack_rays). Returns
+    as `paths` does."""
+    _check_rays(rays)
+    _check(t, rays.device, rays.shape[1], env, 0, max_depth)
+    kw = dict(max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
+    if rays.device.type == "cpu":
+        return paths_plain(t, None, None, 0, 0, env=env, rays=rays, **kw)
+    return _launch(t, None, rays.shape[1], rays.device, None, rays, 0, 0, env, stats, kw)
+
+
+def pack_rays(ray, cam_weight, state):
+    """The ray-input mode's lanes as one (RAY_WORDS, N) float32 tensor, a
+    row a word (consecutive lanes in consecutive words): origin, direction,
+    t_min, t_max, the camera weight, and the sampler state (a uint32 in an
+    int64 tensor, core/rng.py) as its bits."""
+    st = torch.where(state >= 2**31, state - 2**32, state).to(torch.int32)
+    return torch.cat([ray.origin.T, ray.direction.T, ray.t_min[None], ray.t_max[None],
+                      cam_weight[None].to(torch.float32), st.view(torch.float32)[None]]
+                     ).contiguous()
+
+
+def unpack_state(bits):
+    """The sampler state (int64 holding a uint32) from its float32 bits."""
+    return bits.contiguous().view(torch.int32).to(torch.int64) & rng.MASK32
 
 
 # ---------------------------------------------------------------------------
@@ -1008,22 +1101,32 @@ def paths(t: FusedTables, cam, pixel_xy, sample_index, n_samples=0, *,
 
 def env_nee_candidates(compiled, cam, pixel_xy, sample_index, max_depth, p_env):
     """Each lane's environment NEE candidate of every bounce, (max_depth, 7,
-    N) float32: wi.xyz, pdf * p_env, L.rgb. The kernel draws 7 uniforms a
-    bounce (u_sel, u_light.xy, u_lobe, u_bsdf.xy, u_rr) after the seed and
-    the camera's 2, so the environment sample a bounce would draw is
-    reproduced here from the same stream: draws 2-3 of bounce d are LCG
-    steps 7d + 4 and 7d + 5 after the seed, jumped to directly
-    (core/rng.py lcg_states) and sampled for every bounce at once. An
-    environment's directions do not depend on the shading point, which
-    makes the hoist exact."""
-    env = compiled.scene.environment
+    N) float32: wi.xyz, pdf * p_env, L.rgb, for the in-kernel camera: the
+    pixel's seed, then the camera's 2 draws (env_nee_candidates_from_state)."""
     n = pixel_xy.shape[0]
-    dev = pixel_xy.device
-    si = torch.full((n,), int(sample_index), dtype=torch.int64, device=dev)
+    si = torch.full((n,), int(sample_index), dtype=torch.int64, device=pixel_xy.device)
     seed = rng.seed_pixels(pixel_xy[:, 0].to(torch.int64), pixel_xy[:, 1].to(torch.int64),
                            si, int(cam["sampler_seed"]))
-    ks = [7 * d + 4 for d in range(max_depth)] + [7 * d + 5 for d in range(max_depth)]
-    u = rng.uniform_u32_to_float(rng.lcg_states(seed, ks))  # (2 * max_depth, N)
+    return env_nee_candidates_from_state(compiled, seed, max_depth, p_env, skip=2)
+
+
+def env_nee_candidates_from_state(compiled, state, max_depth, p_env, skip=0):
+    """The candidates of lanes whose paths start from sampler state `state`
+    (N,) after `skip` more draws (the in-kernel camera's 2; 0 in the
+    ray-input mode, whose state is past the camera's draws): (max_depth, 7,
+    N) float32, wi.xyz, pdf * p_env, L.rgb. The kernel draws 7 uniforms a
+    bounce (u_sel, u_light.xy, u_lobe, u_bsdf.xy, u_rr) from there, so the
+    environment sample a bounce would draw is reproduced here from the same
+    stream: draws 2-3 of bounce d are LCG steps 7d + 2 + skip and 7d + 3 +
+    skip, jumped to directly (core/rng.py lcg_states) and sampled for every
+    bounce at once. An environment's directions do not depend on the
+    shading point, which makes the hoist exact."""
+    env = compiled.scene.environment
+    n = state.shape[0]
+    dev = state.device
+    ks = ([7 * d + 2 + skip for d in range(max_depth)]
+          + [7 * d + 3 + skip for d in range(max_depth)])
+    u = rng.uniform_u32_to_float(rng.lcg_states(state, ks))  # (2 * max_depth, N)
     u = torch.stack([u[:max_depth].reshape(-1), u[max_depth:].reshape(-1)], dim=-1)
     m = max_depth * n
     s = env.sample(compiled, torch.zeros((m, 3), dtype=torch.float32, device=dev), u,
@@ -1062,6 +1165,29 @@ def trace_paths_fused_camgen(compiled, cam, pixel_xy, sample_index, *, max_depth
     )
     rgb, rays, esc = paths(t, cam, pixel_xy, sample_index, 0, env=env, **kw)
     return miss_pass(compiled, rgb, esc, p_env), rays.sum(dtype=torch.int64)
+
+
+def trace_paths_fused(compiled, ray, cam_weight, state0, *, max_depth, rr_depth,
+                      rr_threshold, light_sampler=None):
+    """One sample of each lane from caller-made camera rays in one launch of
+    the ray-input mode: (rgb (N, 3), rays traced (a 0-dim int64 tensor)).
+    ray: core/types.py Ray (N,); cam_weight (N,); state0 (N,) the sampler
+    state past the filter's (and the lens's) draws, as the general fork's
+    is when it enters its bounce loop. A scene with an environment makes
+    its candidates from state0 first and runs the miss pass after."""
+    kw = dict(max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
+    t = fused_tables(compiled)
+    rays = pack_rays(ray, cam_weight, state0)
+    if not compiled.plan.has_environment:
+        rgb, n_rays = paths_rays(t, rays, **kw)
+        return rgb, n_rays.sum(dtype=torch.int64)
+    p_env = light_sampler.selection_probs(compiled)[0]
+    env = EnvInputs(
+        cand=env_nee_candidates_from_state(compiled, state0, max_depth, p_env),
+        p_env=p_env, env_distance=compiled.plan.env_distance,
+    )
+    rgb, n_rays, esc = paths_rays(t, rays, env=env, **kw)
+    return miss_pass(compiled, rgb, esc, p_env), n_rays.sum(dtype=torch.int64)
 
 
 def trace_paths_fused_persistent(compiled, cam, pixel_xy, sample_index0, n_samples, *,

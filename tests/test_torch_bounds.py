@@ -7,7 +7,9 @@ torch_parity.woop_ties_bvh8: the bytes of the rays, the popped nodes and
 13 (or 22) columns of each valid row of the tested clusters, and one of
 each padding row. Its bound of the fused kernel's environment mode
 (plain_counted, fused_bound) on a 16^2 env Cornell box: the candidates
-that NEE picks and the area-light samples it takes, and no others.
+that NEE picks and the area-light samples it takes, and no others; and of
+its ray-input mode on the ray scenes (ray_scene, ray_inputs): the 40 B ray
+a lane in its bytes.
 
 The row is the triangle v0 = 0, e1 = x, e2 = y; a ray from (x, y, 1) along
 -z meets it at u = x, v = y, t = 1, exactly in float32.
@@ -151,3 +153,33 @@ def test_fused_env_bound_counts_the_picked_candidates(kind):
     assert b["flops"] - plain["flops"] == (
         counts["area_picked"] * 2
         + counts["env_picked"] * (cs.FLOPS_ENV_PICK - cs.FLOPS_AREA_PICK))
+
+
+@pytest.mark.parametrize("kind", ["thinlens", "mitchell_clip", "env_thinlens"])
+def test_fused_ray_bound_counts_the_ray_words(kind):
+    """The ray-input mode's bound on chip_smoke.py's ray scenes at 16^2:
+    the 40 B ray a lane in place of the 8 B pixel ids, the same operations
+    as the camgen mode's bound charges for the same counted work; every
+    lane's camera ray is traced."""
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+    from luisarender_tpu_torch.ops import fused_path as fp
+
+    res, depth = 16, 3
+    scene = cs.ray_scene(lt, kind, res=res, depth=depth)
+    compiled = lt.compile_scene(scene, device="cpu")
+    integ = scene.integrator
+    assert fp.camgen_params(scene.cameras[0], integ.sampler.seed) is None
+    pxy = pixel_grid(res, res, "cpu")
+    rays, _, env = cs.ray_inputs(fp, compiled, scene, pxy, 0, depth)
+    assert rays.shape == (fp.RAY_WORDS, res * res) and (env is not None) == (kind == "env_thinlens")
+    tables = fp.fused_tables(compiled)
+    with cs.plain_counted(torch, fp, tables, pxy, env) as counts:
+        fp.paths_plain(tables, None, None, 0, 0, env=env, rays=rays, max_depth=depth,
+                       rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
+    n = res * res
+    assert counts["closest"] >= n and counts["shaded"] > 0
+    b = cs.fused_bound(tables, counts, n, env=env is not None, rays=True)
+    camgen = cs.fused_bound(tables, counts, n, env=env is not None)
+    assert b["bytes"] - camgen["bytes"] == n * (cs.RAY_BYTES - 8)
+    assert b["flops"] == camgen["flops"] and b["matte_flops"] == camgen["matte_flops"]

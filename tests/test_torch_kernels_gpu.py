@@ -5,7 +5,7 @@ walk_plain), the 8-wide traces (wide8.cu and subpacket.cu against
 ops/wide8.py wide8_plain and ops/subpacket.py subpacket_plain), the
 binary-tree trace (trace.cu against ops/trace.py walk_plain) and the fused
 whole-path kernel (fused_path.cu against ops/fused_path.py paths_plain),
-its environment mode included.
+its environment and ray-input modes included.
 
 Marked `gpu`; every test skips where no card is present. On a machine with
 a card and without JAX:
@@ -587,6 +587,126 @@ def test_fused_env_wrapper_rejects_bad_inputs(cuda):
         fp.paths(tables, cam, pxy, 0, 0, env=env, **{**kw, "max_depth": 3})
     with pytest.raises(ValueError):
         fp.paths(tables, cam, pxy, 0, 0, env=env._replace(cand=env.cand.cpu()), **kw)
+
+
+def _fused_ray_case(cuda, kind, res, depth, sample_index=2):
+    """A chip_smoke.py ray_scene and its ray-input lanes (and candidates)
+    on a permuted lane list."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+    from luisarender_tpu_torch.ops import fused_path as fp
+
+    scene = chip_smoke.ray_scene(lt, kind, res=res, depth=depth)
+    compiled = lt.compile_scene(scene, device=cuda)
+    assert compiled.plan.fused_path
+    assert fp.camgen_params(scene.cameras[0], scene.integrator.sampler.seed) is None
+    pxy = pixel_grid(res, res, cuda)
+    rays, _, env = chip_smoke.ray_inputs(fp, compiled, scene, pxy, sample_index, depth)
+    perm = torch.randperm(pxy.shape[0], generator=torch.Generator().manual_seed(res)).to(cuda)
+    rays = rays[:, perm].contiguous()
+    if env is not None:
+        env = env._replace(cand=env.cand[:, :, perm].contiguous())
+    kw = dict(max_depth=depth, rr_depth=0, rr_threshold=0.95)
+    return fp, compiled, fp.fused_tables(compiled), rays, env, kw
+
+
+def _rays_equal_to_plain(fp, tables, rays, env, kw):
+    out = fp.paths_rays(tables, rays, env=env, **kw)
+    torch.cuda.synchronize()
+    ref = fp.paths_plain(tables, None, None, 0, 0, env=env, rays=rays, **kw)
+    assert len(out) == len(ref) == (2 if env is None else 3)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b), ((a != b).float().mean().item(), (a - b).abs().max().item())
+    return out
+
+
+@pytest.mark.parametrize("kind", ["thinlens", "mitchell_clip", "env_thinlens"])
+def test_fused_ray_mode_matches_plain(cuda, kind):
+    """The ray-input mode (a thin lens with a gaussian filter, a mitchell
+    filter's negative weights with a near clip plane, the thin lens under an
+    environment): rgb, rays and the escape words bit for bit on every lane
+    of a permuted lane list, one launch counted as a ray-input launch."""
+    fp, compiled, tables, rays, env, kw = _fused_ray_case(cuda, kind, 128, 6)
+    counts = (fp.launches, fp.env_launches, fp.ray_launches, fp.ray_env_launches)
+    out = _rays_equal_to_plain(fp, tables, rays, env, kw)
+    bump = (0, 0, 1, 0) if env is None else (0, 0, 0, 1)
+    assert (fp.launches, fp.env_launches, fp.ray_launches, fp.ray_env_launches) == tuple(
+        a + b for a, b in zip(counts, bump))
+    rgb = out[0] if env is None else fp.miss_pass(compiled, out[0], out[2], env.p_env)
+    assert torch.isfinite(rgb).all() and rgb.mean().item() > 0.0
+    if kind == "mitchell_clip":
+        assert rays[8].min().item() < 0.0 and rays[6].min().item() > 0.0
+
+
+@pytest.mark.parametrize("n", [1, 129, 300, 262_144 - 5],
+                         ids=["n1", "n129", "under_one_pool", "over_one_wave"])
+def test_fused_ray_mode_ragged_counts(cuda, n):
+    """Part-filled blocks, warps and slot pools, and more lanes than the
+    card holds slots at once: the rays, t ranges and candidates are read and
+    the outputs written at the lane's index, never the slot's."""
+    kind, res = ("thinlens", 512) if n > 300 else ("env_thinlens", 64)
+    fp, compiled, tables, rays, env, kw = _fused_ray_case(cuda, kind, res, 3)
+    idx = torch.randperm(rays.shape[1], generator=torch.Generator().manual_seed(n))[:n]
+    idx = idx.to(rays.device)
+    sub_env = None if env is None else env._replace(cand=env.cand[:, :, idx].contiguous())
+    _rays_equal_to_plain(fp, tables, rays[:, idx].contiguous(), sub_env, kw)
+
+
+def test_fused_ray_mode_back_to_back_launches(cuda):
+    """Launches queued without a synchronise between them give the same
+    lanes, with and without an environment."""
+    for kind in ("mitchell_clip", "env_thinlens"):
+        fp, compiled, tables, rays, env, kw = _fused_ray_case(cuda, kind, 256, 4)
+        outs = [fp.paths_rays(tables, rays, env=env, **kw) for _ in range(4)]
+        torch.cuda.synchronize()
+        for o in outs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+
+
+def test_fused_ray_wrapper_rejects_bad_inputs(cuda):
+    fp, compiled, tables, rays, env, kw = _fused_ray_case(cuda, "env_thinlens", 16, 2)
+    with pytest.raises(ValueError):  # dtype
+        fp.paths_rays(tables, rays.double(), env=env, **kw)
+    with pytest.raises(ValueError):  # device
+        fp.paths_rays(tables, rays.cpu(), env=env, **kw)
+    with pytest.raises(ValueError):  # shape
+        fp.paths_rays(tables, rays[:9].contiguous(), env=env, **kw)
+    with pytest.raises(ValueError):  # not contiguous
+        fp.paths_rays(tables, rays[:, ::2], **kw)
+    with pytest.raises(ValueError):  # candidates of other lanes
+        fp.paths_rays(tables, rays[:, :7].contiguous(), env=env, **kw)
+    with pytest.raises(ValueError):  # the persistent mode takes no rays
+        fp.paths_plain(tables, None, None, 0, 2, rays=rays.cpu(), **kw)
+    # the C function refuses rays with n_samples != 0, and a launch without
+    # rays or pixels
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fp._launch(tables, None, rays.shape[1], rays.device, None, rays, 0, 2, None, None, kw)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fp._launch(tables, None, rays.shape[1], rays.device, None, None, 0, 0, None, None, kw)
+    out = fp.paths_rays(tables, rays[:, :0].contiguous(), **kw)
+    assert out[0].shape == (0, 3) and out[1].shape == (0,)
+
+
+def test_fused_ray_mode_fed_camgen_rays_equals_camgen(cuda):
+    """The ray-input mode fed the camgen mode's own camera rays and states
+    (the plain version's gen_from_cam) renders the camgen kernel's lanes
+    bit for bit: both modes share one path."""
+    from luisarender_tpu_torch.core.types import make_ray
+
+    fp, tables, cam, pxy, kw = _fused_case(cuda, "scenes/cornell.json", 256, 6)
+    pl = fp._Plain(tables, cam, pxy, kw["max_depth"], 0, 0.95)
+    st, o, d = pl.gen_from_cam(torch.full((pxy.shape[0],), 4, dtype=torch.int64, device=cuda))
+    ray = make_ray(torch.stack(o, -1), torch.stack(d, -1), 0.0, math.inf)
+    rays = fp.pack_rays(ray, torch.ones(pxy.shape[0], device=cuda), st)
+    rgb_r, rays_r = fp.paths_rays(tables, rays, **kw)
+    rgb_c, rays_c = fp.paths(tables, cam, pxy, 4, 0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rgb_r, rgb_c) and torch.equal(rays_r, rays_c)
 
 
 def _bvh8_case(cuda, n_tris, n_rays, seed):
