@@ -68,10 +68,15 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              the 8-wide tables) and on a random 8,000-triangle soup with a
              ragged 100,003 rays, every output and walk count bit for bit,
              the subpacket kernels also through the reference's ray sort
-             (ops/subpacket.py launch_sorted), with the wide8 and subpacket
-             kernels' lane counters (as the cluster kernel's, and for wide8
-             the pending leaves its box re-test dropped) and the subpacket
-             bound with a Woop row charged 13 columns and 22 beside it;
+             (ops/subpacket.py launch_sorted), with the wide8, subpacket
+             and trace kernels' lane counters (as the cluster kernel's,
+             and for wide8 the pending leaves its box re-test dropped), the
+             subpacket bound with a Woop row charged 13 columns and 22
+             beside it, and for the trace kernel its child-pair table's
+             rows and build time and the reference-order walk
+             (ops/trace.py preorder_plain) beside its own: its walk, its
+             bound, and its hits, which the kernel's must equal on every
+             lane;
              and against the cluster kernel on the same rays: wide8 and
              trace the same slots on every lane but exact ties, subpacket
              by the reference's rule for it (under 0.5% of lanes flip
@@ -1294,41 +1299,60 @@ TREE_KERNELS = (
 )
 
 
+def trace_tables(trace, tr, leaf_size):
+    """ops/trace.py's node and triangle tables (pack_tables) of the trace
+    arrays `tr`, the leaf size, the tree's stack bound and its child-pair
+    table (build_pairs), made once a tree on the card, with the table's
+    build time (CUDA events around the call, host dispatch included)."""
+    import torch
+
+    from luisarender_tpu_torch.accel.traverse import TraceGeometry
+
+    geom = TraceGeometry(num_rows=tr["tri_v0"].shape[0], leaf_size=leaf_size,
+                         **{k: tr[k] for k in TRACE_TREE_KEYS})
+    nodes, tris = trace.pack_tables(geom)
+    stack = trace.tree_stack(nodes)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    pairs = trace.build_pairs(nodes, leaf_size)
+    end.record()
+    end.synchronize()
+    return (nodes, tris, leaf_size), stack, pairs, start.elapsed_time(end)
+
+
 def tree_call(mods, name, tr, leaf_size):
-    """(table arguments, launch(rays, any_hit, err, stats), plain(rays,
-    any_hit, visited) -> (outputs, stats), visited masks(device), the stack
-    bound) of one tree kernel over the trace arrays `tr`, the stack bound
-    computed once from the tree."""
+    """(table arguments, launch(rays, any_hit, err, stats, counters=None),
+    plain(rays, any_hit, visited) -> (outputs, stats), visited masks(device),
+    the stack bound, {the trace kernel's pair rows and their build ms}) of
+    one tree kernel over the trace arrays `tr`, the stack bound (and the
+    trace kernel's pair table) made once a tree."""
     import torch
 
     mod = mods[name]
     if name == "trace":
-        from luisarender_tpu_torch.accel.traverse import TraceGeometry
+        tables, stack, pairs, build_ms = trace_tables(mod, tr, leaf_size)
 
-        geom = TraceGeometry(num_rows=tr["tri_v0"].shape[0], leaf_size=leaf_size,
-                             **{k: tr[k] for k in TRACE_TREE_KEYS})
-        tables = mod.pack_tables(geom) + (leaf_size,)
-        stack = mod.tree_stack(tables[0])
-
-        def launch(rays, any_hit, err, stats):
-            return mod.launch(*rays, *tables, err, stats, stack=stack)
+        def launch(rays, any_hit, err, stats, counters=None):
+            return mod.launch(*rays, *tables, err, stats, stack=stack, counters=counters,
+                              pairs=pairs)
 
         def plain(rays, any_hit, visited):
-            out = mod.walk_plain(*rays, *tables, visited, stack=stack)
+            out = mod.walk_plain(*rays, *tables, visited, stack=stack, pairs=pairs)
             return out[:4], out[4]
 
         def masks(dev):
-            return (torch.zeros(tables[0].shape[0], dtype=torch.bool, device=dev),
+            return (torch.zeros(pairs.shape[0], dtype=torch.bool, device=dev),
                     torch.zeros(tables[1].shape[0], dtype=torch.bool, device=dev))
-        return tables, launch, plain, masks, stack
+        return (tables, launch, plain, masks, stack,
+                {"pair_rows": int(pairs.shape[0]), "pair_build_ms": build_ms})
     leaf = ((tr["cluster_cboxes"], tr["cluster_tris"]) if name == "wide8"
             else (tr["cluster_woop"],))
     tables = (tr["cluster_slab8"], tr["cluster_meta8"]) + leaf
     walk = mod.wide8_plain if name == "wide8" else mod.subpacket_plain
     stack = mods["subpacket"].stack8_need(tr["cluster_meta8"].cpu().numpy())
 
-    def launch(rays, any_hit, err, stats):
-        return mod.launch(*rays, *tables, any_hit, err, stats, stack=stack)
+    def launch(rays, any_hit, err, stats, counters=None):
+        return mod.launch(*rays, *tables, any_hit, err, stats, stack=stack, counters=counters)
 
     def plain(rays, any_hit, visited):
         st = walk(*rays, *tables, any_hit, visited, stack=stack)
@@ -1341,7 +1365,7 @@ def tree_call(mods, name, tr, leaf_size):
     def masks(dev):
         return (torch.zeros(tables[0].shape[0], dtype=torch.bool, device=dev),
                 torch.zeros(leaf[-1].shape[0], dtype=torch.bool, device=dev))
-    return tables, launch, plain, masks, stack
+    return tables, launch, plain, masks, stack, {}
 
 
 def tree_bound(name, kind, tables, rays, walk, visited, winners, woop_cols=13):
@@ -1358,16 +1382,22 @@ def tree_bound(name, kind, tables, rays, walk, visited, winners, woop_cols=13):
     closest hit and not at all for any-hit (its occluders are not known
     here). Operations: a binary node pop 20 (one box), an 8-wide pop 8
     boxes of 20, a wide8 cluster's box re-test 20, a Moller-Trumbore row 46,
-    a Woop row 39."""
+    a Woop row 39. The binary tree: `trace` is the pair walk (ops/trace.py
+    walk_plain: a visit reads a pair row's two boxes and two codes and tests
+    both boxes), `trace_preorder` the reference's order (preorder_plain: a
+    pop reads a node's box, skip, count and first and tests one box); both
+    read v0 / e1 / e2 and the index of each row tested."""
     n = rays[0].shape[0]
     closest = kind == "closest"
-    out = {"wide8": 16, "subpacket": 8, "trace": 16}[name] if closest else 4
+    out = 16 if name.startswith("trace") else {"wide8": 16, "subpacket": 8}[name]
+    out = out if closest else 4
     pops, leaves, rows = (int(walk[:, k].sum()) for k in range(3))
     nodes_read, blocks_read = int(visited[0].sum()), visited[1]
-    if name == "trace":
-        node_bytes = nodes_read * 9 * 4  # box, skip, count, first
+    if name.startswith("trace"):
+        pair = name == "trace"
+        node_bytes = nodes_read * (14 if pair else 9) * 4
         block_bytes = int(blocks_read.sum()) * 10 * 4  # v0, e1, e2, index
-        ops = pops * FLOPS_PER_NODE + rows * FLOPS_PER_ROW
+        ops = pops * (2 if pair else 1) * FLOPS_PER_NODE + rows * FLOPS_PER_ROW
     else:
         node_bytes = nodes_read * (48 + 9) * 4  # 48 plane bounds, 8 codes, leaf mask
         blk = tables[-1]
@@ -1386,6 +1416,28 @@ def tree_bound(name, kind, tables, rays, walk, visited, winners, woop_cols=13):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def trace_preorder(torch, trace, tables, rays, stack, out_k, device):
+    """The trace kernel's rays walked in the reference's order
+    (ops/trace.py preorder_plain): its walk and its bound (tree_bound
+    "trace_preorder"), beside the pair walk's, and the lanes whose hit
+    (t, prim, u, v) differs from the kernel's, which meets the boxes in that
+    order: 0 on a sound kernel."""
+    visited = (torch.zeros(tables[0].shape[0], dtype=torch.bool, device=device),
+               torch.zeros(tables[1].shape[0], dtype=torch.bool, device=device))
+    *out_p, walk = trace.preorder_plain(*rays, *tables, visited, stack=stack)
+    differ = torch.zeros_like(out_k[1], dtype=torch.bool)
+    for a, b in zip(out_k, out_p):
+        differ |= (a != b) & ~(torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() \
+            else a != b
+    winners = int(torch.unique(out_k[1][out_k[1] >= 0]).numel())
+    bound_ms, bound_by = tree_bound("trace_preorder", "closest", tables, rays, walk, visited,
+                                    winners)
+    return {"preorder_differ": int(differ.sum()), "preorder_walk": walk_summary(walk),
+            "preorder_bound_ms": bound_ms,
+            "preorder_bound_by": bound_by, "preorder_nodes_read": int(visited[0].sum()),
+            "preorder_rows_read": int(visited[1].sum())}
 
 
 def max_abs_diff(torch, outs_k, outs_p):
@@ -1505,9 +1557,11 @@ def phase_tree_kernels(torch, mods, device, compiled, cap):
                      "soup8000": (soup_rays, soup_tr)}
             rec = {"errors": {}, "hit_fraction": {}, "walk": {}, "vs_cluster": {}, "times": {}}
             for case, (rays, ctr) in cases.items():
-                tables, launch, plain, masks, stack = tree_call(mods, name, ctr, leaf_size)
+                tables, launch, plain, masks, stack, info = tree_call(mods, name, ctr,
+                                                                      leaf_size)
                 if name == "trace" and case == "camera":
                     shape["stack_binary"] = stack
+                    shape.update(info)
                 n = rays[0].shape[0]
                 err = torch.zeros(1, dtype=torch.int32, device=device)
                 stats_k = torch.zeros((n, 3), dtype=torch.int32, device=device)
@@ -1573,11 +1627,15 @@ def phase_tree_kernels(torch, mods, device, compiled, cap):
                     rec["times"][case]["bound_ms_22"], rec["times"][case]["bound_by_22"] = (
                         tree_bound(name, kind, tables, rays, stats_k, visited, winners,
                                    woop_cols=22))
-                if name != "trace":
-                    mod = mods[name]
-                    rec["times"][case]["lanes"] = cluster_lanes(
-                        torch, mod, lambda ctr: mod.launch(*rays, *tables, any_hit, err,
-                                                           stack=stack, counters=ctr), device)
+                rec["times"][case]["lanes"] = cluster_lanes(
+                    torch, mods[name], lambda c: launch(rays, any_hit, err, None, counters=c),
+                    device)
+                if name == "trace":  # the reference's order: its walk, bound and hits
+                    rec["times"][case].update(trace_preorder(torch, mods["trace"], tables,
+                                                             rays, stack, out_k, device))
+                    check(rec["times"][case]["preorder_differ"] == 0,
+                          f"{key} {case}: {rec['times'][case]['preorder_differ']} lanes' hits "
+                          "differ from the walk in the reference's order")
             rec["max_abs_err"] = max(max(v) for v in rec["errors"].values())
             check(rec["max_abs_err"] == 0.0, f"{key}: kernel and plain version differ")
             results[key] = rec

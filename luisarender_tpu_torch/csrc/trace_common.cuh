@@ -1,7 +1,7 @@
 // Device code shared by the trace kernels of csrc/ (cluster.cu, wide8.cu,
 // subpacket.cu, trace.cu): the ray, its safe inverse direction, the slab
-// test of a box and Moller-Trumbore over a cluster's attribute-major
-// triangle block, each in the reference's order of operations
+// test of a box (with its entry t) and Moller-Trumbore, each in the
+// reference's order of operations
 // (luisarender_tpu/ops/cluster_pallas.py); the warp leaf stage of the
 // "while-while" kernels (warp_leaves, with a row-test policy: MtRows here
 // for the cluster and wide8 kernels, subpacket.cu's Woop rows); and the
@@ -54,20 +54,27 @@ __device__ __forceinline__ Ray load_ray(int i, const float* __restrict__ o,
 
 // A box as two float4: a = (min.x, min.y, min.z, max.x), b = (max.y, max.z,
 // ..): the first 6 columns of a cluster-tree node row, a cluster box row or
-// a binary-tree node row. NaN-ignoring min / max (fminf / fmaxf).
-__device__ __forceinline__ bool slab(const float4 a, const float4 b,
-                                     const Ray& r, float t_far) {
+// either half of a binary-tree child-pair row (ops/trace.py build_pairs).
+// NaN-ignoring min / max (fminf / fmaxf). `near` receives the entry t, the
+// box's clamped to t_min.
+__device__ __forceinline__ bool slab_near(const float4 a, const float4 b,
+                                          const Ray& r, float t_far, float& near) {
   const float t0x = (a.x - r.ox) * r.ix;
   const float t1x = (a.w - r.ox) * r.ix;
   const float t0y = (a.y - r.oy) * r.iy;
   const float t1y = (b.x - r.oy) * r.iy;
   const float t0z = (a.z - r.oz) * r.iz;
   const float t1z = (b.y - r.oz) * r.iz;
-  const float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fmaxf(fminf(t0z, t1z), r.tmin));
+  near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), r.tmin));
   const float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                           fminf(fmaxf(t0z, t1z), t_far));
   return near <= far;
+}
+
+__device__ __forceinline__ bool slab(const float4 a, const float4 b,
+                                     const Ray& r, float t_far) {
+  float near;
+  return slab_near(a, b, r, t_far, near);
 }
 
 // Moller-Trumbore of the ray against the triangle (v0, e1, e2), in the
@@ -96,18 +103,15 @@ __device__ __forceinline__ bool moller_trumbore(
   return u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
 }
 
-// The per-ray stacks of the binary tree kernel (trace.cu) and the per-lane
-// stacks of the 8-wide ones (wide8.cu, subpacket.cu): a launch takes the
-// least build that holds its tree's bound (ops/cluster.py stack_need,
-// ops/subpacket.py stack8_need), which the caller passes in and the walk
+// The per-lane stacks of the 8-wide kernels (wide8.cu, subpacket.cu): a
+// launch takes the least build that holds its tree's bound
+// (ops/subpacket.py stack8_need), which the caller passes in and the walk
 // checks. A one-pop depth-first walk pushes each node of a tree at most
-// once, so the larger 8-wide stack holds any tree of at most
-// MAX_SLAB8_NODES = 2048 nodes (ops/subpacket.py STACKS8; ops/trace.py
-// STACKS for the binary tree). The larger builds' local memory (8 KB a
-// thread for 2,048 entries) is reserved only by a launch of a tree that
-// needs them.
+// once, so the larger stack holds any tree of at most MAX_SLAB8_NODES =
+// 2048 nodes (ops/subpacket.py STACKS8). The larger build's local memory
+// (8 KB a thread) is reserved only by a launch of a tree that needs it.
+// The binary tree kernel's stacks are trace.cu's.
 constexpr int kStack8Small = 48, kStack8Large = 2048;
-constexpr int kStack2Small = 64, kStack2Large = 512;
 
 // The entries of the 8-wide build whose stack holds `bound`, 0 if none does.
 inline int stack8_build(int bound) {

@@ -207,6 +207,14 @@ def safe_inv(v):
 def slab(row, ox, oy, oz, ix, iy, iz, t_min, t_far):
     """Node rows (k, 8) against k rays; NaN-ignoring min / max, as the
     kernel's fminf / fmaxf."""
+    near, far = slab_range(row, ox, oy, oz, ix, iy, iz, t_min, t_far)
+    return near <= far
+
+
+def slab_range(row, ox, oy, oz, ix, iy, iz, t_min, t_far):
+    """(near, far) of the slab test of boxes (k, 6+: min xyz, max xyz)
+    against k rays: the box is hit where near <= far (csrc/trace_common.cuh
+    slab_near)."""
     t0x = (row[:, 0] - ox) * ix
     t1x = (row[:, 3] - ox) * ix
     t0y = (row[:, 1] - oy) * iy
@@ -217,7 +225,7 @@ def slab(row, ox, oy, oz, ix, iy, iz, t_min, t_far):
                       torch.fmax(torch.fmin(t0z, t1z), t_min))
     far = torch.fmin(torch.fmin(torch.fmax(t0x, t1x), torch.fmax(t0y, t1y)),
                      torch.fmin(torch.fmax(t0z, t1z), t_far))
-    return near <= far
+    return near, far
 
 
 def _leaf_tests(blk, ox, oy, oz, dx, dy, dz, t_min, best_t, any_hit):

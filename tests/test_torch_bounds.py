@@ -5,7 +5,11 @@ occluder among the opaque rows, and a dead lane counts no rows and no ray
 bytes. Its bound of the subpacket kernels (tree_bound) on
 torch_parity.woop_ties_bvh8: the bytes of the rays, the popped nodes and
 13 (or 22) columns of each valid row of the tested clusters, and one of
-each padding row. Its bound of the fused kernel's environment mode
+each padding row; of the binary-tree kernel, on torch_parity.tie_tree,
+for its pair walk (two boxes and two codes a pair row visited, two box
+tests a visit) and for the walk in the reference's order (a node's box,
+skip, count and first a node popped, one box test a pop), both with the
+ten columns of each row tested. Its bound of the fused kernel's environment mode
 (plain_counted, fused_bound) on a 16^2 env Cornell box: the candidates
 that NEE picks and the area-light samples it takes, and no others; and of
 its ray-input mode on the ray scenes (ray_scene, ray_inputs): the 40 B ray
@@ -112,6 +116,35 @@ def test_subpacket_bound_counts_woop_columns(kind):
     for cols, (ms, by) in bounds.items():
         assert by == "bytes"
         assert ms == pytest.approx((base + 6 * cols * 4) / cs.PEAK_BYTES_PER_S * 1e3, rel=1e-12)
+
+
+@pytest.mark.parametrize("order", ["pairs", "preorder"])
+def test_trace_bound_counts_the_walk(order):
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_parity import tie_tree
+
+    from luisarender_tpu_torch.accel.traverse import TraceGeometry
+    from luisarender_tpu_torch.ops import trace
+
+    arrays, rays = tie_tree(False)
+    nodes, tris = trace.pack_tables(TraceGeometry(
+        num_rows=4, **{k: torch.as_tensor(v) for k, v in arrays.items()}))
+    rays = tuple(torch.as_tensor(x) for x in rays)
+    pairs = order == "pairs"
+    visited = (torch.zeros(2 if pairs else 3, dtype=torch.bool),
+               torch.zeros(4, dtype=torch.bool))
+    walk = (trace.walk_plain if pairs else trace.preorder_plain)(*rays, nodes, tris, 4,
+                                                                   visited)[4]
+    # 62 rays through both leaves, one that misses the root's box, one dead
+    per_ray = 2 if pairs else 3  # pair rows 0 and 1; or the root and both leaves
+    assert int(walk[:, 0].sum()) == 62 * per_ray + 1 and int(walk[:, 2].sum()) == 62 * 4
+    assert bool(visited[0].all()) and bool(visited[1].all())
+    ms, by = cs.tree_bound("trace" if pairs else "trace_preorder", "closest",
+                           (nodes, tris, 4), rays, walk, visited, 1)
+    nbytes = 64 * (32 + 16) + (2 * 14 if pairs else 3 * 9) * 4 + 4 * 10 * 4
+    ops = (62 * per_ray + 1) * (2 if pairs else 1) * cs.FLOPS_PER_NODE + 248 * cs.FLOPS_PER_ROW
+    assert by == "bytes" and nbytes / cs.PEAK_BYTES_PER_S > ops / cs.PEAK_FP32_PER_S
+    assert ms == pytest.approx(nbytes / cs.PEAK_BYTES_PER_S * 1e3, rel=1e-12)
 
 
 @pytest.mark.parametrize("kind", ["spherical", "env_only"])

@@ -23,7 +23,8 @@ def _forbidden(name):
 def _port_files():
     files = sorted((ROOT / "luisarender_tpu_torch").rglob("*.py"))
     files += [ROOT / name for name in ("chip_smoke.py", "brute_ab.py", "cluster_ab.py",
-                                       "fused_ab.py", "subpacket_ab.py", "wide8_ab.py")]
+                                       "fused_ab.py", "subpacket_ab.py", "trace_ab.py",
+                                       "wide8_ab.py")]
     return files
 
 

@@ -1034,3 +1034,75 @@ def test_trace_wrapper_raises_on_bad_inputs_and_trees(cuda):
         nodes_bad, tris_bad, stack = malformed_tree(kind)
         with pytest.raises(RuntimeError, match=message):
             trace.closest(*rays, *_to(cuda, nodes_bad, tris_bad), 4, stack=stack)
+
+
+@pytest.mark.parametrize("case", ["dup_left_nearer", "dup_right_nearer", "face_plane"])
+def test_trace_kernel_ties_take_the_lower_row(cuda, case):
+    """An exact t tie across two leaves (tests/torch_parity.py tie_tree and
+    face_tie_tree): the kernel keeps the lower row, as walk_plain and the
+    reference do, where either leaf's box is entered first and where the
+    tie lies in the lower-row leaf's entry face."""
+    from luisarender_tpu_torch.accel.traverse import TraceGeometry
+    from luisarender_tpu_torch.ops import trace
+    from torch_parity import face_tie_tree, tie_tree
+
+    arrays, rays = face_tie_tree() if case == "face_plane" else tie_tree(
+        case == "dup_right_nearer")
+    nodes, tris = trace.pack_tables(TraceGeometry(
+        num_rows=4, **{k: torch.as_tensor(v, device=cuda) for k, v in arrays.items()}))
+    args = (*_to(cuda, *rays), nodes, tris, 4)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    stats = torch.zeros((rays[0].shape[0], 3), dtype=torch.int32, device=cuda)
+    kern = trace.launch(*args, err, stats)
+    torch.cuda.synchronize()
+    t, prim, u, v, walk = trace.walk_plain(*args)
+    assert int(err.item()) == 0 and torch.equal(stats, walk)
+    _assert_same(kern, (t, prim, u, v))
+    if case == "face_plane":
+        assert bool((kern[1] == 0).all())
+    else:
+        assert kern[1][:2].tolist() == [-1, -1] and bool((kern[1][2:] == 1).all())
+
+
+def test_trace_counted_build_matches_uncounted(cuda):
+    """The counted build gives the uncounted one's outputs and walk counts,
+    and its lane counters add up to the walk's."""
+    trace, args = _trace_case(cuda, 8000, 100_003, 17)
+    n = args[0].shape[0]
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    plain_stats = torch.zeros((n, 3), dtype=torch.int32, device=cuda)
+    counted_stats = torch.zeros_like(plain_stats)
+    ctr = torch.zeros(len(trace.COUNTERS), dtype=torch.int64, device=cuda)
+    out = trace.launch(*args, err, plain_stats)
+    counted = trace.launch(*args, err, counted_stats, counters=ctr)
+    torch.cuda.synchronize()
+    assert int(err.item()) == 0
+    _assert_same(counted, out)
+    assert torch.equal(counted_stats, plain_stats)
+    c = dict(zip(trace.COUNTERS, ctr.tolist()))
+    pops, leaves, rows = (int(x) for x in plain_stats.sum(0).tolist())
+    assert c["pops"] == pops and c["parked"] == leaves and c["rows"] == rows
+    assert 0 < c["rounds"] <= leaves and 0 < c["loads"] <= leaves
+    assert pops <= c["pop_slots"] and rows <= c["row_slots"]
+
+
+def test_trace_stack_builds_agree(cuda):
+    """The kernel takes the stack build that ops/trace.py stack_build names,
+    and its 32-, 64- and 512-entry builds give the same answer and walk."""
+    trace, args = _trace_case(cuda, 8000, 100_003, 18)
+    lib = trace._library()
+    for bound in (1, 23, 32, 33, 64, 65, 512, 513):
+        assert lib.trace_stack_build(bound) == trace.stack_build(bound)
+    need = trace.tree_stack(args[4])
+    assert need <= trace.STACKS[0]
+    n = args[0].shape[0]
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    runs = []
+    for stack in (need, trace.STACKS[0] + 1, trace.STACKS[1] + 1):
+        stats = torch.zeros((n, 3), dtype=torch.int32, device=cuda)
+        runs.append((trace.launch(*args, err, stats, stack=stack), stats))
+    torch.cuda.synchronize()
+    assert int(err.item()) == 0
+    for out, stats in runs[1:]:
+        _assert_same(out, runs[0][0])
+        assert torch.equal(stats, runs[0][1])

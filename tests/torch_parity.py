@@ -224,6 +224,89 @@ def malformed_tree(kind):
     return nodes, np.zeros((1, 16), np.float32), (16 if kind == "stack" else None)
 
 
+def tie_tree(dup_met_first):
+    """A hand-built binary tree (the TraceGeometry arrays of ops/trace.py
+    pack_tables, leaf size 4) whose two leaves hold the same triangle T
+    (rows 1 and 2), so that a ray through T ties exactly in t across the
+    leaves, and rays along +x through T. Root (node 0), left leaf (node 1:
+    rows 0, 1), right leaf (node 2: rows 2, 3); T lies in the plane x = 5,
+    beside it in each leaf an off-path triangle in front of it, at x = 4.5
+    in one leaf and x = 4.8 in the other, so that each leaf's box is
+    entered before T along +x, the first at 4.5. With `dup_met_first` the
+    right leaf holds the one at 4.5, so that a walk entering the nearer box
+    first would meet row 2 before row 1; else the left one does. Returns (arrays, rays (o, d,
+    t_min, t_max) float32 numpy): 62 rays from x = 0 along +x through T
+    (half of them tilted), a dead one and one that misses every box. The
+    reference keeps row 1 (met first in preorder) on every ray through T."""
+    def tri(x, y, z, size):
+        return np.float32([x, y, z]), np.float32([0, size, 0]), np.float32([0, 0, size])
+
+    first, second, dup = tri(4.5, 5, 5, 2), tri(4.8, 5, 5, 2), tri(5, -1, -1, 3)
+    rows = [second, dup, dup, first] if dup_met_first else [first, dup, dup, second]
+    v0, e1, e2 = (np.stack([r[k] for r in rows]) for k in range(3))
+    lo = np.minimum(v0, np.minimum(v0 + e1, v0 + e2))
+    hi = np.maximum(v0, np.maximum(v0 + e1, v0 + e2))
+    leaf_lo, leaf_hi = np.stack([lo[0:2].min(0), lo[2:4].min(0)]), np.stack([hi[0:2].max(0),
+                                                                            hi[2:4].max(0)])
+    arrays = {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2,
+              "prim_index": np.arange(4, dtype=np.int32),
+              "aabb_min": np.concatenate([leaf_lo.min(0, keepdims=True), leaf_lo]),
+              "aabb_max": np.concatenate([leaf_hi.max(0, keepdims=True), leaf_hi]),
+              "skip": np.int32([-1, 2, -1]), "node_first": np.int32([-1, 0, 2]),
+              "node_count": np.int32([0, 2, 2])}
+    rng = np.random.default_rng(9)
+    n = 64
+    o = np.zeros((n, 3), np.float32)
+    o[:, 1:] = rng.uniform(-0.6, 0.2, (n, 2))
+    d = np.tile(np.float32([[1.0, 0.0, 0.0]]), (n, 1))
+    d[n // 2:, 1:] = rng.uniform(-0.02, 0.02, (n - n // 2, 2))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_min = np.full(n, 1e-4, np.float32)
+    t_max = np.full(n, np.inf, np.float32)
+    t_max[0] = 0.0  # dead
+    o[1] = (0.0, 30.0, 30.0)  # misses every box
+    return arrays, (o, d.astype(np.float32), t_min, t_max)
+
+
+def face_tie_tree():
+    """A hand-built binary tree as tie_tree's, whose two leaves hold the same
+    triangle T (rows 0 and 2, in the plane x = 5): the left leaf's other
+    row lies behind T (x = 5.5), so that its box's entry face is T's plane,
+    and the right leaf's other row in front of it (x = 4.5), so that its box
+    is entered first along +x. Returns (arrays, rays (o, d, t_min, t_max)
+    float32 numpy): 64 rays along +x, tilted a little, through T. The
+    reference keeps row 0 (met first in preorder) on every ray; a walk that
+    entered the nearer box first would meet row 2 first, and on some of
+    these rays the left box's slab entry rounds a step above T's
+    Moller-Trumbore t, so that such a walk culls it and keeps row 2."""
+    def tri(x, y, z, size):
+        return np.float32([x, y, z]), np.float32([0, size, 0]), np.float32([0, 0, size])
+
+    dup = tri(5, -1, -1, 3)
+    rows = [dup, tri(5.5, 5, 5, 2), dup, tri(4.5, 5, 5, 2)]
+    v0, e1, e2 = (np.stack([r[k] for r in rows]) for k in range(3))
+    lo = np.minimum(v0, np.minimum(v0 + e1, v0 + e2))
+    hi = np.maximum(v0, np.maximum(v0 + e1, v0 + e2))
+    leaf_lo, leaf_hi = np.stack([lo[0:2].min(0), lo[2:4].min(0)]), np.stack([hi[0:2].max(0),
+                                                                            hi[2:4].max(0)])
+    arrays = {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2,
+              "prim_index": np.arange(4, dtype=np.int32),
+              "aabb_min": np.concatenate([leaf_lo.min(0, keepdims=True), leaf_lo]),
+              "aabb_max": np.concatenate([leaf_hi.max(0, keepdims=True), leaf_hi]),
+              "skip": np.int32([-1, 2, -1]), "node_first": np.int32([-1, 0, 2]),
+              "node_count": np.int32([0, 2, 2])}
+    rng = np.random.default_rng(0)
+    n = 64
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = rng.uniform(-2, 1, n)
+    o[:, 1:] = rng.uniform(-0.6, 0.2, (n, 2))
+    d = np.tile(np.float32([[1.0, 0.0, 0.0]]), (n, 1))
+    d[:, 1:] = rng.uniform(-0.05, 0.05, (n, 2))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return arrays, (o, d.astype(np.float32), np.full(n, 1e-4, np.float32),
+                    np.full(n, np.inf, np.float32))
+
+
 def overlapping_leaves_bvh8():
     """A hand-built 8-wide tree whose root pop hits several leaf clusters
     whose boxes overlap along the x axis, so that a hit in one leaf lets
