@@ -119,7 +119,24 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              under 2% of pixels off the cluster route's by more than 1e-3
              and its mean within 0.5%. Seconds (the scene compile
              included, the kernel build not), rays, Mray/s, and the
-             compile seconds on their own
+             compile seconds on their own.
+    twolevel the same scene compiled two-level (accel "twolevel": 27
+             instances of 3 unique meshes, 20,484 unique triangles): its
+             render with one cluster closest launch a visible instance a
+             bounce and one any-hit launch a visible opaque one, nothing
+             else, its image against the cluster route's by that rule,
+             and its trace tables' bytes beside the flat scene's; the
+             route on phase 3's mesh-heavy camera and bounce-1 rays and
+             both bounces' shadow rays against the plain TLAS/BLAS walk
+             on the card (hits, prims and instances on every lane but
+             exact ties in t, t within 1e-5 relative, occlusion on every
+             lane) and against the flat cluster kernel (at most
+             TWOLEVEL_FLAT_SHARE of lanes differ), with its wall and
+             profiler device ms a trace beside the flat kernel's; and
+             testing.mesh_heavy(n=20) under accel "auto" (400
+             icospheres, 8,192,004 flattened triangles), which must
+             compile two-level without the flat tables and render one
+             1280 x 720 sample at depth 5, 402 launches a bounce each
   5 general  the general fork: testing.cornell_box(512^2, depth 8) plus a
              subdivided icosphere (352 triangles, so the fused kernel does
              not cover it) through render at 32 spp (cut from 256 to save
@@ -127,7 +144,8 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              fused kernel never
   6 profile  512^2 materials samples on the fused fork, a 512^2 Cornell
              sample, a 512^2 sample of phase 5's scene and a 1280 x 720
-             mesh-heavy sample on the general fork under torch.profiler, per
+             mesh-heavy sample on the general fork, flat and two-level,
+             under torch.profiler, per
              sample: device busy share and the kernels' share of it (not
              measured, and reported as null, if the profiler traces no
              device work)
@@ -1674,7 +1692,7 @@ def check_image(img, w, h, what):
     check(img.mean() > 0.0, f"{what}: the image is black")
 
 
-def phase_main(torch, lt, brute, fp, device):
+def phase_main(torch, lt, brute, fp, device, flat_trace):
     from luisarender_tpu_torch import testing
 
     recs = {}
@@ -1812,8 +1830,10 @@ def phase_main(torch, lt, brute, fp, device):
     check(compiled.plan.has_environment and compiled.plan.needs_uv
           and "checkerboard" in compiled.arrays["textures"],
           "mesh_heavy: its checkerboard floor or environment is missing")
+    flat_bytes = table_bytes(compiled.arrays["trace"])
     del compiled
-    emit({"phase": "main", "scene": "testing.mesh_heavy", "compile_seconds": compile_seconds})
+    emit({"phase": "main", "scene": "testing.mesh_heavy", "compile_seconds": compile_seconds,
+          "trace_table_bytes": flat_bytes})
     img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
     check_image(img, w, h, "mesh_heavy")
     check(integ.bounces_run > 0 and counts["cluster_closest"] == integ.bounces_run
@@ -1825,12 +1845,14 @@ def phase_main(torch, lt, brute, fp, device):
                           "triangles": 512_004, "resolution": [w, h], "depth": integ.max_depth,
                           "spp": cam.spp, "cut": None,
                           "seconds": seconds, "compile_seconds": compile_seconds,
+                          "trace_table_bytes": flat_bytes,
                           "rays": integ.rays_traced,
                           "mray_per_s": integ.rays_traced / seconds / 1e6,
                           "bounces": integ.bounces_run, "launches": counts,
                           "image_mean": float(img.mean())}
     emit(recs["mesh_heavy"])
     recs.update(phase_routes(torch, lt, brute, fp, device, img))
+    recs.update(phase_twolevel(torch, lt, brute, fp, device, img, recs["mesh_heavy"], flat_trace))
     return recs
 
 
@@ -1877,6 +1899,185 @@ def phase_routes(torch, lt, brute, fp, device, img):
         check(off < 0.02 and abs(rel) < 0.005,
               f"mesh_heavy {route}: {off:.4f} of pixels off the cluster route's image, "
               f"mean off by {rel:.5f}")
+    return recs
+
+
+# the 400-instance case of the twolevel phase: testing.mesh_heavy at n = 20,
+# which `auto` sends to the two-level path (8,192,004 flattened triangles,
+# 20,484 unique)
+MESH_HEAVY_AUTO = dict(res=(1280, 720), spp=1, depth=5, n=20, subdiv=5, accel="auto")
+# the share of lanes on which the two-level route and the flat cluster
+# route may differ on phase 4's mesh-heavy rays (hit or miss, t beyond 1e-3
+# relative / 1e-4 absolute, the instance hit, occlusion): world-space and
+# object-space triangles round apart at edges. An H100 run measured at
+# most 3 of 921,600 lanes (3.3e-6, camera rays); the gate is 3x that
+TWOLEVEL_FLAT_SHARE = 1e-5
+
+
+def table_bytes(tables):
+    """Bytes of a scene's dict of trace tables (tensors)."""
+    return sum(t.numel() * t.element_size() for t in tables.values())
+
+
+def twolevel_launches(plan):
+    """(closest, any-hit) cluster launches a bounce of a two-level scene:
+    its visible instances, and of those the ones that block shadow rays."""
+    vis = plan.tl_inst_visible
+    return sum(vis), sum(v and o for v, o in zip(vis, plan.tl_inst_opaque))
+
+
+def twolevel_trace(torch, compiled, flat_trace, device):
+    """The two-level route (one cluster launch a visible instance) on phase
+    4's camera and bounce-1 rays and the shadow rays of bounces 0 and 1,
+    against the plain TLAS/BLAS walk on the card (every lane but exact ties
+    in t; t within 1e-5 relative) and against the flat cluster kernel on
+    the flattened scene (the share of lanes that differ); the route's wall
+    and device ms a trace (the profiler's) beside the flat kernel's device
+    ms."""
+    from luisarender_tpu_torch.accel import twolevel
+    from luisarender_tpu_torch.core.types import Ray
+    from luisarender_tpu_torch.ops import cluster
+
+    geom = compiled.trace_geometry()
+    nodes, tris, slot_inst = flat_trace["nodes"], flat_trace["tris"], flat_trace["slot_inst"]
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    cases = {}
+    for name, args, any_hit in (("camera", flat_trace["closest"][0], False),
+                                ("bounce1", flat_trace["closest"][1], False),
+                                ("shadow0", flat_trace["any"][0], True),
+                                ("shadow1", flat_trace["any"][1], True)):
+        rays = Ray(*args[:4])
+        if any_hit:
+            route = lambda: twolevel.trace_any_2l_cluster(geom, rays)  # noqa: E731
+            occ, occ_plain = route(), twolevel.trace_any_2l(geom, rays)
+            occ_flat = cluster.launch(*args[:4], nodes, tris, True, err) > 0
+            check(torch.equal(occ, occ_plain), f"twolevel {name}: occlusion off the plain walk "
+                  f"on {int((occ != occ_plain).sum())} lanes")
+            off = occ != occ_flat
+            rec = {"lanes": int(occ.numel()), "occluded": float(occ.float().mean()),
+                   "ties": 0, "max_rel_t_plain": 0.0}
+            plain = lambda: twolevel.trace_any_2l(geom, rays)  # noqa: E731
+        else:
+            route = lambda: twolevel.trace_closest_2l_cluster(geom, rays)  # noqa: E731
+            hit, ref = route(), twolevel.trace_closest_2l(geom, rays)
+            found = hit.prim >= 0
+            differ = (hit.prim != ref.prim) | (hit.inst != ref.inst)
+            tie = found & (ref.prim >= 0) & (hit.t == ref.t)
+            check(torch.equal(found, ref.prim >= 0) and not bool((differ & ~tie).any()),
+                  f"twolevel {name}: {int((differ & ~tie).sum())} lanes off the plain walk")
+            rel = float(((hit.t - ref.t).abs() / ref.t.abs())[found].max()) if found.any() else 0.0
+            check(rel <= 1e-5, f"twolevel {name}: t off the plain walk by {rel:.3g} relative")
+            t_f, slot_f = cluster.launch(*args[:4], nodes, tris, False, err)[:2]
+            found_f = slot_f >= 0
+            inst_f = torch.where(found_f, slot_inst[torch.clamp(slot_f, min=0).long()], -1)
+            close = torch.isclose(hit.t, t_f, rtol=1e-3, atol=1e-4)
+            off = (found != found_f) | (found & ~close) | (hit.inst != inst_f)
+            rec = {"lanes": int(found.numel()), "hit": float(found.float().mean()),
+                   "ties": int((differ & tie).sum()), "max_rel_t_plain": rel}
+            plain = lambda: twolevel.trace_closest_2l(geom, rays)  # noqa: E731
+        flat = lambda: cluster.launch(*args[:4], nodes, tris, any_hit, err)  # noqa: E731
+        # the route keeps the host busier than the card (~20 small ops an
+        # instance beside its launch), so its launches cannot be queued
+        # behind a spin as device_ms does: the profiler gives its device
+        # time, the host clock its wall time
+        kernel = f"cluster_{'any' if any_hit else 'closest'}_kernel"
+        rec.update(lanes_off_flat=int(off.sum()), share_off_flat=float(off.float().mean()),
+                   route=profile_one(torch, route, (kernel,), 5),
+                   flat_ms=device_ms(torch, flat, iters=20),
+                   plain_ms=events_ms(torch, plain, iters=1))
+        cases[name] = rec
+    check(int(err.item()) == 0, "twolevel: the flat kernel's error word set")
+    rec = {"phase": "twolevel", "part": "trace", "launches_a_trace": twolevel_launches(compiled.plan),
+           "share_gate": TWOLEVEL_FLAT_SHARE, "cases": cases}
+    emit(rec)
+    for name, c in cases.items():
+        check(c["share_off_flat"] <= TWOLEVEL_FLAT_SHARE,
+              f"twolevel {name}: {c['lanes_off_flat']} lanes ({c['share_off_flat']:.2e}) "
+              f"off the flat cluster route, past {TWOLEVEL_FLAT_SHARE}")
+    return rec
+
+
+def twolevel_render(torch, lt, brute, fp, scene, device, what, expect, traced=None):
+    """Compile `scene` on the card (timed), hold its plan to `expect`, run
+    `traced(compiled)` if given, then render it counted: a finite image,
+    and cluster launches of exactly the visible instances a bounce (any-hit:
+    the visible opaque ones), no other kernel. Returns (the record's common
+    fields, the image, traced's result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compiled = lt.compile_scene(scene, device=device)
+    torch.cuda.synchronize()
+    compile_seconds = time.perf_counter() - t0
+    plan = compiled.plan
+    got = {"two_level": plan.two_level, "fused_path": plan.fused_path,
+           "flat_tables_built": compiled.arrays["trace"] != {},
+           "instances": len(plan.tl_inst_mesh), "unique_meshes": plan.tl_mesh_count,
+           "triangles": plan.num_tris,
+           "unique_triangles": int(compiled.arrays["trace2"]["tri_valid"].sum())}
+    check(all(got[k] == v for k, v in expect.items()), f"{what}: plan {got}, expected {expect}")
+    per_bounce = dict(zip(("cluster_closest", "cluster_any"), twolevel_launches(plan)))
+    bytes_2l = table_bytes(compiled.arrays["trace2"])
+    side = traced(compiled) if traced is not None else None
+    del compiled
+    cam, integ = scene.cameras[0], scene.integrator
+    w, h = cam.film.resolution
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    check_image(img, w, h, what)
+    others = {k: v for k, v in counts.items() if k not in per_bounce}
+    check(integ.bounces_run > 0
+          and all(counts[k] == v * integ.bounces_run for k, v in per_bounce.items())
+          and not any(others.values()),
+          f"{what}: launches {counts}, bounces {integ.bounces_run}")
+    rec = {**{k: got[k] for k in ("instances", "unique_meshes", "triangles", "unique_triangles",
+                                  "flat_tables_built")},
+           "resolution": [w, h], "depth": integ.max_depth, "spp": cam.spp,
+           "compile_seconds": compile_seconds, "seconds": seconds,
+           "rays": integ.rays_traced, "mray_per_s": integ.rays_traced / seconds / 1e6,
+           "bounces": integ.bounces_run, "launches": counts, "launches_per_bounce": per_bounce,
+           "trace_table_bytes": bytes_2l, "image_mean": float(img.mean())}
+    return rec, img, side
+
+
+def phase_twolevel(torch, lt, brute, fp, device, img, flat_rec, flat_trace):
+    """testing.mesh_heavy(accel="twolevel") at phase 4's size, nothing cut:
+    27 instances of 3 unique meshes (the 25 icospheres share one). Its
+    render (twolevel_render) against the flat cluster route's image `img`
+    under the image rule; its traces (twolevel_trace); then
+    testing.mesh_heavy(n=20, accel="auto"): 400 icospheres, past the
+    threshold, so the compiler takes the two-level path and never builds
+    the flat tables; one 1280 x 720 sample at depth 5."""
+    from luisarender_tpu_torch import testing
+
+    recs = {}
+    scene = lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY, accel="twolevel"))
+    rec, rimg, recs["twolevel_trace"] = twolevel_render(
+        torch, lt, brute, fp, scene, device, "mesh_heavy twolevel",
+        {"two_level": True, "fused_path": False, "flat_tables_built": False, "instances": 27,
+         "unique_meshes": 3, "triangles": 512_004, "unique_triangles": 20_484},
+        traced=lambda compiled: twolevel_trace(torch, compiled, flat_trace, device))
+    off = frac_off(rimg, img)
+    rel = float(rimg.mean() / img.mean() - 1.0)
+    recs["mesh_heavy_twolevel"] = {
+        "phase": "twolevel", "part": "render", "scene": "testing.mesh_heavy(accel='twolevel')",
+        "cut": None, **rec, "flat_seconds": flat_rec["seconds"],
+        "flat_trace_table_bytes": flat_rec["trace_table_bytes"],
+        "frac_pixels_off_cluster_route": off, "mean_rel_diff_cluster_route": rel}
+    emit(recs["mesh_heavy_twolevel"])
+    check(off < 0.02 and abs(rel) < 0.005,
+          f"mesh_heavy twolevel: {off:.4f} of pixels off the cluster route's image, "
+          f"mean off by {rel:.5f}")
+    scene = lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY_AUTO))
+    rec = twolevel_render(
+        torch, lt, brute, fp, scene, device, "mesh_heavy auto",
+        {"two_level": True, "flat_tables_built": False, "instances": 402,
+         "triangles": 8_192_004, "unique_triangles": 20_484})[0]
+    recs["mesh_heavy_auto"] = {
+        "phase": "twolevel", "part": "auto", "scene": "testing.mesh_heavy(n=20, accel='auto')",
+        # mesh_heavy renders 4 samples; one is enough to drive every launch
+        "cut": {"spp": [4, MESH_HEAVY_AUTO["spp"]]}, **rec,
+        # the flat tables at phase 4's bytes a triangle
+        "flat_bytes_at_phase4_rate": flat_rec["trace_table_bytes"] / 512_004 * 8_192_004}
+    emit(recs["mesh_heavy_auto"])
     return recs
 
 
@@ -1939,8 +2140,8 @@ def profile_one(torch, fn, kernels, samples):
 def phase_profile(torch, lt, device):
     """512^2 samples of materials on the fused fork (8, each a few ms), one
     of Cornell, one of the general scene (352 triangles, the brute kernels'
-    main path) and one of the mesh-heavy scene on the general fork, per
-    sample."""
+    main path) and one of the mesh-heavy scene on the general fork, flat
+    and two-level, per sample."""
     from luisarender_tpu_torch import testing
     from luisarender_tpu_torch.integrators.mega_path import (
         general_path_trace_batch, path_trace_batch, pixel_grid,
@@ -1957,6 +2158,9 @@ def phase_profile(torch, lt, device):
         ("general_mesh_heavy", "testing.mesh_heavy",
          lambda: lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY)), general_path_trace_batch,
          ("cluster_closest_kernel", "cluster_any_kernel"), 1),
+        ("general_mesh_heavy_twolevel", "testing.mesh_heavy(accel='twolevel')",
+         lambda: lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY, accel="twolevel")),
+         general_path_trace_batch, ("cluster_closest_kernel", "cluster_any_kernel"), 1),
     ):
         scene = make()
         compiled = lt.compile_scene(scene, device=device)
@@ -2141,9 +2345,16 @@ def main():
     cluster_k = phase_cluster_kernels(torch, cluster, device, compiled_mh, cap_mh)
     mods = {"cluster": cluster, "wide8": wide8, "subpacket": subpacket, "trace": trace}
     tree_k = phase_tree_kernels(torch, mods, device, compiled_mh, cap_mh)
-    del compiled_mh, cap_mh
+    # the twolevel phase traces phase 4's rays on the flat tables too
+    tr_mh = compiled_mh.arrays["trace"]
+    flat_trace = {"closest": [c[:4] for c in cap_mh["closest"]],
+                  "any": [a[:4] for a in cap_mh["any"]],
+                  "nodes": tr_mh["cluster_nodes"], "tris": tr_mh["cluster_tris"],
+                  "slot_inst": tr_mh["shade_table"][:, 31].to(torch.int32)}
+    del compiled_mh, cap_mh, tr_mh
     torch.cuda.empty_cache()
-    main_recs = phase_main(torch, lt, brute, fp, device)
+    main_recs = phase_main(torch, lt, brute, fp, device, flat_trace)
+    del flat_trace
     general = phase_general(torch, lt, brute, fp, device)
     phase_profile(torch, lt, device)
     phase_golden(torch, lt, device)
@@ -2205,6 +2416,8 @@ def main():
             "source": "luisarender_tpu_torch/csrc/cluster.cu",
             "replaces": "luisarender_tpu/ops/cluster_pallas.py:339",
             "launches": main_recs["mesh_heavy"]["launches"][name],
+            # the two-level render's launches: one a visible instance a bounce
+            "launches_twolevel": main_recs["mesh_heavy_twolevel"]["launches"][name],
             "max_abs_err": cluster_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -9,7 +9,10 @@ route is enabled (`LR_SUBPACKET=1`) and the scene has its 8-wide tables,
 else to ops/wide8.py when that route is enabled (`LR_WIDE8=1`) and the
 tables are there, else to ops/cluster.py; any-hit traces go to wide8 on
 the same condition, else to cluster. Analytic spheres are exact quadrics
-tested before the triangles, whose trace they clip.
+tested before the triangles, whose trace they clip. A two-level scene's
+geometry (accel/twolevel.py TraceGeometry2L) traces with one cluster
+trace a visible instance (`trace_closest_2l_cluster` /
+`trace_any_2l_cluster`), which raise where its cluster tables are missing.
 
 Hit.prim is the triangle's slot in the scene's SAH order (the row of the
 shade table), P + s for sphere s (P = the triangle rows); -1 = miss. A
@@ -25,6 +28,7 @@ import torch
 
 from ..core.types import Hit
 from ..ops import brute, cluster, subpacket, wide8
+from . import twolevel
 
 
 class TraceGeometry(NamedTuple):
@@ -156,6 +160,8 @@ def _trace_closest_tris(geom, rays) -> Hit:
 
 
 def trace_closest(geom: TraceGeometry, rays) -> Hit:
+    if isinstance(geom, twolevel.TraceGeometry2L):
+        return twolevel.trace_closest_2l_cluster(geom, rays)
     if geom.sph is None:
         return _trace_closest_tris(geom, rays)
     # spheres first; their hits clip the triangle trace, whose hit wins
@@ -172,6 +178,8 @@ def trace_closest(geom: TraceGeometry, rays) -> Hit:
 
 def trace_any(geom: TraceGeometry, rays):
     """Shadow-ray occlusion; returns bool occluded per ray."""
+    if isinstance(geom, twolevel.TraceGeometry2L):
+        return twolevel.trace_any_2l_cluster(geom, rays)
     occ = None
     if geom.sph is not None:
         occ = sphere_any(geom.sph, rays)

@@ -10,7 +10,10 @@ skip, node_first, node_count), cluster_nodes, cluster_tris and the 8-wide
 tables (cluster_woop, cluster_slab8, cluster_meta8, cluster_cboxes)}, instances.*,
 light_entries.*, the light alias tables and light-triangle rows, the
 surface / light / texture rows with their textures, the environment's
-tables, and the fused tables.
+tables, and the fused tables. A two-level scene's `trace2` comes across
+whole (TLAS, BLASes, instance and shade rows, the per-mesh cluster tables
+`cl_nodes_{m}` / `cl_tris_{m}`); the plan's statics that route its
+composed trace are read back from its instance rows (`_two_level_plan`).
 
 Both packages keep triangles in the order of the same SAH tree, and the
 cluster tables carry each triangle's slot in it, so a converted scene's
@@ -88,6 +91,27 @@ def _convert_rows(table, cls, const, varying_ok=True):
     return out
 
 
+def _two_level_plan(t2):
+    """The plan's two-level statics and the flattened triangle count of a
+    reference `trace2`: an instance's mesh is the rank of its BLAS node
+    offset (column 24) among the meshes', whose offsets ascend in mesh
+    order; opacity and visibility are columns 26 and 27; a mesh's
+    triangles are its cluster tables' valid rows."""
+    rows = np.asarray(t2["inst_rows"], np.float32)
+    offsets = sorted({int(r) for r in rows[:, 24]})
+    inst_mesh = tuple(offsets.index(int(r)) for r in rows[:, 24])
+    n_mesh = sum(1 for k in t2 if k.startswith("cl_nodes_"))
+    if len(offsets) != n_mesh:
+        raise ValueError(f"{len(offsets)} BLAS offsets for {n_mesh} cluster table sets")
+    mesh_tris = [int((np.asarray(t2[f"cl_tris_{m}"])[:, 9, :] > 0.0).sum())
+                 for m in range(n_mesh)]
+    statics = {"two_level": True, "tl_inst_mesh": inst_mesh,
+               "tl_inst_opaque": tuple(bool(v > 0.0) for v in rows[:, 26]),
+               "tl_inst_visible": tuple(bool(v > 0.0) for v in rows[:, 27]),
+               "tl_mesh_count": n_mesh}
+    return statics, sum(mesh_tris[m] for m in inst_mesh)
+
+
 def _numpy_tree(x):
     if isinstance(x, dict):
         return {k: _numpy_tree(v) for k, v in x.items()}
@@ -144,11 +168,15 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
         out["environment"] = _numpy_tree(arrays["environment"])
     if "fused" in arrays:
         out["fused"] = {k: np.asarray(v, np.float32) for k, v in arrays["fused"].items()}
+    statics, num_tris = {}, int(np.sum(trace["prim_index"] >= 0)) if trace else 0
+    if "trace2" in arrays:
+        out["trace2"] = {k: np.asarray(v) for k, v in arrays["trace2"].items()}
+        statics, num_tris = _two_level_plan(out["trace2"])
     plan = ScenePlan(
         surface_types=surf_cls,
         light_types=light_cls,
         num_lights=int(out["light_entries"]["inst"].shape[0]),
-        num_tris=int(np.sum(trace["prim_index"] >= 0)),
+        num_tris=num_tris,
         num_spheres=int(trace["sph"].shape[0]) if "sph" in trace else 0,
         fused_path="fused" in out,
         bvh_leaf_size=int(bvh_leaf_size),
@@ -160,6 +188,7 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
         env_distance=float(env_distance) if "environment" in out else 0.0,
         needs_uv=any(c.impl_names[0] in out["textures"] and c.impl_names[0] != "constant"
                      for c in tex_cls),
+        **statics,
     )
     return out, plan
 

@@ -499,33 +499,51 @@ def launch(o, d, t_min, t_max, nodes, tris, any_hit, err, stats=None, counters=N
     return out
 
 
-def _run(o, d, t_min, t_max, nodes, tris, any_hit):
-    err = torch.zeros((1,), dtype=torch.int32, device=o.device)
-    out = launch(o, d, t_min, t_max, nodes, tris, any_hit, err)
-    code = int(err.item())  # waits for the launch
+def check_error(err, any_hit):
+    """Read the error word of launches queued with it (waits for them) and
+    raise on a malformed tree. A CPU word is never set: the plain version
+    raises at once."""
+    if err.device.type == "cpu":
+        return
+    code = int(err.item())
     if code:
         _raise(code, "cluster_any" if any_hit else "cluster_closest")
+
+
+def _run(o, d, t_min, t_max, nodes, tris, any_hit, err):
+    """Launch, and read the error word unless the caller passed its own,
+    which it reads once after all its launches (check_error)."""
+    own = err is None
+    if own:
+        err = torch.zeros((1,), dtype=torch.int32, device=o.device)
+    elif err.device != o.device or err.dtype != torch.int32 or err.shape != (1,):
+        raise ValueError(f"err must be an int32 (1,) tensor on {o.device}")
+    out = launch(o, d, t_min, t_max, nodes, tris, any_hit, err)
+    if own:
+        check_error(err, any_hit)
     return out
 
 
-def closest(o, d, t_min, t_max, nodes, tris):
+def closest(o, d, t_min, t_max, nodes, tris, err=None):
     """Closest hit of each ray: (t (inf on miss), slot (-1 on miss), u, v),
-    slot = the triangle's row in the scene's SAH order."""
+    slot = the triangle's row in the scene's SAH order. `err`, an int32
+    tensor of one element on the card, makes the launch one of several
+    whose errors the caller reads once (check_error)."""
     _check(o, d, t_min, t_max, nodes, tris)
     if o.device.type == "cpu":
         return closest_plain(o, d, t_min, t_max, nodes, tris)
     if o.shape[0] == 0:
         e = o.new_empty((0,))
         return e, torch.empty((0,), dtype=torch.int32, device=o.device), e, e
-    return _run(o, d, t_min, t_max, nodes, tris, False)
+    return _run(o, d, t_min, t_max, nodes, tris, False, err)
 
 
-def any_hit(o, d, t_min, t_max, nodes, tris):
+def any_hit(o, d, t_min, t_max, nodes, tris, err=None):
     """Occlusion of each ray by any valid opaque triangle within
-    (t_min, t_max)."""
+    (t_min, t_max); `err` as for closest."""
     _check(o, d, t_min, t_max, nodes, tris)
     if o.device.type == "cpu":
         return any_plain(o, d, t_min, t_max, nodes, tris)
     if o.shape[0] == 0:
         return torch.zeros((0,), dtype=torch.bool, device=o.device)
-    return _run(o, d, t_min, t_max, nodes, tris, True) > 0
+    return _run(o, d, t_min, t_max, nodes, tris, True, err) > 0

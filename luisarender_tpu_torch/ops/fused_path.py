@@ -248,15 +248,16 @@ def _fold_surface(name, row, out):
 
 def build_fused_pack(surface_types, surface_rows, light_types, light_rows,
                      instances, light_entries, spectrum, num_tris, all_opaque,
-                     n_spheres=0, environment=None):
+                     n_spheres=0, environment=None, two_level=False):
     """{"inst_table": (NI, INST_COLS), "entry_table": (max(NL, 1),
     ENTRY_COLS)} numpy tables when the scene qualifies for the fused
     kernel, else None. surface_rows / light_rows: per type, the list of
     hoisted parameter rows; instances / light_entries: the compiler's
     per-instance and per-light-entry columns; environment: the scene's
     environment node, if it has one (spherical and directional ones
-    qualify: their candidates and miss pass run outside the kernel)."""
-    if not all_opaque:
+    qualify: their candidates and miss pass run outside the kernel); a
+    two-level scene never qualifies (the kernel traces one flat table)."""
+    if two_level or not all_opaque:
         return None
     if environment is not None and type(environment).__name__ not in (
         "SphericalEnvironment", "DirectionalEnvironment"

@@ -1,10 +1,17 @@
 """Scene compiler: scene graph -> device tables + static plan.
 
-Counterpart of luisarender_tpu/scene/compiler.py, trimmed to the flat
-single-level path: instances are flattened into one world-space triangle
-soup with an instance table, per-surface-type and per-light-type parameter
-tables, the light list with its flat area alias tables, and the packed
-trace / shade tables.
+Counterpart of luisarender_tpu/scene/compiler.py. By default instances are
+flattened into one world-space triangle soup with an instance table,
+per-surface-type and per-light-type parameter tables, the light list with
+its flat area alias tables, and the packed trace / shade tables. On
+`accel: "twolevel"`, or on `auto` where flattening would pass 8M
+triangles and 4x the unique ones (`choose_two_level`), the trace and shade
+tables are two-level instead (`_build_two_level`, accel/twolevel.py):
+one SAH BLAS, cluster tables and object-space shade rows a unique mesh,
+a Morton TLAS over the instances' world boxes, and a row of transforms an
+instance (`arrays["trace2"]`; `arrays["trace"]` is empty). The light
+tables, the world bounds and `env_distance` keep the world-space
+vertices either way, as in the reference.
 
 Triangles are sorted into the order of a binned-SAH tree (accel/native.py,
 leaf size 4), as in the reference: row r of the trace and shade tables is
@@ -24,8 +31,8 @@ triangles. Textures compile to handles and rows of per-type tables
 has one, to its own tables (`arrays["environment"]`) and the plan's
 `env_distance`, twice the diagonal of the real geometry's bounds plus one.
 A scene the fused kernel covers also gets its per-instance tables
-(`arrays["fused"]`, see ops/fused_path.py build_fused_pack). Two-level
-instancing and media raise.
+(`arrays["fused"]`, see ops/fused_path.py build_fused_pack); a two-level
+scene never does. Media raise.
 """
 
 from __future__ import annotations
@@ -36,8 +43,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..accel.bvh import build_bvh_boxes
 from ..accel.native import build_bvh_sah
 from ..accel.traverse import TraceGeometry
+from ..accel.twolevel import INST_COLS, TraceGeometry2L
 from ..core.device import resolve_device
 from ..core.sampling import build_alias_table
 from ..ops import brute, subpacket, wide8
@@ -46,11 +55,25 @@ from ..ops.subpacket import build_bvh8, build_slab_meta, build_woop_table
 from ..ops.wide8 import build_cluster_boxes
 from ..ops.fused_path import build_fused_pack
 from ..shapes.base import compute_vertex_normals
-from .geometry import build_shade_table
+from .geometry import build_shade_table, build_shade_table_object
 
 # above this many triangles a scene traces with the cluster kernel, as in
 # the reference; up to it, with the brute-force kernels
 BRUTE_FORCE_MAX_TRIS = brute.MAX_TRIS
+# `auto` takes the two-level path where flattening would pass this many
+# triangles (the reference's estimate: ~150 B of tables a triangle, 1.2 GB)
+AUTO_TWO_LEVEL_TRIS = 8_000_000
+
+
+def choose_two_level(accel: str, flat_tris: int, uniq_tris: int) -> bool:
+    """The reference's choice of acceleration: "twolevel" always, "flat"
+    never, any other mode ("auto") where the flattened scene would pass
+    AUTO_TWO_LEVEL_TRIS triangles and 4x its unique meshes' triangles."""
+    if accel == "twolevel":
+        return True
+    if accel == "flat":
+        return False
+    return flat_tris > 4 * uniq_tris and flat_tris > AUTO_TWO_LEVEL_TRIS
 
 
 @dataclass(frozen=True)
@@ -69,6 +92,12 @@ class ScenePlan:
     has_environment: bool = False
     env_distance: float = 0.0  # NEE towards the environment ends this far away
     needs_uv: bool = False  # a texture that reads the hit's uv is present
+    two_level: bool = False  # TLAS + shared per-mesh BLAS (accel/twolevel.py)
+    # the two-level composition's static routing, an entry an instance
+    tl_inst_mesh: tuple = ()  # the instance's unique mesh
+    tl_inst_opaque: tuple = ()  # it blocks shadow rays
+    tl_inst_visible: tuple = ()
+    tl_mesh_count: int = 0
 
 
 @dataclass
@@ -82,7 +111,19 @@ class CompiledScene:
     spectrum: Any  # SpectrumModel
     device: torch.device
 
-    def trace_geometry(self) -> TraceGeometry:
+    def trace_geometry(self):
+        """The flat tables as a TraceGeometry, or a two-level scene's as a
+        TraceGeometry2L."""
+        if self.plan.two_level:
+            t2 = self.arrays["trace2"]
+            return TraceGeometry2L(
+                **{k: t2[k] for k in TraceGeometry2L._fields if k in t2},
+                leaf_size=self.plan.bvh_leaf_size,
+                cluster_sets=tuple((t2[f"cl_nodes_{m}"], t2[f"cl_tris_{m}"])
+                                   for m in range(self.plan.tl_mesh_count)),
+                inst_mesh=self.plan.tl_inst_mesh, inst_opaque=self.plan.tl_inst_opaque,
+                inst_visible=self.plan.tl_inst_visible,
+            )
         tr = self.arrays["trace"]
         return TraceGeometry(
             num_rows=tr["shade_table"].shape[0],
@@ -116,7 +157,7 @@ def tables_to_device(arrays_np: dict, device) -> dict:
 
     out = conv(arrays_np)
     tr = out["trace"]
-    if "cluster_nodes" not in tr:
+    if "tri_v0" in tr and "cluster_nodes" not in tr:
         tr["tri_table"] = brute.make_tri_table(
             tr["tri_v0"], tr["tri_e1"], tr["tri_e2"], tr["prim_index"], tr["tri_opaque"]
         )
@@ -196,23 +237,26 @@ class SceneCompiler:
         return self._light_cache[key]
 
     def _walk_shapes(self):
-        """(shape, world_matrix, surface, light) for every mesh instance."""
+        """(shape, world_matrix, surface, light, visible) for every mesh
+        instance; a group's or instance's transform, surface, light and
+        visibility pass down to its children."""
         out = []
 
-        def walk(shape, parent_m, surface, light):
+        def walk(shape, parent_m, surface, light, visible):
             m = parent_m
             if shape.transform is not None and not shape.transform.is_identity:
                 m = parent_m @ shape.transform.matrix(0.0)
             surface = shape.surface or surface
             light = shape.light or light
+            visible = visible and shape.visible
             if shape.is_mesh:
-                out.append((shape, m, surface, light))
+                out.append((shape, m, surface, light, visible))
             else:
                 for child in shape.children():
-                    walk(child, m, surface, light)
+                    walk(child, m, surface, light, visible)
 
         for s in self.scene.shapes:
-            walk(s, np.eye(4), None, None)
+            walk(s, np.eye(4), None, None, True)
         return out
 
     @staticmethod
@@ -240,19 +284,134 @@ class SceneCompiler:
             (a / sc).astype(np.float32),
         )
 
+    def _build_two_level(self, unique_meshes, inst_mesh_ids, inst_matrices, inst_blocks,
+                         inst_visible):
+        """The two-level tables (accel/twolevel.py layout; numpy) and the
+        plan's statics, as the reference builds them: each unique mesh's
+        SAH BLAS, object-space triangle and shade rows and cluster tables
+        (every triangle opaque, the slot a hit returns the mesh's own SAH
+        slot plus its prim offset, a row of the concatenated shade rows),
+        an instance row each (world-to-object from np.linalg.inv in float64,
+        stored float32), the instances' world boxes from the 8 corners of
+        their BLAS root, and the Morton TLAS over them, one instance a
+        leaf. Returns (trace2, BLAS leaf size, statics)."""
+        blas_min, blas_max, blas_skip, blas_first, blas_count = [], [], [], [], []
+        tri_v0, tri_e1, tri_e2, tri_valid, shade_rows = [], [], [], [], []
+        cluster_sets = []
+        mesh_info = []  # (node offset, prim offset, root box min, max)
+        node_off = prim_off = 0
+        leaf_size = None
+        for mesh in unique_meshes.values():
+            pos = mesh.positions.astype(np.float32)
+            tris = mesh.triangles.astype(np.int32)
+            bvh = build_bvh_sah(pos, tris)
+            if leaf_size is None:
+                leaf_size = int(bvh.leaf_size)
+            if int(bvh.leaf_size) != leaf_size:
+                raise RuntimeError("the BLASes of one scene must share a leaf size")
+            pi = bvh.prim_index
+            canon = np.full(tris.shape[0], -1, np.int64)
+            vr = pi >= 0
+            canon[pi[vr]] = np.nonzero(vr)[0]
+            cluster_sets.append(build_cluster_tables(
+                pos, tris, np.ones(tris.shape[0], bool), canon + prim_off))
+            sorted_tris = tris[np.maximum(pi, 0)]
+            v0 = pos[sorted_tris[:, 0]]
+            blas_min.append(bvh.aabb_min)
+            blas_max.append(bvh.aabb_max)
+            blas_skip.append(bvh.skip)  # local; -1 leaves the BLAS
+            blas_first.append(bvh.node_first)
+            blas_count.append(bvh.node_count)
+            tri_v0.append(v0)
+            tri_e1.append(pos[sorted_tris[:, 1]] - v0)
+            tri_e2.append(pos[sorted_tris[:, 2]] - v0)
+            tri_valid.append(pi >= 0)
+            nrm = (mesh.normals.astype(np.float32) if mesh.normals is not None
+                   else compute_vertex_normals(pos, tris))
+            uv = (mesh.uvs.astype(np.float32) if mesh.uvs is not None
+                  else np.zeros((pos.shape[0], 2), np.float32))
+            shade_rows.append(build_shade_table_object(pos, nrm, uv, tris, pi))
+            mesh_info.append((node_off, prim_off, bvh.aabb_min[0], bvh.aabb_max[0]))
+            node_off += bvh.aabb_min.shape[0]
+            prim_off += pi.shape[0]
+
+        n_inst = len(inst_mesh_ids)
+        rows = np.zeros((n_inst, INST_COLS), np.float32)
+        imin = np.zeros((n_inst, 3), np.float32)
+        imax = np.zeros((n_inst, 3), np.float32)
+        for i, (mesh_i, m) in enumerate(zip(inst_mesh_ids, inst_matrices)):
+            rows[i, 0:12] = np.linalg.inv(m)[:3, :4].reshape(-1)
+            rows[i, 12:24] = np.asarray(m, np.float64)[:3, :4].reshape(-1)
+            n_off, p_off, bmin, bmax = mesh_info[mesh_i]
+            rows[i, 24] = n_off
+            rows[i, 25] = p_off
+            rows[i, 26] = 1.0 if inst_blocks[i] else 0.0
+            rows[i, 27] = 1.0 if inst_visible[i] else 0.0
+            corners = np.array([[x, y, z] for x in (bmin[0], bmax[0])
+                                for y in (bmin[1], bmax[1]) for z in (bmin[2], bmax[2])])
+            cw = corners @ np.asarray(m)[:3, :3].T + np.asarray(m)[:3, 3]
+            imin[i] = cw.min(axis=0)
+            imax[i] = cw.max(axis=0)
+
+        tlas = build_bvh_boxes(imin, imax, leaf_size=1)
+        tlas_leaf = tlas.node_count > 0
+        tlas_inst = np.full(tlas.node_first.shape[0], -1, np.int32)
+        tlas_inst[tlas_leaf] = tlas.prim_index[np.maximum(tlas.node_first[tlas_leaf], 0)]
+        trace2 = {
+            "tlas_aabb_min": tlas.aabb_min, "tlas_aabb_max": tlas.aabb_max,
+            "tlas_skip": tlas.skip, "tlas_inst": tlas_inst, "tlas_leaf": tlas_leaf,
+            "blas_aabb_min": np.concatenate(blas_min), "blas_aabb_max": np.concatenate(blas_max),
+            "blas_skip": np.concatenate(blas_skip), "blas_first": np.concatenate(blas_first),
+            "blas_count": np.concatenate(blas_count),
+            "tri_v0": np.concatenate(tri_v0), "tri_e1": np.concatenate(tri_e1),
+            "tri_e2": np.concatenate(tri_e2), "tri_valid": np.concatenate(tri_valid),
+            "inst_rows": rows, "shade_rows": np.concatenate(shade_rows),
+        }
+        for m, (nodes, blocks) in enumerate(cluster_sets):
+            trace2[f"cl_nodes_{m}"] = nodes
+            trace2[f"cl_tris_{m}"] = blocks
+        statics = {
+            "tl_inst_mesh": tuple(int(i) for i in inst_mesh_ids),
+            "tl_inst_opaque": tuple(bool(b) for b in inst_blocks),
+            "tl_inst_visible": tuple(bool(v) for v in inst_visible),
+            "tl_mesh_count": len(cluster_sets),
+        }
+        return trace2, leaf_size, statics
+
     def compile_numpy(self):
         """Host tables (nested dict of numpy arrays) and the static plan."""
         scene = self.scene
-        if scene.accel == "twolevel":
-            raise NotImplementedError(
-                "two-level instancing is not supported by luisarender_tpu_torch yet"
-            )
         instances = self._walk_shapes()
         if not instances:
             raise ValueError("scene contains no mesh instances")
 
+        # the two-level path has no sphere table: its spheres are meshes
+        analytic = [
+            self.analytic_sphere(shape, m, surface, light) if scene.accel != "twolevel"
+            else None
+            for shape, m, surface, light, _ in instances
+        ]
+
+        def count_meshes():
+            unique, flat = {}, 0
+            for (shape, *_), an in zip(instances, analytic):
+                if an is None:
+                    mesh = shape.mesh()
+                    unique.setdefault(id(mesh), mesh)
+                    flat += mesh.triangles.shape[0]
+            return unique, flat
+
+        unique_meshes, flat_tris = count_meshes()
+        uniq_tris = sum(m.triangles.shape[0] for m in unique_meshes.values())
+        two_level = choose_two_level(scene.accel, flat_tris, uniq_tris)
+        if two_level and any(an is not None for an in analytic):
+            analytic = [None] * len(instances)
+            unique_meshes, flat_tris = count_meshes()
+        mesh_index = {key: i for i, key in enumerate(unique_meshes)}
+
         all_p, all_n, all_uv, all_t, all_ti = [], [], [], [], []
         inst_rows = {k: [] for k in INT_INSTANCE_KEYS}
+        inst_mesh_ids, inst_matrices = [], []  # the two-level instance rows
         light_entries = {
             "inst": [], "alias_offset": [], "tri_offset": [], "tri_count": [],
             "total_area": [],
@@ -265,8 +424,8 @@ class SceneCompiler:
         sphere_rows: list = []  # (instance id, center, radius, rotation)
         v_off = 0
         t_off = 0
-        for inst_id, (shape, m, surface, light) in enumerate(instances):
-            an = self.analytic_sphere(shape, m, surface, light)
+        for inst_id, (shape, m, surface, light, _) in enumerate(instances):
+            an = analytic[inst_id]
             if an is not None:
                 sphere_rows.append((inst_id, *an))
                 s_tag, s_idx = self.compile_surface(surface)
@@ -275,26 +434,31 @@ class SceneCompiler:
                     inst_rows[k].append(v)
                 continue
             mesh = shape.mesh()
+            inst_mesh_ids.append(mesh_index[id(mesh)])
+            inst_matrices.append(np.asarray(m, np.float64))
             p = mesh.positions.astype(np.float64)
             pw = (p @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
             tris = mesh.triangles.astype(np.int32)
-            if mesh.normals is not None:
-                nm = np.linalg.inv(m[:3, :3]).T
-                nw = mesh.normals.astype(np.float64) @ nm.T
-                nw = nw / np.maximum(np.linalg.norm(nw, axis=-1, keepdims=True), 1e-12)
-                nw = nw.astype(np.float32)
-            else:
-                nw = compute_vertex_normals(pw, tris)
             uv = (
                 mesh.uvs.astype(np.float32)
                 if mesh.uvs is not None
                 else np.zeros((pw.shape[0], 2), np.float32)
             )
+            # the world-space vertices give the bounds; the flat path's
+            # tables also take their normals, uvs and triangles
             all_p.append(pw)
-            all_n.append(nw)
-            all_uv.append(uv)
-            all_t.append(tris + v_off)
-            all_ti.append(np.full(tris.shape[0], inst_id, np.int32))
+            if not two_level:
+                if mesh.normals is not None:
+                    nm = np.linalg.inv(m[:3, :3]).T
+                    nw = mesh.normals.astype(np.float64) @ nm.T
+                    nw = nw / np.maximum(np.linalg.norm(nw, axis=-1, keepdims=True), 1e-12)
+                    nw = nw.astype(np.float32)
+                else:
+                    nw = compute_vertex_normals(pw, tris)
+                all_n.append(nw)
+                all_uv.append(uv)
+                all_t.append(tris + v_off)
+                all_ti.append(np.full(tris.shape[0], inst_id, np.int32))
 
             # a null surface (a light panel, a medium boundary) has no tag
             if surface is not None and not getattr(surface, "is_null", False):
@@ -350,11 +514,6 @@ class SceneCompiler:
             all_t.append(np.asarray([[0, 1, 2]], np.int32))
             all_ti.append(np.zeros(1, np.int32))
         vertex_p = np.concatenate(all_p, axis=0)
-        vertex_n = np.concatenate(all_n, axis=0)
-        vertex_uv = np.concatenate(all_uv, axis=0)
-        triangles = np.concatenate(all_t, axis=0)
-        tri_inst = np.concatenate(all_ti, axis=0)
-        num_tris = triangles.shape[0]
 
         env = scene.environment
         has_env = env is not None and not env.is_null
@@ -365,14 +524,6 @@ class SceneCompiler:
         inst_blocks = (np.asarray(inst_rows["surface_tag"]) >= 0) | (
             np.asarray(inst_rows["light_tag"]) >= 0
         )
-        # the SAH order of the reference (its builder's default leaf size);
-        # the tree itself is kept for ops/trace.py, as the reference keeps it
-        bvh = build_bvh_sah(vertex_p, triangles)
-        prim_index = bvh.prim_index
-        sorted_tris = triangles[prim_index]
-        tv0 = vertex_p[sorted_tris[:, 0]]
-        tv1 = vertex_p[sorted_tris[:, 1]]
-        tv2 = vertex_p[sorted_tris[:, 2]]
 
         env_distance = 0.0
         if has_env:
@@ -417,7 +568,30 @@ class SceneCompiler:
                 cls.impl_names[0]: stack_rows([rows])[0]
                 for cls, rows in zip(self._texture_types, self._texture_rows) if rows
             },
-            "trace": {
+            "trace": {},
+        }
+        statics = {}
+        bvh8_stack = 0
+        if two_level:
+            num_tris = flat_tris
+            arrays["trace2"], leaf_size, statics = self._build_two_level(
+                unique_meshes, inst_mesh_ids, inst_matrices, inst_blocks,
+                [v for *_, v in instances])
+        else:
+            triangles = np.concatenate(all_t, axis=0)
+            tri_inst = np.concatenate(all_ti, axis=0)
+            num_tris = triangles.shape[0]
+            # the SAH order of the reference (its builder's default leaf
+            # size); the tree itself is kept for ops/trace.py, as the
+            # reference keeps it
+            bvh = build_bvh_sah(vertex_p, triangles)
+            leaf_size = int(bvh.leaf_size)
+            prim_index = bvh.prim_index
+            sorted_tris = triangles[prim_index]
+            tv0 = vertex_p[sorted_tris[:, 0]]
+            tv1 = vertex_p[sorted_tris[:, 1]]
+            tv2 = vertex_p[sorted_tris[:, 2]]
+            arrays["trace"] = {
                 "tri_v0": tv0,
                 "tri_e1": tv1 - tv0,
                 "tri_e2": tv2 - tv0,
@@ -429,30 +603,30 @@ class SceneCompiler:
                 "node_first": bvh.node_first,
                 "node_count": bvh.node_count,
                 "shade_table": build_shade_table(
-                    vertex_p, vertex_n, vertex_uv, triangles, tri_inst, prim_index
+                    vertex_p, np.concatenate(all_n, axis=0), np.concatenate(all_uv, axis=0),
+                    triangles, tri_inst, prim_index,
                 ),
-            },
-        }
-        bvh8_stack = 0
-        if num_tris > BRUTE_FORCE_MAX_TRIS:
-            canon_of_orig = np.empty(num_tris, np.int64)
-            canon_of_orig[prim_index] = np.arange(num_tris)
-            nodes, blocks = build_cluster_tables(
-                vertex_p, triangles, inst_blocks[tri_inst], canon_of_orig
-            )
-            arrays["trace"]["cluster_nodes"] = nodes
-            arrays["trace"]["cluster_tris"] = blocks
-            # the 8-wide tables feed only the opt-in routes, so other renders
-            # skip their build (the Woop blocks are 4x the triangle blocks)
-            table8 = build_bvh8(nodes) if subpacket.ENABLED or wide8.ENABLED else None
-            if table8 is not None and table8.shape[0] <= subpacket.MAX_SLAB8_NODES:
-                slab8, meta8 = build_slab_meta(table8)
-                # at most N8: the kernels' larger stack holds it
-                bvh8_stack = subpacket.stack8_need(meta8)
-                arrays["trace"]["cluster_woop"] = build_woop_table(blocks)
-                arrays["trace"]["cluster_slab8"] = slab8
-                arrays["trace"]["cluster_meta8"] = meta8
-                arrays["trace"]["cluster_cboxes"] = build_cluster_boxes(nodes)
+            }
+            if num_tris > BRUTE_FORCE_MAX_TRIS:
+                canon_of_orig = np.empty(num_tris, np.int64)
+                canon_of_orig[prim_index] = np.arange(num_tris)
+                nodes, blocks = build_cluster_tables(
+                    vertex_p, triangles, inst_blocks[tri_inst], canon_of_orig
+                )
+                arrays["trace"]["cluster_nodes"] = nodes
+                arrays["trace"]["cluster_tris"] = blocks
+                # the 8-wide tables feed only the opt-in routes, so other
+                # renders skip their build (the Woop blocks are 4x the
+                # triangle blocks)
+                table8 = build_bvh8(nodes) if subpacket.ENABLED or wide8.ENABLED else None
+                if table8 is not None and table8.shape[0] <= subpacket.MAX_SLAB8_NODES:
+                    slab8, meta8 = build_slab_meta(table8)
+                    # at most N8: the kernels' larger stack holds it
+                    bvh8_stack = subpacket.stack8_need(meta8)
+                    arrays["trace"]["cluster_woop"] = build_woop_table(blocks)
+                    arrays["trace"]["cluster_slab8"] = slab8
+                    arrays["trace"]["cluster_meta8"] = meta8
+                    arrays["trace"]["cluster_cboxes"] = build_cluster_boxes(nodes)
         if sphere_rows:
             # accel/traverse.py sphere table layout
             sph = np.zeros((len(sphere_rows), 16), np.float32)
@@ -468,8 +642,8 @@ class SceneCompiler:
         fused = build_fused_pack(
             self._surface_types, self._surface_rows, self._light_types,
             self._light_rows, inst_rows, light_entries, self.spectrum,
-            int(tv0.shape[0]), bool(np.all(inst_blocks)), n_spheres=len(sphere_rows),
-            environment=env if has_env else None,
+            num_tris, bool(np.all(inst_blocks)), n_spheres=len(sphere_rows),
+            environment=env if has_env else None, two_level=two_level,
         )
         if fused is not None:
             arrays["fused"] = fused
@@ -481,7 +655,7 @@ class SceneCompiler:
             spectral_dim=self.spectrum.dimension,
             num_spheres=len(sphere_rows),
             fused_path=fused is not None,
-            bvh_leaf_size=int(bvh.leaf_size),
+            bvh_leaf_size=leaf_size,
             bvh8_stack=bvh8_stack,
             texture_types=tuple(self._texture_types),
             texture_type_used=tuple(bool(rows) for rows in self._texture_rows),
@@ -489,6 +663,8 @@ class SceneCompiler:
             env_distance=env_distance,
             needs_uv=any(rows and cls.impl_names[0] != "constant"
                          for cls, rows in zip(self._texture_types, self._texture_rows)),
+            two_level=two_level,
+            **statics,
         )
         return arrays, plan
 

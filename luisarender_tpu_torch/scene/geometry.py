@@ -4,7 +4,11 @@ Counterpart of luisarender_tpu/scene/geometry.py. All per-triangle shading
 attributes live in one (P, SHADE_COLS) float32 table whose rows follow the
 triangle table's order, so an interaction is one row gather plus
 barycentric interpolation. The reference fetches rows by one-hot MXU
-matmuls to dodge slow TPU gathers; here it is plain indexing.
+matmuls to dodge slow TPU gathers; here it is plain indexing. A two-level
+scene (arrays["trace2"]) keeps one object-space table a unique mesh,
+concatenated (`build_shade_table_object`), and its interaction moves the
+row into world space by the hit instance's transform
+(`surface_interaction_2l`).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from ..accel.traverse import intersect_tri
+from ..accel.twolevel import _xform_normal, _xform_point, _xform_vector
 from ..core import frame as fr
 from ..core.types import Hit, Interaction
 from ..ops import subpacket
@@ -23,9 +28,10 @@ from ..ops import subpacket
 #   13:16 n0        16:19 n1        19:22 n2   (vertex normals)
 #   22:24 uv0       24:26 uv1       26:28 uv2
 #   28:31 tangent (dpdu; frame fallback when the uv mapping is degenerate)
-#   31    instance id (exact float)
+#   31    instance id (exact float; unused in a two-level table)
 #   32    valid flag (0 = padding row)
-#   33    uv density: sqrt(uv-area / world-area)
+#   33    uv density: sqrt(uv-area / world-area); the uv-space area in a
+#         two-level table
 SHADE_COLS = 40
 
 
@@ -101,11 +107,81 @@ def build_shade_table(
     return table
 
 
+def build_shade_table_object(positions, normals, uvs, triangles, prim_index) -> np.ndarray:
+    """One unique mesh's table for the two-level path, in object space and
+    in the mesh's own SAH order: build_shade_table's layout, column 31
+    unused (the hit carries the instance) and column 33 the uv-space area
+    (the world-space area depends on the instance)."""
+    table = build_shade_table(positions, normals, uvs, triangles,
+                              np.zeros(triangles.shape[0], np.int32), prim_index)
+    tris = triangles[np.maximum(prim_index, 0)]
+    uv0 = uvs[tris[:, 0]].astype(np.float32)
+    duv1 = uvs[tris[:, 1]].astype(np.float32) - uv0
+    duv2 = uvs[tris[:, 2]].astype(np.float32) - uv0
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    table[:, 33] = (0.5 * np.abs(det)).astype(np.float32)
+    return table
+
+
+def surface_interaction_2l(arrays, hit: Hit, ray, needs_uv: bool = True) -> Interaction:
+    """The interaction of a two-level hit: the object-space shade row
+    (hit.prim) moved into world space by the instance's object-to-world
+    transform (hit.inst's row, accel/twolevel.py layout), the shading
+    normal by the inverse transpose; the area from the world-space edges.
+    The reference's ray-cone footprint (its `cone_width`) waits for image
+    textures, as the cameras' `ray_cone` does."""
+    t2 = arrays["trace2"]
+    shade = t2["shade_rows"]
+    row = shade[torch.clamp(hit.prim, 0, shade.shape[0] - 1)]
+    irow = t2["inst_rows"][torch.clamp(hit.inst, 0, t2["inst_rows"].shape[0] - 1)]
+    valid = (hit.prim >= 0) & (hit.inst >= 0) & (row[..., 32] > 0.0)
+
+    u = hit.bary[..., 0]
+    v = hit.bary[..., 1]
+    w = 1.0 - u - v
+    p_obj = row[..., 0:3] + u[..., None] * row[..., 3:6] + v[..., None] * row[..., 6:9]
+    p = _xform_point(irow, 12, p_obj)
+    ng_raw = fr.cross(_xform_vector(irow, 12, row[..., 3:6]),
+                      _xform_vector(irow, 12, row[..., 6:9]))
+    prim_area = 0.5 * fr.length(ng_raw)
+    ng = fr.normalize(ng_raw)
+
+    ns_obj = (w[..., None] * row[..., 13:16] + u[..., None] * row[..., 16:19]
+              + v[..., None] * row[..., 19:22])
+    ns = fr.normalize(_xform_normal(irow, 0, ns_obj))
+    ns = torch.where(
+        (fr.length(ns) > 0.5)[..., None] & torch.isfinite(ns).all(dim=-1, keepdim=True),
+        ns,
+        ng,
+    )
+    ns = torch.where((fr.dot(ns, ng) < 0.0)[..., None], -ns, ns)
+    if needs_uv:
+        uv = (w[..., None] * row[..., 22:24] + u[..., None] * row[..., 24:26]
+              + v[..., None] * row[..., 26:28])
+    else:
+        uv = torch.zeros_like(hit.bary)
+    return Interaction(
+        valid=valid,
+        inst=torch.where(valid, hit.inst, -1),
+        prim=hit.prim,
+        p=p,
+        ng=ng,
+        ns=ns,
+        tangent=_xform_vector(irow, 12, row[..., 28:31]),
+        uv=uv,
+        prim_area=prim_area,
+        back_facing=fr.dot(-ray.direction, ng) < 0.0,
+    )
+
+
 def surface_interaction(arrays, hit: Hit, ray, needs_uv: bool = True) -> Interaction:
     """Interaction at each hit: one shade-row gather + interpolation, or, for
     an analytic-sphere hit (prim = P + sphere index), the exact quadric's
     point, normal and tangent rebuilt from its (u, v). needs_uv (the plan's:
-    a texture reads uv) False leaves uv at zero and skips interpolating it."""
+    a texture reads uv) False leaves uv at zero and skips interpolating it.
+    A two-level scene's hits go to surface_interaction_2l."""
+    if "trace2" in arrays:
+        return surface_interaction_2l(arrays, hit, ray, needs_uv)
     shade = arrays["trace"]["shade_table"]
     row = shade[torch.clamp(hit.prim, 0, shade.shape[0] - 1)]
     valid = (hit.prim >= 0) & (row[..., 32] > 0.0)

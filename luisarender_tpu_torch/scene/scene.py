@@ -125,8 +125,9 @@ class Scene:
         if root is None or not root.is_defined:
             raise SceneNodeError("root node is not defined in the scene description")
         scene = cls()
-        # acceleration-structure mode: "flat" / "auto" (instances flattened
-        # to world space) or "twolevel" (not ported yet: the compiler raises)
+        # acceleration-structure mode: "flat" (instances flattened to world
+        # space), "twolevel" (a TLAS over shared per-mesh BLASes) or "auto"
+        # (scene/compiler.py choose_two_level)
         scene.accel = root.string("accel", "auto").lower()
         spectrum_desc = root.node("spectrum")
         if spectrum_desc is None:

@@ -1,9 +1,12 @@
 """Shape interface: meshes and shape DAG nodes.
 
 Counterpart of luisarender_tpu/shapes/base.py. A shape is a concrete mesh or
-a DAG node with children; its surface, light, transform and two-sidedness
-are baked into the instance table by the scene compiler. Media and the
-shadow-terminator / intersection-offset factors are not ported yet.
+a DAG node with children (groups, instances); its surface, light,
+transform and two-sidedness are baked into the instance table by the scene
+compiler. `visible: false` hides an instance from the two-level trace only
+(scene/compiler.py; a flattened scene ignores it, as the reference's
+does). Media and the shadow-terminator / intersection-offset factors are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ class Shape(SceneNode):
         self.light = scene.load_light(desc.node("light"))
         self.medium = scene.load_medium(desc.node("medium"))
         self.transform = scene.load_transform(desc.node("transform"))
+        self.visible = desc.bool("visible", True)
         self.two_sided = desc.bool("two_sided", None)
 
     @property

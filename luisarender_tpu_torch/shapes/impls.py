@@ -1,7 +1,10 @@
-"""Concrete shapes: the inline mesh, the file mesh and the sphere.
+"""Concrete shapes: the inline mesh, the file mesh, the sphere, and the
+group and instance nodes.
 
-Counterpart of the InlineMesh, ObjMesh, `icosphere` and SphereShape of
-luisarender_tpu/shapes/impls.py. Groups and instances are not ported yet.
+Counterpart of luisarender_tpu/shapes/impls.py. A mesh placed many times
+(by instances of one shape node, by file, by sphere subdivision) resolves
+to one MeshData object, which the two-level compiler counts as one unique
+mesh (scene/compiler.py keys them on id()).
 """
 
 from __future__ import annotations
@@ -167,3 +170,30 @@ class SphereShape(Shape):
 
     def mesh(self):
         return self._mesh
+
+
+@register(SceneNodeTag.SHAPE, "group", "Group")
+class GroupShape(Shape):
+    """Its `shapes`, under its own transform, surface, light and visibility."""
+
+    def __init__(self, scene, desc):
+        super().__init__(scene, desc)
+        self._children = [scene.load_shape(s) for s in desc.node_list("shapes")]
+
+    def children(self):
+        return self._children
+
+
+@register(SceneNodeTag.SHAPE, "instance", "Instance")
+class InstanceShape(Shape):
+    """One more placement of its `shape` (a node shared by reference)."""
+
+    def __init__(self, scene, desc):
+        super().__init__(scene, desc)
+        ref = desc.node("shape")
+        if ref is None:
+            raise ValueError("instance shape requires 'shape'")
+        self._children = [scene.load_shape(ref)]
+
+    def children(self):
+        return self._children

@@ -172,13 +172,16 @@ def cornell_sphere(resolution=(48, 48), spp=8, depth=5):
     return d
 
 
-def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5):
+def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5, accel="auto"):
     """The reference's bedroom-class scene (luisarender_tpu/testing.py
     mesh_heavy, textured=False): n x n icosphere meshes (subdivision
     `subdiv`, 20 * 4^subdiv triangles each) with Disney surfaces over a
     1000 x 1000 floor quad with a checkerboard Kd, lit by a diffuse panel
     with a `null` surface and a constant spherical environment [0.4, 0.5,
-    0.7]. The defaults give 512,004 triangles at 1280 x 720. As in the
+    0.7]. The defaults give 512,004 triangles at 1280 x 720. The
+    icospheres share one mesh, so `accel` "twolevel" keeps 3 unique meshes
+    under n * n + 2 instances; "auto" takes that path from n = 20 at
+    subdivision 5 (8,192,004 flattened triangles, 20,484 unique). As in the
     reference, the checkerboard's "scale" is no property of the texture
     (its scale is `uv_scale`), and the floor quad has no uvs, so the
     checkerboard reads its "on" colour everywhere while it still runs the
@@ -235,6 +238,7 @@ def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5):
             })
     return {
         "render": {
+            "accel": accel,
             "cameras": [{
                 "impl": "pinhole",
                 "prop": {

@@ -431,6 +431,17 @@ def test_cluster_wrappers_raise_on_bad_inputs_and_trees(cuda):
     for fn in (cluster.closest, cluster.any_hit):
         with pytest.raises(RuntimeError, match="pops"):
             fn(*args)
+    # a caller's error word: set, not read, by the launch; read once by
+    # check_error; a word off the card is refused
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for fn, any_hit in ((cluster.closest, False), (cluster.any_hit, True)):
+        fn(*args, err)
+        assert int(err.item()) != 0
+        with pytest.raises(RuntimeError, match="pops"):
+            cluster.check_error(err, any_hit)
+        err.zero_()
+        with pytest.raises(ValueError, match="err"):
+            fn(*args, err.cpu())
 
 
 def _fused_case(cuda, path, res, depth):
@@ -1106,3 +1117,45 @@ def test_trace_stack_builds_agree(cuda):
     for out, stats in runs[1:]:
         _assert_same(out, runs[0][0])
         assert torch.equal(stats, runs[0][1])
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["meshes", "group_instances"])
+def test_two_level_composition_matches_plain_walk(cuda, tmp_path, grouped):
+    """The two-level route on the card (accel/twolevel.py: a cluster.cu
+    launch a visible instance, the rays in its object space, the best t as
+    t_max) against the plain TLAS/BLAS walk on the card, on the reference's
+    instanced scene (tests/torch_parity.py instanced_scene) and 4,096
+    seeded rays plus 256 axis-aligned ones: the same hits, prims and
+    instances on every lane, t within 1e-5 relative, the same occlusion;
+    one launch a visible instance (any-hit: a visible opaque one) and one
+    read of the error word a trace."""
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch.accel import twolevel
+    from luisarender_tpu_torch.core.types import Ray
+    from luisarender_tpu_torch.ops import cluster
+    from torch_parity import instanced_rays, instanced_scene
+
+    comp = lt.compile_scene(lt.Scene.from_dict(instanced_scene(tmp_path, "twolevel", grouped)),
+                            device=cuda)
+    geom = comp.trace_geometry()
+    rays = Ray(*_to(cuda, *instanced_rays(n=4096)))
+    n_closest = sum(geom.inst_visible)
+    n_any = sum(v and o for v, o in zip(geom.inst_visible, geom.inst_opaque))
+    c0, a0 = cluster.closest_launches, cluster.any_launches
+    hit = twolevel.trace_closest_2l_cluster(geom, rays)
+    occ = twolevel.trace_any_2l_cluster(geom, rays)
+    assert cluster.closest_launches - c0 == n_closest and cluster.any_launches - a0 == n_any
+    ref = twolevel.trace_closest_2l(geom, rays)
+    found = ref.prim >= 0
+    assert 0.05 < float(found.float().mean()) < 0.9
+    assert torch.equal(hit.prim, ref.prim) and torch.equal(hit.inst, ref.inst)
+    torch.testing.assert_close(hit.t[found], ref.t[found], rtol=1e-5, atol=0)
+    assert torch.isinf(hit.t[~found]).all()
+    assert torch.equal(occ, twolevel.trace_any_2l(geom, rays))
+    # a mesh tree whose walk never ends: the shared word, then a raise
+    box = [-1e3, -1e3, -1e3, 1e3, 1e3, 1e3]
+    loop = torch.tensor([box + [0.0, -1.0], box + [-1.0, 0.0]], device=cuda)
+    bad = geom._replace(cluster_sets=tuple((loop, t) for _, t in geom.cluster_sets))
+    for trace in (twolevel.trace_closest_2l_cluster, twolevel.trace_any_2l_cluster):
+        with pytest.raises(RuntimeError, match="malformed cluster tree"):
+            trace(bad, rays)

@@ -460,3 +460,110 @@ def woop_ties_bvh8():
     }
     return ((slab8, meta8, subpacket.build_woop_table(tris)), tris, (o, d, t_min, t_max),
             want)
+
+
+def box_obj(tmp_path):
+    """The reference's two-level test mesh (tests/test_twolevel.py
+    `_box_obj`): a 12-triangle cube [-1, 1]^3 as an OBJ file in tmp_path."""
+    p = tmp_path / "box.obj"
+    verts = [(-1, -1, -1), (1, -1, -1), (1, 1, -1), (-1, 1, -1),
+             (-1, -1, 1), (1, -1, 1), (1, 1, 1), (-1, 1, 1)]
+    faces = [(1, 3, 2), (1, 4, 3), (5, 6, 7), (5, 7, 8), (1, 2, 6), (1, 6, 5),
+             (2, 3, 7), (2, 7, 6), (3, 4, 8), (3, 8, 7), (4, 1, 5), (4, 5, 8)]
+    lines = [f"v {x} {y} {z}" for x, y, z in verts]
+    lines += [f"f {a} {b} {c}" for a, b, c in faces]
+    p.write_text("\n".join(lines) + "\n")
+    return str(p)
+
+
+def instanced_scene(tmp_path, accel, grouped=False, res=48, spp=16, depth=3):
+    """The reference's two-level test scene (tests/test_twolevel.py
+    `_instanced_scene`): four instances of one box OBJ, translated to (-3,
+    0), (0, 0), (3, 0), (0, 3) and scaled in y by 1.0-1.6, under an area
+    light quad at y = 6, seen from (0, 2, 12); here instances 1 and 3 are
+    red and 0 and 2 white. `grouped` builds the boxes as `instance` shapes
+    of one named mesh node inside a `group` whose surface (white) they
+    inherit, instances 1 and 3 with their own (red), and instance 2 with
+    `visible: false` (seen by no two-level trace; a flattened scene ignores
+    the flag), and adds a quad with a `null` surface in front of box 0,
+    which blocks no shadow ray."""
+    box = box_obj(tmp_path)
+
+    def matte(rgb):
+        return {"impl": "matte", "prop": {"Kd": {"impl": "constant", "prop": {"v": rgb}}}}
+
+    white, red = matte([0.7, 0.7, 0.7]), matte([0.7, 0.2, 0.2])
+    boxes = []
+    for i, (tx, ty) in enumerate([(-3, 0), (0, 0), (3, 0), (0, 3)]):
+        prop = {"transform": {"impl": "srt", "prop": {
+            "translate": [float(tx), float(ty), 0.0], "scale": [1.0, 1.0 + 0.2 * i, 1.0]}}}
+        if grouped:
+            prop["shape"] = "@box"
+            if i % 2:
+                prop["surface"] = red
+            if i == 2:
+                prop["visible"] = False
+            boxes.append({"impl": "instance", "prop": prop})
+        else:
+            prop.update(file=box, surface=red if i % 2 else white)
+            boxes.append({"impl": "mesh", "prop": prop})
+    shapes = boxes
+    if grouped:
+        # a null-surface quad in front of the box at x = -3: closest hits
+        # stop there, shadow rays pass (it blocks nothing)
+        shapes = [{"impl": "group", "prop": {"surface": white, "shapes": boxes}},
+                  {"impl": "inlinemesh", "prop": {
+                      "positions": [-4.5, -1, 1.5, -1.5, -1, 1.5, -1.5, 1, 1.5, -4.5, 1, 1.5],
+                      "indices": [0, 1, 2, 0, 2, 3], "surface": {"impl": "null", "prop": {}}}}]
+    shapes.append({"impl": "inlinemesh", "prop": {
+        "positions": [-2, 6, -2, 2, 6, -2, 2, 6, 2, -2, 6, 2],
+        "indices": [0, 1, 2, 0, 2, 3],  # ng points down (-y)
+        "surface": white,
+        "light": {"impl": "diffuse", "prop": {
+            "emission": {"impl": "constant", "prop": {"v": [10, 10, 10]}}}},
+    }})
+    d = {"render": {
+        "accel": accel,
+        "cameras": [{"impl": "pinhole", "prop": {
+            "fov": 50.0, "spp": spp, "file": "out.exr",
+            "film": {"impl": "color", "prop": {"resolution": [res, res]}},
+            "transform": {"impl": "view", "prop": {"origin": [0.0, 2.0, 12.0],
+                                                   "front": [0, -0.1, -1]}},
+        }}],
+        "integrator": {"impl": "megapath", "prop": {"depth": depth}},
+        "shapes": shapes,
+    }}
+    if grouped:
+        d["box"] = {"type": "shape", "impl": "mesh", "prop": {"file": box}}
+    return d
+
+
+def instanced_rays(n=2048, seed=7):
+    """Rays at the instanced scene as float32 numpy (o, d, t_min, t_max):
+    `n` from around the camera biased towards the boxes (the reference's
+    tests/test_twolevel.py rays), then 64 each along -z, +x, -y and +y
+    (zero direction components: the TLAS's padded leaves pass their slab
+    test there) through the boxes and the light, and every 17th lane of
+    the first n dead."""
+    rs = np.random.RandomState(seed)
+    o = rs.randn(n, 3).astype(np.float32) * 0.5 + np.asarray([0, 2, 12], np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d[:, 2] -= 1.5
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rng = np.random.default_rng(seed)
+    axis_o, axis_d = [], []
+    for start, direction in (((None, None, 12.0), (0, 0, -1)), ((-6.0, None, None), (1, 0, 0)),
+                             ((None, 5.9, None), (0, -1, 0)), ((None, -3.0, None), (0, 1, 0))):
+        pts = np.stack([rng.uniform(-4.5, 4.5, 64), rng.uniform(-1.5, 5.5, 64),
+                        rng.uniform(-1.5, 1.5, 64)], -1)
+        for k, v in enumerate(start):
+            if v is not None:
+                pts[:, k] = v
+        axis_o.append(pts)
+        axis_d.append(np.tile(np.float32(direction), (64, 1)))
+    o = np.concatenate([o] + axis_o).astype(np.float32)
+    d = np.concatenate([d] + axis_d).astype(np.float32)
+    t_min = np.full(o.shape[0], 1e-4, np.float32)
+    t_max = np.full(o.shape[0], np.inf, np.float32)
+    t_max[:n:17] = 0.0
+    return o, d, t_min, t_max
