@@ -165,6 +165,27 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              triangles) on the cluster, wide8 and subpacket routes, each
              against tests/golden/cornell_sphere_48_8spp.exr under that
              rule
+  8 spectral the hero-wavelength spectrum on the general fork:
+             scenes/cornell_spectral.json (512^2, depth 8, 4 wavelengths a
+             path; spp cut from 256 to SPECTRAL_SPP) through render, no
+             fused pass, both brute kernels launched once a bounce and
+             nothing else, and scenes/cornell.json (sRGB) on the general
+             fork (LUISARENDER_TPU_NO_FUSED) at the same spp: seconds,
+             compile seconds, rays, Mray/s, one sample under the profiler
+             (device ms, busy share, the brute kernels' share) and the hero
+             / sRGB ratios; the spectrum layer's operations on 512^2 lanes
+             (wavelength sampling, the coefficient and per-ray decodes, the
+             integration to sRGB); the brute kernels on the 16 inputs of
+             one hero sample bit for bit against their plain versions; the
+             48^2, 8-spp, depth-8 render against
+             tests/golden/cornell_spectral_48_8spp.exr (under 2% of pixels
+             off by more than 1e-3, the mean within 0.5%);
+             testing.mesh_heavy (1280 x 720, depth 5, 4 spp) under hero,
+             its Disney spheres plastic of the same colour (the reference
+             cannot shade Disney under hero), with the cluster kernels
+             launched once a bounce each and nothing else, against the same
+             scene in sRGB by the reference's rule (tests/test_spectral.py:
+             mean relative error under 0.25), with the same records
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -2303,6 +2324,208 @@ def phase_golden(torch, lt, device):
               f"{sfrac:.4f} of pixels off, mean off by {srel:.5f}")
 
 
+# --------------------------------------------------------------------------
+# phase 8: the hero spectrum on the general fork
+# --------------------------------------------------------------------------
+
+SPECTRAL_SCENE = ROOT / "scenes" / "cornell_spectral.json"
+SPECTRAL_GOLDEN = ROOT / "tests" / "golden" / "cornell_spectral_48_8spp.exr"
+# the spectral Cornell box's spp, cut from the file's 256 to fit the script's time
+SPECTRAL_SPP = 32
+
+
+def spectral_dict(path, res=None, spp=None, depth=None):
+    with open(path) as f:
+        d = json.load(f)
+    cam = d["render"]["cameras"][0]["prop"]
+    if res is not None:
+        cam["film"]["prop"]["resolution"] = [res, res]
+    if spp is not None:
+        cam["spp"] = spp
+    if depth is not None:
+        d["render"]["integrator"]["prop"]["depth"] = depth
+    return d
+
+
+def timed_compile(torch, lt, scene, device):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compiled = lt.compile_scene(scene, device=device)
+    torch.cuda.synchronize()
+    return compiled, time.perf_counter() - t0
+
+
+def spectral_render(torch, lt, brute, fp, scene, device, what, trace_key, no_fused=False):
+    """compile (timed alone) and render() with the counts read around it,
+    on the general fork with the `trace_key` kernels (brute or cluster)
+    launched once a bounce each and nothing else; one sample under the
+    profiler. Returns (record, image)."""
+    from luisarender_tpu_torch.integrators.mega_path import general_path_trace_batch, pixel_grid
+
+    cam, integ = scene.cameras[0], scene.integrator
+    w, h = cam.film.resolution
+    compiled, compile_seconds = timed_compile(torch, lt, scene, device)
+    check(not compiled.plan.fused_path or no_fused, f"{what}: compiled for the fused fork")
+    if no_fused:
+        os.environ["LUISARENDER_TPU_NO_FUSED"] = "1"
+    try:
+        img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    finally:
+        os.environ.pop("LUISARENDER_TPU_NO_FUSED", None)
+    check_image(img, w, h, what)
+    others = {k: v for k, v in counts.items()
+              if k not in (f"{trace_key}_closest", f"{trace_key}_any")}
+    check(integ.fused_passes == 0 and integ.bounces_run > 0
+          and counts[f"{trace_key}_closest"] == integ.bounces_run == counts[f"{trace_key}_any"]
+          and not any(others.values()),
+          f"{what}: fused passes {integ.fused_passes}, launches {counts}, "
+          f"bounces {integ.bounces_run}")
+    # every pixel's camera ray of every sample is traced
+    check(integ.rays_traced >= w * h * cam.spp, f"{what}: {integ.rays_traced} rays")
+    pxy = pixel_grid(w, h, device)
+    kernels = (("closest_kernel", "any_kernel") if trace_key == "brute"
+               else ("cluster_closest_kernel", "cluster_any_kernel"))
+    prof = profile_one(torch, lambda: general_path_trace_batch(
+        compiled, cam, integ.sampler, integ.light_sampler, pxy, 1, max_depth=integ.max_depth,
+        rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold), kernels, 1)
+    rec = {"phase": "spectral", "scene": what, "spectrum": type(compiled.spectrum).__name__,
+           "spectral_dim": compiled.plan.spectral_dim, "resolution": [w, h],
+           "depth": integ.max_depth, "spp": cam.spp, "seconds": seconds,
+           "compile_seconds": compile_seconds, "rays": integ.rays_traced,
+           "mray_per_s": integ.rays_traced / seconds / 1e6, "bounces": integ.bounces_run,
+           "fused_passes": integ.fused_passes, "launches": counts,
+           "image_mean": float(img.mean()), "profile_one_sample": prof}
+    return rec, img
+
+
+def spectrum_ops(torch, compiled, n, device):
+    """The spectrum layer's operations on n lanes, each timed alone: the
+    profiler's device ms a call (None where it traces no device work) and
+    the CUDA events' ms a call, host dispatch included. The coefficient
+    decodes read the scene's first matte and light rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = compiled.spectrum
+    gen = torch.Generator(device=device).manual_seed(5)
+    u = torch.rand((n, 1), device=device, generator=gen)
+    swl = spec.sample_wavelengths(u)
+    rgb = torch.rand((n, 3), device=device, generator=gen)
+    vals = torch.rand((n, spec.dimension), device=device, generator=gen)
+    surf = compiled.arrays["surfaces"][0]
+    light = compiled.arrays["lights"][0]
+    pick = torch.zeros(n, dtype=torch.long, device=device)
+    ca = surf["kd__ca"][pick]
+    ci, cis = light["emission__ci"][pick], light["emission__cis"][pick]
+    fns = {
+        "sample_wavelengths": lambda: spec.sample_wavelengths(u),
+        "decode_albedo_coeffs": lambda: spec.decode_albedo_coeffs(ca, swl),
+        "decode_illuminant_coeffs": lambda: spec.decode_illuminant_coeffs(ci, cis, swl),
+        "decode_albedo_per_ray": lambda: spec.decode_albedo(rgb, swl),
+        "decode_illuminant_per_ray": lambda: spec.decode_illuminant(rgb, swl),
+        "srgb": lambda: spec.srgb(vals, swl),
+    }
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        evts = device_events(prof)
+        busy = sum(e.device_time_total for e in evts) / 10 / 1e3
+        out[name] = {"device_ms": busy or None,
+                     "device_ops": sum(e.count for e in evts) / 10 if busy else None,
+                     "events_ms": events_ms(torch, fn, 10)}
+    return out
+
+
+def ratio(a, b):
+    return None if a is None or b is None or b == 0 else a / b
+
+
+def phase_spectral(torch, lt, brute, fp, device):
+    """The hero spectrum on the general fork: (a) scenes/cornell_spectral.json
+    at its own size (512^2, depth 8, hero of 4 wavelengths; spp cut to
+    SPECTRAL_SPP) through render, beside scenes/cornell.json (sRGB) on the
+    general fork at the same spp; (b) the brute kernels on the 16 inputs of
+    one hero sample, bit for bit against their plain versions; (c) the
+    48^2, 8-spp render against tests/golden/cornell_spectral_48_8spp.exr;
+    (d) testing.mesh_heavy at full size under hero, its Disney spheres
+    plastic of the same colour, against the same scene in sRGB by the
+    reference's spectral-versus-RGB rule (mean relative error under 0.25)."""
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.utils import imageio
+
+    recs = {}
+    # (a) the spectral Cornell box and the sRGB one, both on the general fork
+    scene = lt.Scene.from_dict(spectral_dict(SPECTRAL_SCENE, spp=SPECTRAL_SPP))
+    recs["cornell"], _ = spectral_render(torch, lt, brute, fp, scene, device,
+                                         "scenes/cornell_spectral.json", "brute")
+    check(recs["cornell"]["spectral_dim"] == 4, "spectral: not 4 wavelengths a path")
+    recs["cornell"]["cut"] = {"spp": [256, SPECTRAL_SPP]}
+    srgb_scene = lt.Scene.from_dict(spectral_dict(MAIN_SCENE, spp=SPECTRAL_SPP))
+    recs["cornell_srgb"], _ = spectral_render(torch, lt, brute, fp, srgb_scene, device,
+                                              "scenes/cornell.json", "brute", no_fused=True)
+    recs["cornell_srgb"]["cut"] = {"spp": [256, SPECTRAL_SPP]}
+    compiled = lt.compile_scene(scene, device=device)
+    recs["cornell"]["spectrum_ops"] = spectrum_ops(torch, compiled, 512 * 512, device)
+
+    # (b) the brute kernels on one hero sample's 16 inputs
+    cap = capture_main_path_inputs(torch, brute, compiled, scene,
+                                   max_depth=scene.integrator.max_depth)
+    kern = {}
+    for kind in ("closest", "any"):
+        fn_k = brute.closest if kind == "closest" else brute.any_hit
+        errs, fracs, ms = [], [], []
+        for args in cap[kind]:
+            err, frac = compare_case(torch, brute, kind, args)
+            errs.append(max(err))
+            fracs.append(frac)
+            ms.append(device_ms(torch, lambda: fn_k(*args), iters=20))
+        kern[kind] = {"inputs": len(cap[kind]), "max_abs_err": max(errs),
+                      "hit_fraction": fracs, "ms": ms, "sample_ms": sum(ms)}
+    del cap, compiled
+    recs["kernels"] = {"phase": "spectral", "what": "brute kernels on one hero sample",
+                       "n": 512 * 512, "rows": 32, **kern}
+
+    # (c) the golden: the reference's CPU render
+    gscene = lt.Scene.from_dict(spectral_dict(SPECTRAL_SCENE, res=48, spp=8, depth=8))
+    gimg = lt.render(gscene, device=device)["cornell_spectral.exr"]
+    check(gscene.integrator.fused_passes == 0, "spectral golden: took the fused fork")
+    gref = imageio.load_exr(str(SPECTRAL_GOLDEN))
+    check_image(gimg, 48, 48, "spectral golden")
+    gfrac, grel = frac_off(gimg, gref), float(gimg.mean() / gref.mean() - 1.0)
+    recs["golden"] = {"phase": "spectral", "what": "golden cornell_spectral 48^2, 8 spp",
+                      "frac_pixels_off": gfrac, "mean_rel_diff": grel}
+
+    # (d) the mesh-heavy scene at full size, hero and sRGB
+    hscene = lt.Scene.from_dict(testing.hero(testing.mesh_heavy(**MESH_HEAVY)))
+    recs["mesh_heavy"], himg = spectral_render(torch, lt, brute, fp, hscene, device,
+                                               "testing.mesh_heavy, hero", "cluster")
+    sscene = lt.Scene.from_dict(testing.plastic_for_disney(testing.mesh_heavy(**MESH_HEAVY)))
+    recs["mesh_heavy_srgb"], simg = spectral_render(torch, lt, brute, fp, sscene, device,
+                                                    "testing.mesh_heavy, sRGB", "cluster")
+    rel_err = float(np.abs(himg - simg).mean() / max(float(np.abs(simg).mean()), 1e-6))
+    recs["mesh_heavy"].update({"triangles": 512_004, "cut": None,
+                               "mean_rel_err_vs_srgb": rel_err})
+
+    for hero_key, srgb_key in (("cornell", "cornell_srgb"), ("mesh_heavy", "mesh_heavy_srgb")):
+        ph = recs[hero_key]["profile_one_sample"]
+        ps = recs[srgb_key]["profile_one_sample"]
+        recs[hero_key]["hero_over_srgb"] = {
+            "seconds": ratio(recs[hero_key]["seconds"], recs[srgb_key]["seconds"]),
+            "device_ms_a_sample": ratio(ph["device_busy_ms"], ps["device_busy_ms"]),
+            "wall_ms_a_sample": ratio(ph["wall_ms"], ps["wall_ms"]),
+        }
+    for key in ("cornell", "cornell_srgb", "kernels", "golden", "mesh_heavy", "mesh_heavy_srgb"):
+        emit(recs[key])
+    check(gfrac < 0.02 and abs(grel) < 0.005,
+          f"spectral golden: {gfrac:.4f} of pixels off, mean off by {grel:.5f}")
+    check(rel_err < 0.25, f"spectral mesh_heavy: mean relative error {rel_err:.4f} against sRGB")
+    return recs
+
+
 def main():
     import torch
 
@@ -2358,6 +2581,7 @@ def main():
     general = phase_general(torch, lt, brute, fp, device)
     phase_profile(torch, lt, device)
     phase_golden(torch, lt, device)
+    spectral = phase_spectral(torch, lt, brute, fp, device)
 
     entries = []
     for name, kind_key, line in (("brute_closest", "closest", 79),
@@ -2368,6 +2592,8 @@ def main():
             "source": "luisarender_tpu_torch/csrc/brute.cu",
             "replaces": f"luisarender_tpu/ops/brute_pallas.py:{line}",
             "launches": general["launches"][name],
+            # the hero spectral Cornell render's: one a bounce
+            "launches_spectral": spectral["cornell"]["launches"][name],
             "max_abs_err": brute_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -2418,6 +2644,8 @@ def main():
             "launches": main_recs["mesh_heavy"]["launches"][name],
             # the two-level render's launches: one a visible instance a bounce
             "launches_twolevel": main_recs["mesh_heavy_twolevel"]["launches"][name],
+            # the hero mesh-heavy render's: one a bounce
+            "launches_spectral": spectral["mesh_heavy"]["launches"][name],
             "max_abs_err": cluster_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

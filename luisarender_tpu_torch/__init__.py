@@ -30,6 +30,7 @@ from .lights import diffuse as _light_diffuse  # noqa: F401
 from .lightsamplers import uniform as _ls_uniform  # noqa: F401
 from .samplers import base as _samplers  # noqa: F401
 from .shapes import impls as _shapes  # noqa: F401
+from .spectra import hero as _spec_hero  # noqa: F401
 from .spectra import srgb as _spec_srgb  # noqa: F401
 from .surfaces import disney as _surf_disney  # noqa: F401
 from .surfaces import glass as _surf_glass  # noqa: F401

@@ -22,17 +22,21 @@ The reference's per-instance constant-texture columns (`<name>__src`,
 rows of textures.constant.value) are hoisted into values here, as the
 port's own compiler does; a parameter whose texture varies keeps its
 handle as `<name>__h` (textures/base.py). Handles index the texture types
-in the reference's order, which the plan takes over.
+in the reference's order, which the plan takes over. Under a spectrum that
+is not fixed, the colour parameters get their fitted coefficients from the
+function the compiler uses (scene/compiler.py hoist_spectral_coeffs).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from .core.device import resolve_device
 from .ops import subpacket
 from .scene.compiler import (
-    INT_INSTANCE_KEYS, CompiledScene, ScenePlan, tables_to_device,
+    INT_INSTANCE_KEYS, CompiledScene, ScenePlan, hoist_spectral_coeffs, tables_to_device,
 )
 from .scene.node import SceneNodeTag
 from .scene.registry import lookup
@@ -201,14 +205,16 @@ def convert(arrays, surface_types, light_types, scene, device=None,
     environment node compiles its host state (a spherical map's constant
     flag) and renders from the reference's tables."""
     dev = resolve_device(device)
+    spectrum = scene.spectrum.model()
     tables, plan = convert_tables(arrays, surface_types, light_types, bvh_leaf_size,
                                   texture_types, env_distance)
+    plan = dataclasses.replace(plan, spectral_dim=spectrum.dimension)
     if plan.has_environment:
         scene.environment.compile(None)
     return CompiledScene(
-        arrays=tables_to_device(tables, dev),
+        arrays=hoist_spectral_coeffs(tables_to_device(tables, dev), plan, spectrum),
         plan=plan,
         scene=scene,
-        spectrum=scene.spectrum.model(),
+        spectrum=spectrum,
         device=dev,
     )

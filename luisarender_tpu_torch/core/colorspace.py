@@ -1,9 +1,10 @@
-"""Linear-sRGB luminance.
+"""Linear sRGB and CIE XYZ.
 
 Counterpart of the part of luisarender_tpu/core/colorspace.py that the
-ported surfaces and the fused kernel's host tables read: the CIE Y row of
-the sRGB (Rec.709 primaries, D65) to XYZ matrix, and the luminance of a
-linear-sRGB triple, as a torch function and as a host numpy function.
+port reads: the sRGB (Rec.709 primaries, D65) to XYZ matrix and its
+inverse, the XYZ -> linear sRGB transform the hero spectrum integrates to,
+and the luminance of a linear-sRGB triple, as a torch function and as a
+host numpy function.
 """
 
 from __future__ import annotations
@@ -19,6 +20,19 @@ XYZ_FROM_SRGB = np.array(
     ],
     dtype=np.float32,
 )
+SRGB_FROM_XYZ = np.linalg.inv(XYZ_FROM_SRGB.astype(np.float64)).astype(np.float32)
+
+
+def _apply_mat3(m, v):
+    """m @ v for 3-vectors v (..., 3), each row summed left to right as
+    the reference does."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    rows = [float(m[i, 0]) * x + float(m[i, 1]) * y + float(m[i, 2]) * z for i in range(3)]
+    return torch.stack(rows, dim=-1)
+
+
+def cie_xyz_to_linear_srgb(xyz):
+    return _apply_mat3(SRGB_FROM_XYZ, xyz)
 
 
 def cie_y_of_srgb(rgb):

@@ -3,7 +3,9 @@
 Counterpart of luisarender_tpu/integrators/common.py (`init_carry`,
 `has_work`, `shade_surface`, `bounce_step`) on the reference's default
 branch: compute-all surface dispatch, the NEE shadow ray traced in the same
-bounce (FUSE_SHADOW_TRACES=False), no dispersion. A ray that escapes adds
+bounce (FUSE_SHADOW_TRACES=False). Under a spectrum that is not fixed, a
+path that hits a dispersive surface keeps only its hero wavelength from
+there on (SampledWavelengths.terminate_secondary). A ray that escapes adds
 the environment's radiance with its MIS weight against the BSDF sample that
 made it, and NEE picks the environment as the light sampler says. The carry
 is a dict of per-path tensors; every path draws its 7 uniforms per bounce in
@@ -161,6 +163,12 @@ def bounce_step(compiled, sampler, light_sampler, carry, *,
 
     # --- no surface -> the path ends ---
     active = active & (instances["surface_tag"][it.inst] >= 0)
+
+    # --- dispersion: collapse to the hero wavelength ---
+    if not compiled.spectrum.is_fixed and surf_base.any_dispersive(compiled):
+        disp = surf_base.dispersive_mask(compiled, it) & active
+        terminated = swl.terminate_secondary()
+        swl = swl._replace(pdf=torch.where(disp[..., None], terminated.pdf, swl.pdf))
 
     # --- uniform draws, in the reference's order ---
     state, u_sel = sampler.generate_1d(state)

@@ -11,7 +11,9 @@ of two forks, as in the reference:
            other camera, filter or clip plane;
   general  every other scene advances all rays together through a host
            loop over bounces (integrators/common.py bounce_step), its
-           traces on the brute-force kernels.
+           traces on the brute-force kernels (the cluster kernel above
+           512 triangles). A spectrum that is not fixed (spectra/hero.py)
+           always takes it: the fused kernel renders sRGB only.
 The megawave integrator renders `samples_per_pass` samples of every pixel
 in one persistent launch of the fused kernel; outside the fused kernel's
 in-kernel cameras, and on scenes with an environment (whose pre-sampled NEE
@@ -56,7 +58,13 @@ def general_path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
     c = compiled.plan.spectral_dim
 
     state, ray, cam_weight = camera_rays(camera, sampler, pixel_xy, sample_index)
-    swl = spectrum.sample_wavelengths(n, pixel_xy.device)
+    if spectrum.is_fixed:
+        # sRGB reads only the draws' shape and device
+        swl = spectrum.sample_wavelengths(pixel_xy[:, :1])
+    else:
+        # the wavelengths' draw follows the camera's, as in the reference
+        state, u_swl = sampler.generate_1d(state)
+        swl = spectrum.sample_wavelengths(u_swl[..., None])
 
     carry = common.init_carry(ray, cam_weight[..., None].expand(n, c), state, swl)
     bounces = 0
@@ -81,6 +89,9 @@ def path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
     with 'rays' (closest + shadow rays traced, a device tensor), 'bounces'
     (bounce steps of the general fork) and 'fused' (1 on the fused fork)."""
     kw = dict(max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold)
+    if not compiled.spectrum.is_fixed and compiled.plan.fused_path:
+        raise RuntimeError("a spectrum that is not fixed must never take the fused fork, "
+                           "whose kernel renders sRGB only")
     if fused_path.use_fused(compiled, sampler, light_sampler):
         cam = fused_path.camgen_params(camera, sampler.seed)
         if cam is not None:

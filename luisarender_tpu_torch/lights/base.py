@@ -19,6 +19,9 @@ from ..surfaces.base import _select, gather_rows
 
 
 class Light(SceneNode):
+    # (name, kind) of each colour parameter a spectral decode reads
+    spectral_params = ()
+
     def compile(self, compiler) -> dict:
         raise NotImplementedError
 

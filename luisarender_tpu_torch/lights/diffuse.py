@@ -15,13 +15,14 @@ from ..core import frame as fr
 from ..core import sampling
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
-from ..textures.base import compile_tex_params
+from ..textures.base import compile_tex_params, spectral_param
 from .base import Light
 
 
 @register(SceneNodeTag.LIGHT, "diffuse", "Diffuse")
 class DiffuseLight(Light):
     texture_params = (("emission", (1.0, 1.0, 1.0, 0.0), 3),)
+    spectral_params = (("emission", "illuminant"),)
 
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
@@ -38,7 +39,7 @@ class DiffuseLight(Light):
 
     @staticmethod
     def _radiance(params, ctx, swl):
-        L = ctx.spectrum.decode_illuminant(params["emission"], swl)
+        L = spectral_param(ctx, params, "emission", swl, "illuminant")
         return L * params["scale"][..., None]
 
     @staticmethod

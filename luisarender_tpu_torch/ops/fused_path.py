@@ -1130,8 +1130,11 @@ def env_nee_candidates_from_state(compiled, state, max_depth, p_env, skip=0):
     u = rng.uniform_u32_to_float(rng.lcg_states(state, ks))  # (2 * max_depth, N)
     u = torch.stack([u[:max_depth].reshape(-1), u[max_depth:].reshape(-1)], dim=-1)
     m = max_depth * n
+    # the fused fork is sRGB only, whose wavelengths read no draw: any
+    # (M, 1) tensor on the device stands in for them
+    unused_u = u[:, :1]
     s = env.sample(compiled, torch.zeros((m, 3), dtype=torch.float32, device=dev), u,
-                   compiled.spectrum.sample_wavelengths(m, dev))
+                   compiled.spectrum.sample_wavelengths(unused_u))
     rows = torch.cat([s["wi"], (s["pdf"] * _f32(p_env))[:, None], s["L"]], dim=-1)
     return rows.reshape(max_depth, n, 7).transpose(1, 2).contiguous()
 
@@ -1143,7 +1146,8 @@ def miss_pass(compiled, rgb, esc, p_env):
     escape state (7, N)."""
     env = compiled.scene.environment
     n = rgb.shape[0]
-    swl = compiled.spectrum.sample_wavelengths(n, rgb.device)
+    unused_u = rgb[:, :1]  # sRGB only: the wavelengths read no draw
+    swl = compiled.spectrum.sample_wavelengths(unused_u)
     ev = env.evaluate(compiled, esc[4:7].T, swl)
     w = _balance(esc[3], ev["pdf"] * _f32(p_env))
     return rgb + esc[0:3].T * ev["L"] * w[..., None]

@@ -164,6 +164,42 @@ def tables_to_device(arrays_np: dict, device) -> dict:
     return out
 
 
+def hoist_spectral_coeffs(arrays, plan, spectrum):
+    """Under a spectrum that is not fixed, give each colour parameter's
+    column its fitted coefficients (textures/base.py spectral_param): the
+    surface and light classes name theirs in `spectral_params` as (name,
+    kind). The coefficients of each row's hoisted value are fitted once
+    here, on the tables' device with the table the render decodes
+    through: `<name>__ca` (albedo), `__cu` / `__cus` (unbounded, with its
+    scale), `__ci` / `__cis` (illuminant). A fixed spectrum's tables come
+    back as they are."""
+    if spectrum.is_fixed:
+        return arrays
+    for cls in plan.surface_types:
+        if cls.fixed_spectrum_only:
+            raise NotImplementedError(
+                f"surface '{cls.impl_names[0]}' under a spectrum that is not fixed: "
+                f"{cls.fixed_spectrum_only}")
+
+    from ..textures.base import COEFF_SUFFIX
+
+    def aug(table, cls):
+        out = dict(table)
+        for name, kind in cls.spectral_params:
+            ck = COEFF_SUFFIX[kind]
+            fit = getattr(spectrum, "coeffs_" + kind)(table[name])
+            if kind == "albedo":
+                out[name + ck] = fit
+            else:
+                out[name + ck], out[name + ck + "s"] = fit
+        return out
+
+    out = dict(arrays)
+    out["surfaces"] = [aug(t, c) for t, c in zip(arrays["surfaces"], plan.surface_types)]
+    out["lights"] = [aug(t, c) for t, c in zip(arrays["lights"], plan.light_types)]
+    return out
+
+
 def stack_rows(rows_list):
     """Per-type lists of row dicts -> per-type dicts of stacked columns. A
     texture parameter's handle column (`<name>__h`, textures/base.py) is
@@ -671,7 +707,7 @@ class SceneCompiler:
     def compile(self, device) -> CompiledScene:
         arrays, plan = self.compile_numpy()
         return CompiledScene(
-            arrays=tables_to_device(arrays, device),
+            arrays=hoist_spectral_coeffs(tables_to_device(arrays, device), plan, self.spectrum),
             plan=plan,
             scene=self.scene,
             spectrum=self.spectrum,

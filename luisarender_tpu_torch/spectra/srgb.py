@@ -1,4 +1,4 @@
-"""sRGB (fixed tristimulus) spectrum node; the only spectrum ported so far.
+"""The spectrum node base class and the sRGB (fixed tristimulus) node.
 
 Counterpart of luisarender_tpu/spectra/srgb.py.
 """
@@ -11,8 +11,15 @@ from ..scene.registry import register
 from ..scene.scene import SceneNode
 
 
+class Spectrum(SceneNode):
+    """Host node wrapping a core SpectrumModel."""
+
+    def model(self):
+        raise NotImplementedError
+
+
 @register(SceneNodeTag.SPECTRUM, "srgb", "sRGB", "rgb", "RGB")
-class SRGBSpectrumNode(SceneNode):
+class SRGBSpectrumNode(Spectrum):
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
         self._model = SRGBSpectrum()

@@ -30,6 +30,12 @@ EVENT_THROUGH = 3
 
 
 class Surface(SceneNode):
+    # (name, kind) of each colour parameter a spectral decode reads
+    # (textures/base.py spectral_param)
+    spectral_params = ()
+    # why the surface cannot render under a spectrum that is not fixed, or ""
+    fixed_spectrum_only = ""
+
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
         for name in ("normal_map", "alpha"):
@@ -107,3 +113,24 @@ def dispatch(ctx, it, method, *args, init):
         value = getattr(surf_cls, method)(rows, ctx, it, *args)
         result = {k: _select(mask, value[k], result[k]) for k in result}
     return result
+
+
+def any_dispersive(ctx) -> bool:
+    """Static: does any surface type of the plan disperse?"""
+    return any(hasattr(cls, "is_dispersive_rows") for cls in ctx.plan.surface_types)
+
+
+def dispersive_mask(ctx, it):
+    """Per lane: did it hit a dispersive surface (a glass with a non-zero
+    Cauchy B)? It drives swl.terminate_secondary (integrators/common.py)."""
+    inst = ctx.arrays["instances"]
+    meta = gather_rows({"tag": inst["surface_tag"], "idx": inst["surface_index"]}, it.inst)
+    tag, index = meta["tag"], meta["idx"]
+    mask = torch.zeros(it.inst.shape, dtype=torch.bool, device=it.inst.device)
+    for t, surf_cls in enumerate(ctx.plan.surface_types):
+        fn = getattr(surf_cls, "is_dispersive_rows", None)
+        if fn is None:
+            continue
+        rows = gather_rows(ctx.arrays["surfaces"][t], index)
+        mask = torch.where(it.valid & (tag == t), fn(rows, ctx), mask)
+    return mask

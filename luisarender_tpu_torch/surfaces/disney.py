@@ -66,6 +66,12 @@ class DisneySurface(Surface):
     texture_params = (("color", (0.5, 0.5, 0.5, 0.0), 3),) + tuple(
         (name, (default,) * 4, 1) for name, default in _TEX_PARAMS
     )
+    # the reference weighs its lobes by the sRGB luminance of a spectral
+    # sample (luisarender_tpu/surfaces/disney.py:344, `_lobe_weights`): it
+    # fails at any hero dimension but 3 and misreads the samples at 3, so
+    # there is no answer to port
+    fixed_spectrum_only = (
+        "the reference cannot shade it there (luisarender_tpu/surfaces/disney.py:344)")
 
     def __init__(self, scene, desc):
         super().__init__(scene, desc)

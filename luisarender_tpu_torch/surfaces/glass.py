@@ -18,7 +18,7 @@ from ..core import microfacet as mf
 from ..core.colorspace import cie_y_of_srgb
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
-from ..textures.base import compile_tex_params
+from ..textures.base import compile_tex_params, spectral_param
 from .base import EVENT_ENTER, EVENT_EXIT, EVENT_REFLECT, Surface, oriented_frame
 from .mirror import resolve_alpha, roughness_row
 
@@ -95,6 +95,7 @@ class GlassSurface(Surface):
         ("kt", (1.0, 1.0, 1.0, 0.0), 3),
         ("roughness", (0.0,) * 4, 2),
     )
+    spectral_params = (("kr", "albedo"), ("kt", "albedo"))
 
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
@@ -136,6 +137,10 @@ class GlassSurface(Surface):
         return cauchy_eta(params["cauchy_a"], params["cauchy_b"], swl.lam[..., 0])
 
     @staticmethod
+    def is_dispersive_rows(params, ctx):
+        return torch.abs(params["cauchy_b"]) > 1e-9
+
+    @staticmethod
     def kr_ratio(params):
         kr_lum = cie_y_of_srgb(params["kr"])
         kt_lum = cie_y_of_srgb(params["kt"])
@@ -150,8 +155,8 @@ class GlassSurface(Surface):
     @staticmethod
     def _eval_local(params, ctx, swl, wo_l, wi_l):
         """(f, pdf) with |cos_i| folded into f."""
-        kr_s = ctx.spectrum.decode_albedo(params["kr"], swl)
-        kt_s = ctx.spectrum.decode_albedo(params["kt"], swl)
+        kr_s = spectral_param(ctx, params, "kr", swl, "albedo")
+        kt_s = spectral_param(ctx, params, "kt", swl, "albedo")
         alpha = resolve_alpha(params)
         eta_t = GlassSurface._eta_t(params, swl)
         one = torch.ones_like(eta_t)

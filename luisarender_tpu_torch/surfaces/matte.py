@@ -14,13 +14,14 @@ from ..core import frame as fr
 from ..core import sampling
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
-from ..textures.base import compile_tex_params
+from ..textures.base import compile_tex_params, spectral_param
 from .base import EVENT_REFLECT, Surface, oriented_frame, validate_sides
 
 
 @register(SceneNodeTag.SURFACE, "matte", "Matte")
 class MatteSurface(Surface):
     texture_params = (("kd", (1.0, 1.0, 1.0, 0.0), 3), ("sigma", (0.0,) * 4, 1))
+    spectral_params = (("kd", "albedo"),)
 
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
@@ -43,7 +44,7 @@ class MatteSurface(Surface):
     @staticmethod
     def _f_pdf(params, ctx, swl, wo_local, wi_local):
         """Local-frame Oren-Nayar f (with |cos wi|) and cosine pdf."""
-        albedo = ctx.spectrum.decode_albedo(params["kd"], swl)
+        albedo = spectral_param(ctx, params, "kd", swl, "albedo")
         a, b = MatteSurface._oren_nayar_ab(params["sigma"])
 
         cos_o = fr.abs_cos_theta(wo_local)

@@ -16,7 +16,7 @@ from ..core import microfacet as mf
 from ..core.spectrum import SRGB_PEAK_WAVELENGTHS
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
-from ..textures.base import compile_tex_params
+from ..textures.base import compile_tex_params, spectral_param
 from .base import Surface
 from .mirror import (
     ggx_reflection, reflect_evaluate, reflect_sample, resolve_alpha, roughness_row,
@@ -131,6 +131,7 @@ def eta_k_at_wavelengths(n3, k3, lam):
 @register(SceneNodeTag.SURFACE, "metal", "Metal")
 class MetalSurface(Surface):
     texture_params = (("roughness", (0.0,) * 4, 2), ("kd", (1.0, 1.0, 1.0, 0.0), 3))
+    spectral_params = (("kd", "albedo"),)
 
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
@@ -174,7 +175,7 @@ class MetalSurface(Surface):
 
     @staticmethod
     def _eval_local(params, ctx, swl, wo_l, wi_l):
-        tint = ctx.spectrum.decode_albedo(params["kd"], swl)
+        tint = spectral_param(ctx, params, "kd", swl, "albedo")
         return ggx_reflection(
             wo_l, wi_l, resolve_alpha(params),
             lambda c: tint * MetalSurface._fresnel(params, swl, c),

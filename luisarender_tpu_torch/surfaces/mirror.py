@@ -14,7 +14,7 @@ from ..core import frame as fr
 from ..core import microfacet as mf
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
-from ..textures.base import compile_tex_params
+from ..textures.base import compile_tex_params, spectral_param
 from .base import EVENT_REFLECT, Surface, oriented_frame, validate_sides
 
 
@@ -82,6 +82,7 @@ def ggx_reflection(wo_l, wi_l, alpha, fresnel):
 @register(SceneNodeTag.SURFACE, "mirror", "Mirror")
 class MirrorSurface(Surface):
     texture_params = (("kd", (1.0, 1.0, 1.0, 0.0), 3), ("roughness", (0.0,) * 4, 2))
+    spectral_params = (("kd", "albedo"),)
 
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
@@ -94,7 +95,7 @@ class MirrorSurface(Surface):
 
     @staticmethod
     def _eval_local(params, ctx, swl, wo_l, wi_l):
-        f0 = ctx.spectrum.decode_albedo(params["kd"], swl)
+        f0 = spectral_param(ctx, params, "kd", swl, "albedo")
         return ggx_reflection(
             wo_l, wi_l, resolve_alpha(params), lambda c: mf.fresnel_schlick(c, f0)
         )

@@ -18,7 +18,7 @@ from ..core import sampling
 from ..core.colorspace import cie_y_of_srgb
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
-from ..textures.base import compile_tex_params
+from ..textures.base import compile_tex_params, spectral_param
 from .base import EVENT_REFLECT, Surface, validate_sides
 from .mirror import resolve_alpha, roughness_row
 
@@ -32,6 +32,7 @@ class PlasticSurface(Surface):
         ("eta", (1.5,) * 4, 1),
         ("thickness", (1.0,) * 4, 1),
     )
+    spectral_params = (("kd", "albedo"), ("sigma_a", "unbounded"))
 
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
@@ -47,9 +48,10 @@ class PlasticSurface(Surface):
 
     @staticmethod
     def _ctx(params, ctx, swl):
-        kd = ctx.spectrum.decode_albedo(params["kd"], swl)
+        kd = spectral_param(ctx, params, "kd", swl, "albedo")
         kd_lum = cie_y_of_srgb(params["kd"])
-        sigma = params["sigma_a"] * params["thickness"][..., None]
+        sigma_a = spectral_param(ctx, params, "sigma_a", swl, "unbounded")
+        sigma = sigma_a * params["thickness"][..., None]
         return kd, kd_lum, params["eta"], sigma, resolve_alpha(params)
 
     @staticmethod

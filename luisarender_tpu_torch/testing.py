@@ -1,4 +1,5 @@
-"""Test scenes as JSON-SDL dicts: the Cornell box and the mesh-heavy scene.
+"""Test scenes as JSON-SDL dicts: the Cornell box and the mesh-heavy scene,
+and their forms under the hero spectrum.
 
 Counterpart of luisarender_tpu/testing.py `cornell_box` and `mesh_heavy`.
 Cornell geometry uses the classic Cornell box measurement data (public
@@ -261,3 +262,33 @@ def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5, accel="auto"):
             "shapes": shapes,
         }
     }
+
+
+def plastic_for_disney(d):
+    """The scene dict `d` with each Disney surface replaced by a plastic one
+    of the same colour and roughness (its other parameters dropped), as a
+    scene renders under a spectrum that is not fixed: neither package can
+    shade Disney there (surfaces/disney.py fixed_spectrum_only)."""
+
+    def walk(shapes):
+        for s in shapes:
+            prop = s.get("prop", {})
+            surf = prop.get("surface")
+            if surf is not None and surf.get("impl") in ("disney", "Disney"):
+                p = surf.get("prop", {})
+                prop["surface"] = {"impl": "plastic", "prop": {
+                    k: p[src] for k, src in (("Kd", "color"), ("roughness", "roughness"))
+                    if src in p}}
+            walk(prop.get("shapes", []))
+
+    walk(d["render"]["shapes"])
+    return d
+
+
+def hero(d, dimension=4):
+    """The scene dict `d` under the hero-wavelength spectrum of `dimension`
+    wavelengths a path, its Disney surfaces made plastic
+    (plastic_for_disney)."""
+    d = plastic_for_disney(d)
+    d["render"]["spectrum"] = {"impl": "hero", "prop": {"dimension": dimension}}
+    return d

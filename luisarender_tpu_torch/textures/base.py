@@ -127,12 +127,44 @@ def evaluate_param(ctx, rows, name, it, default=(0.0, 0.0, 0.0, 0.0), depth=0):
 
 def evaluate_tex_params(ctx, rows, it, texture_params):
     """rows with every texture parameter of a plugin class evaluated at
-    `it` (rows without surviving handles come back unchanged)."""
+    `it` (rows without surviving handles come back unchanged). The handle
+    columns stay: spectral_param reads them to tell evaluated lanes from
+    hoisted ones."""
     if not any(name + "__h" in rows for name, _, _ in texture_params):
         return rows
     out = dict(rows)
     for name, default, _ in texture_params:
         if name + "__h" in rows:
             out[name] = evaluate_param(ctx, rows, name, it, default=default)
-            del out[name + "__h"]
     return out
+
+
+# a spectral parameter's kinds of decode, and its coefficient columns
+COEFF_SUFFIX = {"albedo": "__ca", "unbounded": "__cu", "illuminant": "__ci"}
+
+
+def spectral_param(ctx, rows, name, swl, kind="albedo"):
+    """A colour parameter of per-lane rows (its textures evaluated,
+    evaluate_tex_params) -> a spectral sample (N, C) at swl.
+
+    kind: "albedo", "unbounded" or "illuminant", the decode that applies.
+    Under a spectrum that is not fixed, a row's hoisted value carries its
+    fitted coefficients (`<name>__ca`, `__cu` / `__cus`, `__ci` / `__cis`:
+    scene/compiler.py hoist_spectral_coeffs), so such a lane only evaluates
+    the sigmoid; a lane whose texture varies (its `<name>__h` >= 0)
+    decodes its evaluated value through the per-ray table fetch. A fixed
+    spectrum decodes the value."""
+    spec = ctx.spectrum
+    ck = COEFF_SUFFIX[kind]
+    if spec.is_fixed or name + ck not in rows:
+        return getattr(spec, "decode_" + kind)(rows[name], swl)
+    if kind == "albedo":
+        out = spec.decode_albedo_coeffs(rows[name + ck], swl)
+    else:
+        dec = getattr(spec, f"decode_{kind}_coeffs")
+        out = dec(rows[name + ck], rows[name + ck + "s"], swl)
+    handles = rows.get(name + "__h")
+    if handles is None:
+        return out
+    out_dyn = getattr(spec, "decode_" + kind)(rows[name], swl)
+    return torch.where((handles >= 0)[..., None], out_dyn, out)

@@ -104,7 +104,7 @@ def test_environment_evaluate_and_sample_match_reference(name, monkeypatch):
     u = rs.uniform(0.0, 1.0, (n, 2)).astype(np.float32)
     ctx = jcomp.context()
     jswl = jcomp.spectrum.sample_wavelengths(jnp.zeros((n, 1), jnp.float32))
-    tswl = tcomp.spectrum.sample_wavelengths(n, "cpu")
+    tswl = tcomp.spectrum.sample_wavelengths(torch.zeros((n, 1)))
     tol = dict(rtol=1e-5, atol=1e-6)
     s_ref = jenv.sample(ctx, jnp.zeros((n, 3)), jnp.asarray(u), jswl)
     s = tenv.sample(tcomp, torch.zeros((n, 3)), torch.as_tensor(u), tswl)

@@ -40,6 +40,11 @@ def test_no_module_imports_jax_or_the_reference():
                 continue
             bad += [f"{path.relative_to(ROOT)}: {n}" for n in names if _forbidden(n)]
     assert len(_port_files()) > 20
+    # the hero spectrum's modules keep their own copies of the reference's
+    # numpy-only CIE fits and RGB-to-spectrum solver
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for name in ("core/cie.py", "core/rgb2spec.py", "core/spectrum.py", "spectra/hero.py"):
+        assert f"luisarender_tpu_torch/{name}" in scanned, name
     assert not bad, bad
 
 

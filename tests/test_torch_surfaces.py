@@ -120,7 +120,7 @@ def test_closures_match_reference(name):
     jit = _interaction(JInteraction, jnp.asarray, x)
     tit = _interaction(TInteraction, torch.as_tensor, x)
     jswl = jcomp.spectrum.sample_wavelengths(jnp.zeros((N, 1), jnp.float32))
-    tswl = tcomp.spectrum.sample_wavelengths(N, "cpu")
+    tswl = tcomp.spectrum.sample_wavelengths(torch.zeros((N, 1)))
     J = {k: jnp.asarray(v) for k, v in x.items()}
     T = {k: torch.as_tensor(v) for k, v in x.items()}
 
