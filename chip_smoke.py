@@ -33,8 +33,9 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              kernel's environment mode against its plain version on one
              512^2 sample, depth 8, of testing.cornell_box with the
              reference's constant spherical environment, with a
-             directional one, and with the spherical one and no area light
-             (env_scene): rgb, rays and the 7 escape words bit for bit on
+             directional one, with the spherical one and no area light, and
+             with the Nishita sky and an EXR sun map, which are not
+             constant (env_scene): rgb, rays and the 7 escape words bit for bit on
              every lane, 20 launches back to back equal; its time, bound
              (the candidates and escape words in its bytes) and lane use,
              and the times of the candidates and the miss pass beside it
@@ -186,6 +187,29 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              launched once a bounce each and nothing else, against the same
              scene in sRGB by the reference's rule (tests/test_spectral.py:
              mean relative error under 0.25), with the same records
+  9 textures image textures, the Nishita sky, textured emission and Loop
+             subdivision (phase_textures): scenes/sky.json at its own 960 x
+             540, depth 6 (thin lens, the sky through the spherical map's
+             alias tables, a loopsubdiv glass, a copper sphere; spp cut
+             from 256 to SKY_SPP) through render, both brute kernels
+             launched once a bounce and nothing else, the records of
+             phase 8, the brute kernels on one sample's first four
+             bounces bit for bit against their plain versions, and the
+             64 x 36, 8-spp render against tests/golden/sky_64x36_8spp.exr;
+             testing.mesh_heavy(textured=True) (1280 x 720, depth 5, 4
+             spp, nothing cut: 25 Disney spheres with one 256^2 PNG on the
+             atlas, read at each hit's ray-cone level) with the cluster
+             kernels once a bounce each, beside phase 4's untextured
+             render, the atlas's bytes and the image lookups of a sample's
+             first hits (CUDA events and the profiler), and its two-level
+             form at 1 spp; the env Cornell box with the sky and with an
+             EXR sun map (env_scene `nishitasky` and `image`, whose
+             environment-mode kernel checks run in phase 3) at 512^2, depth
+             8, 256 spp with one environment-mode launch a sample, and 8
+             samples at 64^2 each against the general fork by the rule of
+             phase 7; testing.cornell_textured (48^2, 8 spp, a textured
+             back wall and a textured light, brute kernels once a bounce)
+             against tests/golden/cornell_textured_48_8spp.exr
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -822,12 +846,21 @@ def env_scene(lt, kind, res=512, spp=1, depth=8, integrator="megapath"):
     of the reference's TestFusedEnvironment (tests/test_fused_path.py:
     269-277), `directional` a 10-degree cone of light into the box's open
     front, `env_only` the map [1.0, 0.8, 0.6] with the light quads removed
-    (tests/test_fused_path.py:296-310)."""
+    (tests/test_fused_path.py:296-310), `nishitasky` the sky of
+    scenes/sky.json, `image` an EXR sky with a bright sun (testing
+    env_spot_exr): the last two are maps that are not constant, sampled
+    through their alias tables."""
     from luisarender_tpu_torch import testing
 
     d = testing.cornell_box(resolution=(res, res), spp=spp, depth=depth, integrator=integrator)
     const = lambda v: {"impl": "constant", "prop": {"v": v}}  # noqa: E731
-    if kind == "directional":
+    if kind == "nishitasky":
+        env = {"impl": "spherical", "prop": {"emission": {
+            "impl": "nishitasky", "prop": {"sun_direction": [0.4, 0.35, 0.85]}}}}
+    elif kind == "image":
+        env = {"impl": "spherical", "prop": {"emission": {
+            "impl": "image", "prop": {"file": testing.env_spot_exr()}}}}
+    elif kind == "directional":
         env = {"impl": "directional", "prop": {"emission": const([3.0, 2.8, 2.5]),
                                                 "direction": [0.15, 0.35, -1.0], "angle": 10.0}}
     elif kind == "env_only":
@@ -840,12 +873,12 @@ def env_scene(lt, kind, res=512, spp=1, depth=8, integrator="megapath"):
     return lt.Scene.from_dict(d)
 
 
-ENV_SCENES = ("spherical", "directional", "env_only")
+ENV_SCENES = ("spherical", "directional", "env_only", "nishitasky", "image")
 
 
 def phase_fused_env(torch, lt, fp, device):
     """The fused kernel's environment mode against its plain version on one
-    512^2 sample, depth 8, of the three env_scene scenes: rgb, rays and the
+    512^2 sample, depth 8, of each ENV_SCENES scene: rgb, rays and the
     7 escape words bit for bit on every lane, 20 launches queued back to
     back equal to the first; the kernel's device time, bound (the
     candidates and escape state counted in its bytes) and lane use, and the
@@ -2526,6 +2559,226 @@ def phase_spectral(torch, lt, brute, fp, device):
     return recs
 
 
+# --------------------------------------------------------------------------
+# phase 9: image textures, the sky, textured emission, Loop subdivision
+# --------------------------------------------------------------------------
+
+SKY_SCENE = ROOT / "scenes" / "sky.json"
+SKY_GOLDEN = ROOT / "tests" / "golden" / "sky_64x36_8spp.exr"
+TEXTURED_GOLDEN = ROOT / "tests" / "golden" / "cornell_textured_48_8spp.exr"
+# sky.json's spp, cut from the file's 256 as the other general-fork renders are cut
+SKY_SPP = 32
+TEXTURED_ENVS = ("nishitasky", "image")
+
+
+def sky_dict(res=None, spp=None):
+    with open(SKY_SCENE) as f:
+        d = json.load(f)
+    cam = d["render"]["cameras"][0]["prop"]
+    if res is not None:
+        cam["film"]["prop"]["resolution"] = list(res)
+    if spp is not None:
+        cam["spp"] = spp
+    return d
+
+
+def golden_check(img, path, w, h, what):
+    """An image against a golden of the reference's CPU render: under 2% of
+    pixels off by more than 1e-3, the mean within 0.5%."""
+    from luisarender_tpu_torch.utils import imageio
+
+    ref = imageio.load_exr(str(path))
+    check_image(img, w, h, what)
+    frac, rel = frac_off(img, ref), float(img.mean() / ref.mean() - 1.0)
+    check(frac < 0.02 and abs(rel) < 0.005,
+          f"{what}: {frac:.4f} of pixels off the golden, mean off by {rel:.5f}")
+    return {"frac_pixels_off": frac, "mean_rel_diff": rel}
+
+
+def texture_ops(torch, compiled, scene, device):
+    """The image texture's lookups on the first hits of a sample's camera
+    rays (every pixel's lane, with its ray-cone footprint), as the general
+    fork makes them: evaluate_rows on every lane with the lane's Disney
+    colour handle (lanes that hit no textured sphere read a clamped row),
+    timed by CUDA events (host dispatch included) and the profiler's device
+    time; and the lookups' calls in one sample of the render."""
+    from luisarender_tpu_torch.accel import traverse
+    from luisarender_tpu_torch.integrators.mega_path import (
+        camera_rays, general_path_trace_batch, pixel_grid,
+    )
+    from luisarender_tpu_torch.scene.geometry import surface_interaction
+    from luisarender_tpu_torch.textures.base import HANDLE_INDEX_MASK
+    from luisarender_tpu_torch.textures.image import ImageTexture
+
+    cam, integ = scene.cameras[0], scene.integrator
+    w, h = cam.film.resolution
+    pxy = pixel_grid(w, h, device)
+    _, ray, _ = camera_rays(cam, integ.sampler, pxy, 0)
+    hit = traverse.trace_closest(compiled.trace_geometry(), ray)
+    width0, spread = cam.ray_cone()
+    cone = width0 + spread * torch.where(torch.isfinite(hit.t), hit.t, 0.0)
+    it = surface_interaction(compiled.arrays, hit, ray, needs_uv=True, cone_width=cone)
+    inst = compiled.arrays["instances"]
+    lane_inst = torch.clamp(it.inst, min=0).long()
+    disney = [c.impl_names[0] for c in compiled.plan.surface_types].index("disney")
+    rows = compiled.arrays["surfaces"][disney]["color__h"]
+    sidx = torch.clamp(inst["surface_index"][lane_inst].long(), max=rows.shape[0] - 1)
+    textured = it.valid & (inst["surface_tag"][lane_inst] == disney)
+    handles = torch.where(textured, rows[sidx], -1)
+    index = handles & HANDLE_INDEX_MASK
+
+    def lookups():
+        return ImageTexture.evaluate_rows(compiled, index, it)
+
+    out = lookups()
+    check(out.shape == (w * h, 4) and bool(torch.isfinite(out[textured]).all()),
+          "textured mesh_heavy: image lookups not finite")
+    prof = profile_one(torch, lookups, ("",), 10)
+    calls = [0]
+    orig = ImageTexture.evaluate_rows
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return orig(*args, **kw)
+
+    ImageTexture.evaluate_rows = staticmethod(counted)
+    try:
+        general_path_trace_batch(compiled, cam, integ.sampler, integ.light_sampler, pxy, 1,
+                                 max_depth=integ.max_depth, rr_depth=integ.rr_depth,
+                                 rr_threshold=integ.rr_threshold)
+    finally:
+        ImageTexture.evaluate_rows = staticmethod(orig)
+    return {"lanes": w * h, "textured_first_hit_lanes": int(textured.sum()),
+            "footprint_median_textured": float(it.footprint[textured].median()),
+            "events_ms": events_ms(torch, lookups, 10),
+            "device_ms": prof["device_busy_ms"], "device_ops": prof["device_ops"],
+            "calls_a_sample": calls[0]}
+
+
+def phase_textures(torch, lt, brute, fp, device, main_recs):
+    """Image textures, the Nishita sky, textured emission and Loop
+    subdivision: (a) scenes/sky.json at its own 960 x 540, depth 6 (thin
+    lens, the sky, a loopsubdiv glass, a copper sphere; spp cut to SKY_SPP)
+    through render on the general fork with the brute kernels, the brute
+    kernels on the inputs of one sample's first four bounces bit for bit
+    against their plain versions, and its 64 x 36, 8-spp render against tests/golden/
+    sky_64x36_8spp.exr; (b) testing.mesh_heavy(textured=True) at 1280 x
+    720, depth 5, 4 spp, nothing cut, on the cluster kernels beside phase
+    4's untextured render, the image lookups of a sample's first hits, and
+    its two-level form at 1 spp; (c) the env Cornell box with the sky and
+    the EXR sun map (env_scene `nishitasky`, `image`; their kernel checks
+    are phase 3's) through render at 512^2, depth 8, 256 spp with one
+    environment-mode launch a sample, and each of 8 samples at 64^2 against
+    the general fork; (d) testing.cornell_textured (48^2, 8 spp, a textured
+    back wall and light) against tests/golden/cornell_textured_48_8spp.exr."""
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.integrators.mega_path import (
+        general_path_trace_batch, path_trace_batch, pixel_grid,
+    )
+
+    recs = {}
+    # (a) scenes/sky.json; loading it precomputes the sky (numpy, the host)
+    t0 = time.perf_counter()
+    scene = lt.Scene.from_dict(sky_dict(spp=SKY_SPP))
+    load_seconds = time.perf_counter() - t0
+    rec, _ = spectral_render(torch, lt, brute, fp, scene, device, "scenes/sky.json", "brute")
+    compiled = lt.compile_scene(scene, device=device)
+    check(compiled.plan.num_tris == 258 and not scene.environment.constant
+          and not compiled.plan.needs_footprint,
+          f"sky.json: {compiled.plan.num_tris} triangles, constant sky "
+          f"{scene.environment.constant}")
+    # four bounces: every path of a sample may end before the file's depth 6
+    cap = capture_main_path_inputs(torch, brute, compiled, scene, max_depth=4)
+    kern = {}
+    for kind in ("closest", "any"):
+        errs = [max(compare_case(torch, brute, kind, args)[0]) for args in cap[kind]]
+        kern[kind] = {"inputs": len(cap[kind]), "max_abs_err": max(errs)}
+    del cap, compiled
+    gscene = lt.Scene.from_dict(sky_dict(res=(64, 36), spp=8))
+    gimg = lt.render(gscene, device=device)["sky.exr"]
+    rec.update({"phase": "textures", "cut": {"spp": [256, SKY_SPP]}, "kernels": kern,
+                "load_seconds_with_sky_precompute": load_seconds,
+                "golden": golden_check(gimg, SKY_GOLDEN, 64, 36, "sky golden")})
+    recs["sky"] = rec
+    emit(rec)
+
+    # (b) the textured mesh-heavy scene, flat and two-level
+    scene = lt.Scene.from_dict(testing.mesh_heavy(**MESH_HEAVY, textured=True))
+    rec, img = spectral_render(torch, lt, brute, fp, scene, device,
+                               "testing.mesh_heavy(textured=True)", "cluster")
+    compiled = lt.compile_scene(scene, device=device)
+    check(compiled.plan.needs_footprint and compiled.plan.num_tris == 512_004,
+          "textured mesh_heavy: no image texture or not 512,004 triangles")
+    atlas = compiled.arrays["texture_atlas"]
+    plain = main_recs["mesh_heavy"]
+    rec.update({"phase": "textures", "cut": None, "triangles": 512_004,
+                "atlas_shape": list(atlas.shape), "atlas_bytes": atlas.numel() * 4,
+                "texture_ops": texture_ops(torch, compiled, scene, device),
+                "untextured": {k: plain[k] for k in ("seconds", "mray_per_s", "rays",
+                                                     "image_mean")},
+                "mean_rel_vs_untextured": float(img.mean() / plain["image_mean"] - 1.0)})
+    del compiled
+    recs["mesh_heavy"] = rec
+    emit(rec)
+    tl = testing.mesh_heavy(**{**MESH_HEAVY, "spp": 1}, textured=True, accel="twolevel")
+    tl_rec, _, _ = twolevel_render(torch, lt, brute, fp, lt.Scene.from_dict(tl), device,
+                                   "textured mesh_heavy two-level",
+                                   {"two_level": True, "fused_path": False})
+    recs["mesh_heavy_twolevel"] = {"phase": "textures",
+                                   "scene": "testing.mesh_heavy(textured=True, twolevel)",
+                                   **tl_rec}
+    emit(recs["mesh_heavy_twolevel"])
+
+    # (c) the env Cornell box under maps that are not constant
+    pxy = pixel_grid(64, 64, device)
+    kw = dict(max_depth=5, rr_depth=0, rr_threshold=0.95)
+    for kind in TEXTURED_ENVS:
+        scene = env_scene(lt, kind, res=512, spp=256, depth=8)
+        cam, integ = scene.cameras[0], scene.integrator
+        img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+        check_image(img, 512, 512, f"env cornell {kind}")
+        others = {k: v for k, v in counts.items() if k != "fused_path_env"}
+        check(counts["fused_path_env"] == cam.spp and not any(others.values())
+              and not scene.environment.constant,
+              f"env cornell {kind}: launches {counts}, spp {cam.spp}")
+        escene = env_scene(lt, kind, res=64, spp=8, depth=5)
+        ecompiled = lt.compile_scene(escene, device=device)
+        offs = []
+        for si in range(8):
+            args = (ecompiled, escene.cameras[0], escene.integrator.sampler,
+                    escene.integrator.light_sampler, pxy, si)
+            rgb_f, _, st_f = path_trace_batch(*args, with_stats=True, **kw)
+            rgb_g, _, st_g = general_path_trace_batch(*args, **kw)
+            rays_f, rays_g = int(st_f["rays"]), int(st_g["rays"])
+            off = frac_off(rgb_f.cpu(), rgb_g.cpu())
+            offs.append(off)
+            check(st_f["fused"] == 1, f"env {kind} sample {si}: not on the fused fork")
+            check(abs(rays_f - rays_g) <= max(8, rays_g // 500),
+                  f"env {kind} sample {si}: rays {rays_f} vs {rays_g}")
+            check(off < 0.02, f"env {kind} sample {si}: {off:.4f} of pixels off")
+        recs[f"env_{kind}"] = {
+            "phase": "textures", "scene": f"testing.cornell_box + {kind}",
+            "resolution": [512, 512], "depth": 8, "spp": cam.spp, "cut": None,
+            "seconds": seconds, "rays": integ.rays_traced,
+            "mray_per_s": integ.rays_traced / seconds / 1e6, "launches": counts,
+            "image_mean": float(img.mean()), "per_sample_frac_off_64": offs}
+        emit(recs[f"env_{kind}"])
+
+    # (d) the textured Cornell box against its golden
+    scene = lt.Scene.from_dict(testing.cornell_textured(resolution=(48, 48), spp=8, depth=5))
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    integ = scene.integrator
+    check(integ.fused_passes == 0 and counts["brute_closest"] == integ.bounces_run
+          == counts["brute_any"] > 0, f"textured cornell: launches {counts}")
+    recs["cornell_textured"] = {"phase": "textures", "scene": "testing.cornell_textured",
+                                "resolution": [48, 48], "spp": 8, "depth": 5,
+                                "seconds": seconds, "launches": counts,
+                                **golden_check(img, TEXTURED_GOLDEN, 48, 48,
+                                               "textured cornell golden")}
+    emit(recs["cornell_textured"])
+    return recs
+
+
 def main():
     import torch
 
@@ -2582,6 +2835,7 @@ def main():
     phase_profile(torch, lt, device)
     phase_golden(torch, lt, device)
     spectral = phase_spectral(torch, lt, brute, fp, device)
+    textures = phase_textures(torch, lt, brute, fp, device, main_recs)
 
     entries = []
     for name, kind_key, line in (("brute_closest", "closest", 79),
@@ -2594,6 +2848,8 @@ def main():
             "launches": general["launches"][name],
             # the hero spectral Cornell render's: one a bounce
             "launches_spectral": spectral["cornell"]["launches"][name],
+            # the sky.json render's: one a bounce
+            "launches_sky": textures["sky"]["launches"][name],
             "max_abs_err": brute_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -2646,6 +2902,8 @@ def main():
             "launches_twolevel": main_recs["mesh_heavy_twolevel"]["launches"][name],
             # the hero mesh-heavy render's: one a bounce
             "launches_spectral": spectral["mesh_heavy"]["launches"][name],
+            # the textured mesh-heavy render's: one a bounce
+            "launches_textured": textures["mesh_heavy"]["launches"][name],
             "max_abs_err": cluster_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -30,6 +30,7 @@ from .lights import diffuse as _light_diffuse  # noqa: F401
 from .lightsamplers import uniform as _ls_uniform  # noqa: F401
 from .samplers import base as _samplers  # noqa: F401
 from .shapes import impls as _shapes  # noqa: F401
+from .shapes import loop_subdiv as _shape_loop  # noqa: F401
 from .spectra import hero as _spec_hero  # noqa: F401
 from .spectra import srgb as _spec_srgb  # noqa: F401
 from .surfaces import disney as _surf_disney  # noqa: F401
@@ -40,7 +41,9 @@ from .surfaces import mirror as _surf_mirror  # noqa: F401
 from .surfaces import null as _surf_null  # noqa: F401
 from .surfaces import plastic as _surf_plastic  # noqa: F401
 from .textures import constant as _tex_constant  # noqa: F401
+from .textures import image as _tex_image  # noqa: F401
 from .textures import procedural as _tex_procedural  # noqa: F401
+from .textures import sky as _tex_sky  # noqa: F401
 from .texturemappings import impls as _tex_mappings  # noqa: F401
 from .transforms import all as _transforms  # noqa: F401
 

@@ -58,6 +58,13 @@ class Camera(SceneNode):
     def requires_lens_sampling(self) -> bool:
         return False
 
+    def ray_cone(self):
+        """(width0, spread): the world-space diameter of a one-pixel ray
+        cone at the camera and its growth a unit of distance; the general
+        fork widens it along each path for the image textures' level of
+        detail (Interaction.footprint). (0, 0) here."""
+        return 0.0, 0.0
+
     def camera_to_world(self) -> np.ndarray:
         if self.transform is None:
             return np.eye(4)

@@ -6,7 +6,7 @@ Counterpart of luisarender_tpu/cameras/impls.py:
   the focus distance from `focus_position` or `focus_distance`, and a
   concentric-disk lens sample;
 - ortho: parallel projection scaled by 2^-zoom.
-The reference's ray cones (mip LOD of image textures) are not ported.
+Each gives the reference's one-pixel ray cone (`ray_cone`).
 """
 
 from __future__ import annotations
@@ -37,6 +37,13 @@ class ThinLensCamera(Camera):
     @property
     def requires_lens_sampling(self):
         return True
+
+    def ray_cone(self):
+        # the sensor pixel's angle; the aperture's blur is left out, as in
+        # the reference (a narrower cone only picks a sharper level)
+        w, h = self.film.resolution
+        sensor_h = 0.024 if w >= h else 0.036
+        return 0.0, (sensor_h / h) / (self.focal_length * 1e-3)
 
     def _generate_ray_in_camera_space(self, pixel, u_lens):
         w, h = self.film.resolution
@@ -77,6 +84,10 @@ class OrthographicCamera(Camera):
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
         self.zoom = desc.float("zoom", 0.0)
+
+    def ray_cone(self):
+        # parallel rays: a constant one-pixel width
+        return 2.0 * float(2.0 ** -self.zoom) / float(self.film.resolution[1]), 0.0
 
     def _generate_ray_in_camera_space(self, pixel, u_lens):
         res = torch.tensor(self.film.resolution, dtype=torch.float32, device=pixel.device)

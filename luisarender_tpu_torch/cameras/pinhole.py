@@ -22,6 +22,11 @@ class PinholeCamera(Camera):
         super().__init__(scene, desc)
         self.fov = desc.float("fov", 35.0)  # degrees, vertical
 
+    def ray_cone(self):
+        # the image plane spans 2 tan(fov / 2) over the film's rows at unit distance
+        tan_half = float(np.tan(np.deg2rad(self.fov) * 0.5))
+        return 0.0, 2.0 * tan_half / float(self.film.resolution[1])
+
     def _generate_ray_in_camera_space(self, pixel, u_lens):
         res = torch.tensor(self.film.resolution, dtype=torch.float32,
                            device=pixel.device)

@@ -9,8 +9,9 @@ tri_opaque, shade_table, sph, the binary SAH tree (aabb_min, aabb_max,
 skip, node_first, node_count), cluster_nodes, cluster_tris and the 8-wide
 tables (cluster_woop, cluster_slab8, cluster_meta8, cluster_cboxes)}, instances.*,
 light_entries.*, the light alias tables and light-triangle rows, the
-surface / light / texture rows with their textures, the environment's
-tables, and the fused tables. A two-level scene's `trace2` comes across
+surface / light / texture rows with their textures, the image atlas
+(texture_atlas, its rects and mip table), the environment's tables, and
+the fused tables. A two-level scene's `trace2` comes across
 whole (TLAS, BLASes, instance and shade rows, the per-mesh cluster tables
 `cl_nodes_{m}` / `cl_tris_{m}`); the plan's statics that route its
 composed trace are read back from its instance rows (`_two_level_plan`).
@@ -45,6 +46,7 @@ TRACE_KEYS = ("tri_v0", "tri_e1", "tri_e2", "prim_index", "tri_opaque", "shade_t
               "sph", "aabb_min", "aabb_max", "skip", "node_first", "node_count",
               "cluster_nodes", "cluster_tris", "cluster_woop", "cluster_slab8",
               "cluster_meta8", "cluster_cboxes")
+ATLAS_KEYS = ("texture_atlas", "texture_atlas_rects", "texture_atlas_mips")
 # wrapper-feature textures the port does not support
 _UNSUPPORTED_TEXTURES = ("normal_map", "alpha")
 
@@ -68,7 +70,7 @@ def _hoist(table, const, name, default, channels):
     return (vals[:, 0] if channels == 1 else vals), h
 
 
-def _convert_rows(table, cls, const, varying_ok=True):
+def _convert_rows(table, cls, const):
     for name in _UNSUPPORTED_TEXTURES:
         if np.any(np.asarray(table.get(name + "__src", -1)) >= 0) or np.any(
             np.asarray(table.get(name, -1)) >= 0
@@ -86,11 +88,6 @@ def _convert_rows(table, cls, const, varying_ok=True):
     for name, default, channels in cls.texture_params:
         out[name], h = _hoist(table, const, name, default, channels)
         if h is not None:
-            if not varying_ok:
-                raise NotImplementedError(
-                    f"parameter '{name}' of {cls.impl_names[0]} has a texture that is "
-                    "not a constant, which luisarender_tpu_torch does not support there yet"
-                )
             out[name + "__h"] = h
     return out
 
@@ -158,10 +155,8 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
         "surfaces": [
             _convert_rows(t, c, const) for t, c in zip(arrays["surfaces"], surf_cls)
         ],
-        "lights": [
-            _convert_rows(t, c, const, varying_ok=False)
-            for t, c in zip(arrays["lights"], light_cls)
-        ],
+        "lights": [_convert_rows(t, c, const) for t, c in zip(arrays["lights"], light_cls)],
+        **{k: np.asarray(arrays[k]) for k in ATLAS_KEYS},
         "textures": {
             c.impl_names[0]: _convert_rows(ref_tex[c.impl_names[0]], c, const)
             for c in tex_cls if len(ref_tex.get(c.impl_names[0], {}))
@@ -192,6 +187,8 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
         env_distance=float(env_distance) if "environment" in out else 0.0,
         needs_uv=any(c.impl_names[0] in out["textures"] and c.impl_names[0] != "constant"
                      for c in tex_cls),
+        needs_footprint=any(c.impl_names[0] in out["textures"] and c.reads_footprint
+                            for c in tex_cls),
         **statics,
     )
     return out, plan

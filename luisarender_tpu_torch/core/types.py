@@ -51,6 +51,9 @@ class Interaction(NamedTuple):
     uv: torch.Tensor  # (N, 2)
     prim_area: torch.Tensor  # (N,)
     back_facing: torch.Tensor  # (N,) bool: wo opposite of ng
+    # the uv-space texture footprint from ray-cone tracking (N,); None
+    # without it, and image textures then read their base level
+    footprint: torch.Tensor = None
 
     def shading_frame(self):
         return fr.frame_from_z_and_hint(self.ns, self.tangent)

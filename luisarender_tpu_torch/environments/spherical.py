@@ -121,17 +121,17 @@ class SphericalEnvironment(Environment):
 
     def _rasterize(self) -> np.ndarray:
         """Radiance grid of the emission texture: a constant one is a 64 x 128
-        grid of its value; textures that rasterize (image, sky) are not
-        ported yet."""
+        grid of its value; an image or sky texture gives its own grid
+        (`rasterize`)."""
         static = self.emission.evaluate_static()
         if static is not None:
             img = np.broadcast_to(np.asarray(static[:3], np.float32), (64, 128, 3)).copy()
             return img * self.scale
-        raise NotImplementedError(
-            f"environment emission texture '{self.emission.impl_type}' cannot be "
-            "rasterized by luisarender_tpu_torch yet (image and sky textures are "
-            "not ported)"
-        )
+        raster = getattr(self.emission, "rasterize", None)
+        if raster is None:
+            raise ValueError(
+                f"environment emission texture '{self.emission.impl_type}' cannot be rasterized")
+        return np.asarray(raster(), np.float32)[..., :3] * self.scale
 
     def device_arrays(self):
         return self._arrays

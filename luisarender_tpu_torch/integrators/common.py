@@ -10,7 +10,10 @@ the environment's radiance with its MIS weight against the BSDF sample that
 made it, and NEE picks the environment as the light sampler says. The carry
 is a dict of per-path tensors; every path draws its 7 uniforms per bounce in
 the reference's order whether or not it is still active, so the sampler
-streams stay aligned with the reference's.
+streams stay aligned with the reference's. Where the scene has an image
+texture, the carry also holds the reference's ray cone (`cone_width`,
+`cone_spread`): it widens by the spread times the hit distance at each
+hit, and the interaction's footprint picks the image's level of detail.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ from ..scene.geometry import surface_interaction
 from ..surfaces import base as surf_base
 
 
-def init_carry(ray, beta, state, swl):
-    """Fresh path state for a batch of camera rays."""
+def init_carry(ray, beta, state, swl, cone=None):
+    """Fresh path state for a batch of camera rays; cone: the camera's
+    (width0, spread) (Camera.ray_cone) to carry, or None."""
     zero_f = torch.zeros_like(ray.origin[..., 0])
-    return {
+    carry = {
         "ray": ray,
         "beta": beta,
         "L": torch.zeros_like(beta),
@@ -40,6 +44,10 @@ def init_carry(ray, beta, state, swl):
         "swl": swl,
         "n_rays": torch.zeros((), dtype=torch.int64, device=zero_f.device),
     }
+    if cone is not None:
+        carry["cone_width"] = zero_f + float(cone[0])
+        carry["cone_spread"] = zero_f + float(cone[1])
+    return carry
 
 
 def has_work(carry) -> bool:
@@ -141,7 +149,13 @@ def bounce_step(compiled, sampler, light_sampler, carry, *,
     # dead lanes keep their last ray; t_max = 0 makes the trace skip them
     trace_ray = ray._replace(t_max=torch.where(active, ray.t_max, 0.0))
     hit = traverse.trace_closest(geom, trace_ray)
-    it = surface_interaction(compiled.arrays, hit, ray, needs_uv=compiled.plan.needs_uv)
+    cone_width = None
+    if "cone_width" in carry:
+        # the cone widens linearly with distance; a miss adds nothing
+        cone_width = carry["cone_width"] + carry["cone_spread"] * torch.where(
+            torch.isfinite(hit.t), hit.t, 0.0)
+    it = surface_interaction(compiled.arrays, hit, ray, needs_uv=compiled.plan.needs_uv,
+                             cone_width=cone_width)
     it = it._replace(valid=it.valid & active)
 
     # --- miss: the environment ---
@@ -193,7 +207,7 @@ def bounce_step(compiled, sampler, light_sampler, carry, *,
 
     depth = depth + 1
     active = active & (depth < max_depth)
-    return {
+    out = {
         "ray": ray,
         "beta": beta,
         "L": L,
@@ -205,3 +219,7 @@ def bounce_step(compiled, sampler, light_sampler, carry, *,
         "swl": swl,
         "n_rays": n_rays,
     }
+    if cone_width is not None:
+        out["cone_width"] = torch.where(active, cone_width, carry["cone_width"])
+        out["cone_spread"] = carry["cone_spread"]
+    return out

@@ -66,7 +66,9 @@ def general_path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
         state, u_swl = sampler.generate_1d(state)
         swl = spectrum.sample_wavelengths(u_swl[..., None])
 
-    carry = common.init_carry(ray, cam_weight[..., None].expand(n, c), state, swl)
+    # the ray cone only where an image texture reads its footprint
+    cone = camera.ray_cone() if compiled.plan.needs_footprint else None
+    carry = common.init_carry(ray, cam_weight[..., None].expand(n, c), state, swl, cone=cone)
     bounces = 0
     while common.has_work(carry):
         carry = common.bounce_step(

@@ -2,8 +2,12 @@
 
 Counterpart of luisarender_tpu/lights/diffuse.py: alias-table triangle pick
 by area, uniform barycentric point, area-to-solid-angle pdf, optional
-two-sided emission and a `scale` multiplier. The emission is a hoisted
-constant row, `emission` (L, 3).
+two-sided emission and a `scale` multiplier. The emission is a texture
+parameter (textures/base.py): its hoisted constant, or a texture that
+varies evaluated at the light's interaction. A path that hits the light
+evaluates it at its hit, ray-cone footprint included; an NEE sample at the
+sampled point, its uv interpolated from the light-triangle row, with no
+footprint (an image's base level), as in the reference.
 """
 
 from __future__ import annotations
@@ -13,9 +17,10 @@ import torch
 
 from ..core import frame as fr
 from ..core import sampling
+from ..core.types import Interaction
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
-from ..textures.base import compile_tex_params, spectral_param
+from ..textures.base import compile_tex_params, evaluate_tex_params, spectral_param
 from .base import Light
 
 
@@ -38,7 +43,9 @@ class DiffuseLight(Light):
         }
 
     @staticmethod
-    def _radiance(params, ctx, swl):
+    def _radiance(params, ctx, it_light, swl):
+        """The emission at the light's interaction `it_light`, scaled."""
+        params = evaluate_tex_params(ctx, params, it_light, DiffuseLight.texture_params)
         L = spectral_param(ctx, params, "emission", swl, "illuminant")
         return L * params["scale"][..., None]
 
@@ -51,7 +58,7 @@ class DiffuseLight(Light):
         two_sided = params["two_sided"] > 0.5
         front = cos_l > 1e-6
         lit = front | (two_sided & (torch.abs(cos_l) > 1e-6))
-        L = DiffuseLight._radiance(params, ctx, swl)
+        L = DiffuseLight._radiance(params, ctx, it_light, swl)
         L = torch.where(lit[..., None], L, 0.0)
         # pdf: uniform by area over this light instance's surface
         entries = ctx.arrays["light_entries"]
@@ -98,7 +105,17 @@ class DiffuseLight(Light):
         cos_l = fr.dot(wo, ng)
         two_sided = params["two_sided"] > 0.5
         lit = (cos_l > 1e-6) | (two_sided & (torch.abs(cos_l) > 1e-6))
-        L = DiffuseLight._radiance(params, ctx, swl)
+        it_light = None
+        if "emission__h" in params:
+            # the sampled point's interaction, for the emission's texture
+            uv = (b0[..., None] * row[..., 12:14] + b1[..., None] * row[..., 14:16]
+                  + b2[..., None] * row[..., 16:18])
+            it_light = Interaction(
+                valid=lit, inst=entry["inst"], prim=torch.full_like(entry["inst"], -1),
+                p=p_light, ng=ng, ns=ng, tangent=row[..., 3:6], uv=uv,
+                prim_area=torch.zeros_like(cos_l), back_facing=cos_l < 0.0,
+            )
+        L = DiffuseLight._radiance(params, ctx, it_light, swl)
         L = torch.where(lit[..., None], L, 0.0)
         d = p_from - p_light
         d2 = fr.dot(d, d)

@@ -293,6 +293,8 @@ def build_fused_pack(surface_types, surface_rows, light_types, light_rows,
         ltag = int(instances["light_tag"][i])
         if ltag >= 0:
             lrow = light_rows[ltag][int(instances["light_index"][i])]
+            if int(lrow.get("emission__h", -1)) >= 0:
+                return None  # a textured emission: the kernel reads constants only
             entry = int(instances["light_entry"][i])
             inst_table[i, 19] = 1.0
             inst_table[i, 20:23] = np.maximum(_vec(lrow, "emission")[:3], 0.0) * float(lrow["scale"])

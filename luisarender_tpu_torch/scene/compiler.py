@@ -27,7 +27,9 @@ Every scene keeps the binary SAH tree (`aabb_min`, `aabb_max`, `skip`,
 ops/trace.py. Spheres that qualify
 (`analytic_sphere`) are exact quadrics in their own table instead of
 triangles. Textures compile to handles and rows of per-type tables
-(`arrays["textures"]`, textures/base.py); the environment, when the scene
+(`arrays["textures"]`, textures/base.py), and the image textures' levels
+to one atlas (`texture_atlas`, `texture_atlas_rects`, `texture_atlas_mips`;
+`_pack_atlas`); the environment, when the scene
 has one, to its own tables (`arrays["environment"]`) and the plan's
 `env_distance`, twice the diagonal of the real geometry's bounds plus one.
 A scene the fused kernel covers also gets its per-instance tables
@@ -92,6 +94,9 @@ class ScenePlan:
     has_environment: bool = False
     env_distance: float = 0.0  # NEE towards the environment ends this far away
     needs_uv: bool = False  # a texture that reads the hit's uv is present
+    # a texture that reads the ray cone's footprint (an image) is present,
+    # so the general fork carries the cone (integrators/common.py)
+    needs_footprint: bool = False
     two_level: bool = False  # TLAS + shared per-mesh BLAS (accel/twolevel.py)
     # the two-level composition's static routing, an entry an instance
     tl_inst_mesh: tuple = ()  # the instance's unique mesh
@@ -228,6 +233,10 @@ class SceneCompiler:
         self._texture_types: list = []
         self._texture_rows: list = []
         self._texture_cache: dict = {}  # id(node) -> handle
+        # the image atlas (textures/image.py): (H, W, 4) images, keyed by
+        # the identity of the array
+        self._atlas_images: list = []
+        self._atlas_image_ids: dict = {}
 
     def register_texture_row(self, cls, row: dict) -> int:
         from ..textures.base import make_handle
@@ -239,6 +248,61 @@ class SceneCompiler:
         rows = self._texture_rows[type_id]
         rows.append(row)
         return make_handle(type_id, len(rows) - 1)
+
+    def register_atlas_image(self, image: np.ndarray) -> int:
+        """The atlas id of an (H, W, 4) image; one array registered twice
+        keeps one id."""
+        key = id(image)
+        if key not in self._atlas_image_ids:
+            self._atlas_image_ids[key] = len(self._atlas_images)
+            self._atlas_images.append(image)
+        return self._atlas_image_ids[key]
+
+    @staticmethod
+    def _mip_chain(img: np.ndarray) -> list:
+        """The 2x2 box-filtered mip chain of an image down to 1x1, in
+        float32; an odd side is edge-padded before it halves."""
+        levels = [img]
+        cur = img
+        while cur.shape[0] > 1 or cur.shape[1] > 1:
+            h, w = cur.shape[:2]
+            if h % 2 or w % 2:
+                cur = np.pad(cur, ((0, h % 2), (0, w % 2), (0, 0)), mode="edge")
+            cur = (cur[0::2, 0::2] + cur[1::2, 0::2] + cur[0::2, 1::2] + cur[1::2, 1::2]) * 0.25
+            levels.append(np.ascontiguousarray(cur, np.float32))
+        return levels
+
+    def _pack_atlas(self):
+        """Shelf-pack every registered image and its mip levels into one
+        (H, W, 4) array, as the reference does: levels sorted by descending
+        height (a stable sort), shelves of width max(2048, the widest
+        level). Returns (atlas, rects (levels, 4) int32 x, y, w, h,
+        mip table (images, 2) int32 first rect, level count); an empty
+        atlas is 1 x 1."""
+        if not self._atlas_images:
+            return (np.zeros((1, 1, 4), np.float32), np.zeros((1, 4), np.int32),
+                    np.zeros((1, 2), np.int32))
+        mip_table, flat = [], []
+        for img in self._atlas_images:
+            chain = self._mip_chain(img)
+            mip_table.append((len(flat), len(chain)))
+            flat.extend(chain)
+        order = sorted(range(len(flat)), key=lambda i: -flat[i].shape[0])
+        atlas_w = max(2048, max(img.shape[1] for img in flat))
+        rects = [None] * len(flat)
+        x = y = shelf_h = 0
+        for i in order:
+            h, w = flat[i].shape[:2]
+            if x + w > atlas_w:
+                y += shelf_h
+                x = shelf_h = 0
+            rects[i] = (x, y, w, h)
+            x += w
+            shelf_h = max(shelf_h, h)
+        atlas = np.zeros((y + shelf_h, atlas_w, 4), np.float32)
+        for (rx, ry, w, h), img in zip(rects, flat):
+            atlas[ry : ry + h, rx : rx + w] = img
+        return atlas, np.asarray(rects, np.int32), np.asarray(mip_table, np.int32)
 
     def compile_texture(self, node) -> int:
         key = id(node)
@@ -577,12 +641,7 @@ class SceneCompiler:
             extent = np.maximum.reduce(maxs) - np.minimum.reduce(mins)
             env_distance = float(np.linalg.norm(extent)) * 2.0 + 1.0
 
-        lights = stack_rows(self._light_rows)
-        if any(k.endswith("__h") for t in lights for k in t):
-            raise NotImplementedError(
-                "a light whose emission is a texture other than a constant is "
-                "not supported by luisarender_tpu_torch yet"
-            )
+        atlas, atlas_rects, atlas_mips = self._pack_atlas()
         arrays = {
             "instances": {
                 k: np.asarray(v, np.int32) for k, v in inst_rows.items()
@@ -599,7 +658,10 @@ class SceneCompiler:
                 else np.zeros((1, 24), np.float32)
             ),
             "surfaces": stack_rows(self._surface_rows),
-            "lights": lights,
+            "lights": stack_rows(self._light_rows),
+            "texture_atlas": atlas,
+            "texture_atlas_rects": atlas_rects,
+            "texture_atlas_mips": atlas_mips,
             "textures": {
                 cls.impl_names[0]: stack_rows([rows])[0]
                 for cls, rows in zip(self._texture_types, self._texture_rows) if rows
@@ -699,6 +761,8 @@ class SceneCompiler:
             env_distance=env_distance,
             needs_uv=any(rows and cls.impl_names[0] != "constant"
                          for cls, rows in zip(self._texture_types, self._texture_rows)),
+            needs_footprint=any(rows and cls.reads_footprint for cls, rows in
+                                zip(self._texture_types, self._texture_rows)),
             two_level=two_level,
             **statics,
         )

@@ -123,13 +123,14 @@ def build_shade_table_object(positions, normals, uvs, triangles, prim_index) -> 
     return table
 
 
-def surface_interaction_2l(arrays, hit: Hit, ray, needs_uv: bool = True) -> Interaction:
+def surface_interaction_2l(arrays, hit: Hit, ray, needs_uv: bool = True,
+                           cone_width=None) -> Interaction:
     """The interaction of a two-level hit: the object-space shade row
     (hit.prim) moved into world space by the instance's object-to-world
     transform (hit.inst's row, accel/twolevel.py layout), the shading
     normal by the inverse transpose; the area from the world-space edges.
-    The reference's ray-cone footprint (its `cone_width`) waits for image
-    textures, as the cameras' `ray_cone` does."""
+    With a ray cone's width at the hit, the footprint is that width times
+    the uv density sqrt(uv area (column 33) / world area)."""
     t2 = arrays["trace2"]
     shade = t2["shade_rows"]
     row = shade[torch.clamp(hit.prim, 0, shade.shape[0] - 1)]
@@ -160,6 +161,9 @@ def surface_interaction_2l(arrays, hit: Hit, ray, needs_uv: bool = True) -> Inte
               + v[..., None] * row[..., 26:28])
     else:
         uv = torch.zeros_like(hit.bary)
+    footprint = None
+    if cone_width is not None:
+        footprint = cone_width * torch.sqrt(row[..., 33] / torch.clamp(prim_area, min=1e-20))
     return Interaction(
         valid=valid,
         inst=torch.where(valid, hit.inst, -1),
@@ -171,17 +175,21 @@ def surface_interaction_2l(arrays, hit: Hit, ray, needs_uv: bool = True) -> Inte
         uv=uv,
         prim_area=prim_area,
         back_facing=fr.dot(-ray.direction, ng) < 0.0,
+        footprint=footprint,
     )
 
 
-def surface_interaction(arrays, hit: Hit, ray, needs_uv: bool = True) -> Interaction:
+def surface_interaction(arrays, hit: Hit, ray, needs_uv: bool = True,
+                        cone_width=None) -> Interaction:
     """Interaction at each hit: one shade-row gather + interpolation, or, for
     an analytic-sphere hit (prim = P + sphere index), the exact quadric's
     point, normal and tangent rebuilt from its (u, v). needs_uv (the plan's:
     a texture reads uv) False leaves uv at zero and skips interpolating it.
+    cone_width, the ray cone's width at each hit, gives the footprint: the
+    width times the row's uv density (column 33), 1 / (2 pi r) on a sphere.
     A two-level scene's hits go to surface_interaction_2l."""
     if "trace2" in arrays:
-        return surface_interaction_2l(arrays, hit, ray, needs_uv)
+        return surface_interaction_2l(arrays, hit, ray, needs_uv, cone_width)
     shade = arrays["trace"]["shade_table"]
     row = shade[torch.clamp(hit.prim, 0, shade.shape[0] - 1)]
     valid = (hit.prim >= 0) & (row[..., 32] > 0.0)
@@ -231,6 +239,7 @@ def surface_interaction(arrays, hit: Hit, ray, needs_uv: bool = True) -> Interac
     tangent = row[..., 28:31]
     inst = row[..., 31].to(torch.int32)
 
+    density = row[..., 33]
     sph = arrays["trace"].get("sph")
     if sph is not None:
         p_tris = shade.shape[0]
@@ -267,6 +276,10 @@ def surface_interaction(arrays, hit: Hit, ray, needs_uv: bool = True) -> Interac
         inst = torch.where(is_sph, srow[..., 13].to(torch.int32), inst)
         prim_area = torch.where(is_sph, (4.0 * np.pi) * radius * radius, prim_area)
         valid = valid | (is_sph & (hit.prim < p_tris + sph.shape[0]))
+        if cone_width is not None:
+            density = torch.where(is_sph, 1.0 / torch.clamp(two_pi * radius, min=1e-20),
+                                  density)
+    footprint = None if cone_width is None else cone_width * density
 
     wo = -ray.direction
     back_facing = fr.dot(wo, ng) < 0.0
@@ -281,4 +294,5 @@ def surface_interaction(arrays, hit: Hit, ray, needs_uv: bool = True) -> Interac
         uv=uv,
         prim_area=prim_area,
         back_facing=back_facing,
+        footprint=footprint,
     )

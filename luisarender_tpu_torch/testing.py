@@ -9,6 +9,8 @@ PBRT/Bitterli RGB values.
 
 from __future__ import annotations
 
+import numpy as np
+
 
 def _quad(p0, p1, p2, p3):
     """Two triangles for a quad, wound p0-p1-p2 / p0-p2-p3."""
@@ -173,9 +175,94 @@ def cornell_sphere(resolution=(48, 48), spp=8, depth=5):
     return d
 
 
-def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5, accel="auto"):
+def _build_file(stem, suffix, content: bytes, write) -> str:
+    """A generated input file under the package's build directory, named
+    by a hash of its content and written once (write(path)) through a
+    temporary name; returns its path."""
+    import hashlib
+    import os
+    from pathlib import Path
+
+    name = f"{stem}-{hashlib.sha1(content).hexdigest()[:12]}{suffix}"
+    out = Path(__file__).resolve().parent / "_build" / name
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{name}.{os.getpid()}.tmp{suffix}")
+        write(tmp)
+        os.replace(tmp, out)
+    return str(out)
+
+
+def bake_png(stem: str, img: np.ndarray) -> str:
+    """img (H, W, 3|4) in [0, 1] as an 8-bit PNG (save_png's bytes) under
+    the package's build directory; returns its path."""
+    from .utils import imageio
+
+    data = imageio.png_bytes(img)
+    return _build_file(stem, ".png", data, lambda p: p.write_bytes(data))
+
+
+def env_spot_exr() -> str:
+    """A 64 x 128 lat-long sky (blue above, dim ground below) with a 3 x 3
+    texel sun of radiance [40, 36, 30], as an EXR under the package's
+    build directory; the sun holds most of the map's power, so its alias
+    tables matter."""
+    from .utils import imageio
+
+    h, w = 64, 128
+    cos_t = np.cos((np.arange(h) + 0.5) / h * np.pi)[:, None, None]
+    sky = np.where(cos_t > 0.0, np.asarray([0.25, 0.35, 0.6]) * (0.4 + 0.6 * cos_t),
+                   np.asarray([0.08, 0.07, 0.06]))
+    img = np.broadcast_to(sky, (h, w, 3)).astype(np.float32).copy()
+    img[13:16, 40:43] = [40.0, 36.0, 30.0]
+    return _build_file("env_spot", ".exr", img.tobytes(), lambda p: imageio.save_exr(p, img))
+
+
+def mesh_texture_png() -> str:
+    """The reference's procedural 256 x 256 colour texture of the textured
+    mesh-heavy scene (luisarender_tpu/testing.py:205-217), baked."""
+    yy, xx = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    img = np.stack([
+        0.5 + 0.45 * np.sin(xx * 0.11) * np.cos(yy * 0.07),
+        0.5 + 0.45 * np.sin((xx + yy) * 0.05),
+        0.5 + 0.45 * np.cos(xx * 0.03 - yy * 0.09),
+    ], axis=-1).astype(np.float32)
+    return bake_png("meshheavy_tex", img)
+
+
+def cornell_textured(resolution=(48, 48), spp=8, depth=5):
+    """The Cornell box with image textures on a surface and a light: the
+    back wall's Kd is a 64 x 64 procedural PNG repeated twice across it
+    (uv_scale 2, so its lookups blend mip levels), and the light's
+    emission a 16 x 16 checker PNG of 1 and 0.25 scaled by the box's
+    emission [17, 12, 4]; both quads get uvs. Neither texture is a
+    constant, so the scene takes the general fork."""
+    d = cornell_box(resolution=resolution, spp=spp, depth=depth)
+    yy, xx = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    wall = np.stack([
+        0.55 + 0.4 * np.sin(xx * 0.35) * np.cos(yy * 0.2),
+        0.55 + 0.4 * np.cos((xx - yy) * 0.15),
+        0.45 + 0.35 * np.sin(yy * 0.3),
+    ], axis=-1).astype(np.float32)
+    cy, cx = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    checker = np.where(((cy // 4 + cx // 4) % 2 == 0)[..., None], 1.0, 0.25)
+    light_img = np.broadcast_to(checker, (16, 16, 3)).astype(np.float32)
+    quad_uv = [0.0, 0.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0]
+    back = d["render"]["shapes"][2]["prop"]
+    back["uvs"] = quad_uv
+    back["surface"] = {"impl": "matte", "prop": {"Kd": {"impl": "image", "prop": {
+        "file": bake_png("cornell_wall", wall), "uv_scale": [2.0, 2.0]}}}}
+    light = d["render"]["shapes"][7]["prop"]
+    light["uvs"] = quad_uv
+    light["light"]["prop"]["emission"] = {"impl": "image", "prop": {
+        "file": bake_png("cornell_light", light_img), "scale": list(LIGHT_EMISSION)}}
+    return d
+
+
+def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5, accel="auto",
+               textured=False):
     """The reference's bedroom-class scene (luisarender_tpu/testing.py
-    mesh_heavy, textured=False): n x n icosphere meshes (subdivision
+    mesh_heavy): n x n icosphere meshes (subdivision
     `subdiv`, 20 * 4^subdiv triangles each) with Disney surfaces over a
     1000 x 1000 floor quad with a checkerboard Kd, lit by a diffuse panel
     with a `null` surface and a constant spherical environment [0.4, 0.5,
@@ -186,7 +273,11 @@ def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5, accel="auto"):
     reference, the checkerboard's "scale" is no property of the texture
     (its scale is `uv_scale`), and the floor quad has no uvs, so the
     checkerboard reads its "on" colour everywhere while it still runs the
-    texture evaluation. The dict renders on both packages."""
+    texture evaluation. textured=True gives every sphere's Disney colour
+    the reference's baked 256 x 256 PNG (mesh_texture_png) as an image
+    texture with `encoding: "linear"`, which the reference decodes as sRGB
+    all the same: one atlas entry with its mips, read at each hit's
+    ray-cone level of detail. The dict renders on both packages."""
 
     def quad(p0, p1, p2, p3, surface, light=None):
         prop = {
@@ -213,13 +304,17 @@ def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5, accel="auto"):
                  "emission": {"impl": "constant", "prop": {"v": [8.0, 7.5, 7.0]}}}}),
     ]
     rough_tex = {"impl": "constant", "prop": {"v": [0.35]}}
+    tex_file = mesh_texture_png() if textured else None
     for i in range(n):
         for j in range(n):
             color = [0.3 + 0.6 * i / max(n - 1, 1), 0.4, 0.9 - 0.6 * j / max(n - 1, 1)]
+            color_tex = {"impl": "constant", "prop": {"v": color}}
+            if textured:
+                color_tex = {"impl": "image", "prop": {"file": tex_file, "encoding": "linear"}}
             mat = {
                 "impl": "disney",
                 "prop": {
-                    "color": {"impl": "constant", "prop": {"v": color}},
+                    "color": color_tex,
                     "metallic": {"impl": "constant", "prop": {"v": [0.5 * ((i + j) % 2)]}},
                     "roughness": rough_tex,
                 },

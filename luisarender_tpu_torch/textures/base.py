@@ -43,6 +43,7 @@ class Texture(SceneNode):
     """Host-side texture node."""
 
     nests = False  # a combinator that evaluates child textures
+    reads_footprint = False  # reads Interaction.footprint (image LOD)
 
     @property
     def channels(self) -> int:

@@ -1,7 +1,12 @@
-"""Image IO: OpenEXR (uncompressed scanline) write/read and 8-bit PNG write.
+"""Image IO: OpenEXR (uncompressed scanline) write/read, 8-bit PNG write
+and read, PFM, Radiance HDR and NPY.
 
-Counterpart of luisarender_tpu/utils/imageio.py, trimmed to what the port
-writes: linear EXR, sRGB-encoded PNG, and NPY.
+Counterpart of luisarender_tpu/utils/imageio.py. The reference reads LDR
+textures through Pillow; the port decodes PNG itself (zlib and numpy:
+8-bit grey, RGB, palette, grey-alpha and RGBA, every scanline filter) into
+the same RGBA bytes Pillow's `convert("RGBA")` gives, and then decodes
+sRGB exactly as the reference does. 16-bit, sub-byte and interlaced PNGs
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -179,6 +184,182 @@ def save_png(path, image: np.ndarray):
         f.write(png_bytes(image))
 
 
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# channels a pixel of each 8-bit colour type: grey, RGB, palette, grey-alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _unfilter(data, h, w, bpp):
+    """Undo the PNG scanline filters (None, Sub, Up, Average, Paeth) of h
+    rows of w * bpp bytes, each led by its filter byte -> (h, w * bpp)
+    uint8. Sub and Up run vectorized; Average and Paeth, whose bytes
+    depend on the decoded byte before them, byte by byte."""
+    stride = w * bpp
+    rows = np.frombuffer(data, np.uint8)[: h * (stride + 1)].reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int64)
+    for y in range(h):
+        ftype = int(rows[y, 0])
+        line = rows[y, 1:].astype(np.int64)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:
+            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        elif ftype in (3, 4):
+            raw = line.tolist()
+            up = prev.tolist()
+            cur_l = [0] * stride
+            for x in range(stride):
+                a = cur_l[x - bpp] if x >= bpp else 0
+                b = up[x]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[x - bpp] if x >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur_l[x] = (raw[x] + pred) & 0xFF
+            cur = np.asarray(cur_l, np.int64)
+        else:
+            raise ValueError(f"PNG: unknown filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def png_rgba8(path) -> np.ndarray:
+    """An 8-bit PNG file -> (H, W, 4) uint8 RGBA, as Pillow's
+    `Image.open(path).convert("RGBA")` gives it: grey replicated into RGB,
+    a palette's colours and its tRNS alphas, a tRNS colour key of grey or
+    RGB made transparent, alpha 255 elsewhere."""
+    data = Path(path).read_bytes()
+    if data[:8] != _PNG_MAGIC:
+        raise ValueError(f"{path}: not a PNG file")
+    pos = 8
+    ihdr = None
+    palette = trns = None
+    idat = []
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack_from(">I", data, pos)
+        tag = data[pos + 4 : pos + 8]
+        payload = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", payload)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = payload
+        elif tag == b"IDAT":
+            idat.append(payload)
+        elif tag == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if ctype not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: PNG colour type {ctype}")
+    if depth != 8:
+        raise NotImplementedError(f"{path}: {depth}-bit PNG (only 8-bit is decoded)")
+    if interlace:
+        raise NotImplementedError(f"{path}: interlaced PNG")
+    ch = _PNG_CHANNELS[ctype]
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch).reshape(h, w, ch)
+    out = np.full((h, w, 4), 255, np.uint8)
+    if ctype == 3:
+        if palette is None:
+            raise ValueError(f"{path}: palette PNG without PLTE")
+        alpha = np.full(palette.shape[0], 255, np.uint8)
+        if trns is not None:
+            t = np.frombuffer(trns, np.uint8)[: palette.shape[0]]
+            alpha[: t.shape[0]] = t
+        idx = px[..., 0]
+        out[..., :3] = palette[np.minimum(idx, palette.shape[0] - 1)]
+        out[..., 3] = alpha[np.minimum(idx, palette.shape[0] - 1)]
+    elif ctype in (0, 4):
+        out[..., :3] = px[..., :1]
+        if ctype == 4:
+            out[..., 3] = px[..., 1]
+        elif trns is not None:
+            key = struct.unpack(">H", trns[:2])[0]
+            out[..., 3] = np.where(px[..., 0] == key, 0, 255)
+    else:
+        out[..., : ch] = px
+        if ctype == 2 and trns is not None:
+            key = np.asarray(struct.unpack(">HHH", trns[:6]))
+            out[..., 3] = np.where(np.all(px == key, axis=-1), 0, 255)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# PFM, Radiance HDR
+# ---------------------------------------------------------------------------
+
+
+def save_pfm(path, image: np.ndarray):
+    image = np.asarray(image, np.float32)
+    h, w = image.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if image.ndim == 3 else b"Pf\n")
+        f.write(f"{w} {h}\n".encode())
+        f.write(b"-1.0\n")  # little endian
+        f.write(np.flipud(image).tobytes())
+
+
+def load_pfm(path):
+    with open(path, "rb") as f:
+        header = f.readline().strip()
+        ch = 3 if header == b"PF" else 1
+        w, h = map(int, f.readline().split())
+        scale = float(f.readline())
+        data = np.frombuffer(f.read(), "<f4" if scale < 0 else ">f4").reshape(h, w, ch)
+        return np.flipud(data).astype(np.float32)
+
+
+def load_hdr(path):
+    """Radiance RGBE (.hdr) reader (run-length and flat scanlines)."""
+    with open(path, "rb") as f:
+        if not f.readline().startswith(b"#?"):
+            raise ValueError("not a Radiance HDR file")
+        while True:
+            line = f.readline().strip()
+            if not line:
+                break
+        dims = f.readline().split()
+        h, w = int(dims[1]), int(dims[3])
+        data = f.read()
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    pos = 0
+    for y in range(h):
+        if (pos + 4 <= len(data) and data[pos] == 2 and data[pos + 1] == 2
+                and (data[pos + 2] << 8 | data[pos + 3]) == w):
+            pos += 4
+            for c in range(4):
+                x = 0
+                while x < w:
+                    count = data[pos]
+                    pos += 1
+                    if count > 128:
+                        rgbe[y, x : x + count - 128, c] = data[pos]
+                        pos += 1
+                        x += count - 128
+                    else:
+                        rgbe[y, x : x + count, c] = np.frombuffer(data[pos : pos + count], np.uint8)
+                        pos += count
+                        x += count
+        else:
+            rgbe[y] = np.frombuffer(data[pos : pos + 4 * w], np.uint8).reshape(w, 4)
+            pos += 4 * w
+    exp = rgbe[..., 3].astype(np.int32) - 136
+    scale = np.ldexp(1.0, exp).astype(np.float32)
+    rgb = rgbe[..., :3].astype(np.float32) * scale[..., None]
+    rgb[rgbe[..., 3] == 0] = 0.0
+    return rgb
+
+
 # ---------------------------------------------------------------------------
 # Generic entry points
 # ---------------------------------------------------------------------------
@@ -205,5 +386,27 @@ def save_image(path, image: np.ndarray):
         save_png(path, srgb_encode(image))
     elif suffix == ".npy":
         np.save(path, image)
+    elif suffix == ".pfm":
+        save_pfm(path, image)
     else:
         raise ValueError(f"unsupported image format: {suffix}")
+
+
+def load_image(path):
+    """An image as float32 (H, W, C); LDR (PNG) is sRGB-decoded to linear
+    RGBA in the reference's float32 arithmetic."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix == ".exr":
+        return load_exr(path)
+    if suffix == ".npy":
+        return np.load(path).astype(np.float32)
+    if suffix == ".pfm":
+        return load_pfm(path)
+    if suffix == ".hdr":
+        return load_hdr(path)
+    img = png_rgba8(path).astype(np.float32) / 255.0
+    rgb = img[..., :3]
+    # the sRGB EOTF
+    lin = np.where(rgb <= 0.04045, rgb / 12.92, ((rgb + 0.055) / 1.055) ** 2.4)
+    return np.concatenate([lin, img[..., 3:4]], axis=-1).astype(np.float32)

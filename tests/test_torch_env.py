@@ -24,15 +24,14 @@ import luisarender_tpu as lr
 import luisarender_tpu_torch as lt
 from luisarender_tpu import testing as jtesting
 from luisarender_tpu.core import sampling as jsampling
-from luisarender_tpu.environments.spherical import SphericalEnvironment as JSpherical
 from luisarender_tpu.ops import fused_path as jfused
 from luisarender_tpu_torch import convert
 from luisarender_tpu_torch.core import sampling as tsampling
-from luisarender_tpu_torch.environments.spherical import SphericalEnvironment as TSpherical
 from luisarender_tpu_torch.integrators.mega_path import (
     general_path_trace_batch, path_trace_batch, pixel_grid,
 )
 from luisarender_tpu_torch.ops import fused_path as tfused
+from luisarender_tpu_torch.utils.imageio import save_exr
 
 import torch_parity  # noqa: F401  (one torch thread)
 
@@ -85,14 +84,14 @@ def _grid(h=8, w=16, seed=3):
 
 
 @pytest.mark.parametrize("name", [*ENVS, "spherical_alias"])
-def test_environment_evaluate_and_sample_match_reference(name, monkeypatch):
-    env = ENVS["spherical"] if name == "spherical_alias" else ENVS[name]
+def test_environment_evaluate_and_sample_match_reference(name, tmp_path):
+    env = ENVS[name] if name in ENVS else None
     if name == "spherical_alias":
-        # a non-constant map through both packages' rasterizer: the alias
-        # tables, the bilinear lookup and the texel pdf
-        grid = _grid()
-        monkeypatch.setattr(JSpherical, "_rasterize", lambda self: grid.copy())
-        monkeypatch.setattr(TSpherical, "_rasterize", lambda self: grid.copy())
+        # a non-constant map, an EXR image texture rasterized by both
+        # packages: the alias tables, the bilinear lookup and the texel pdf
+        save_exr(tmp_path / "grid.exr", _grid())
+        env = {"impl": "spherical", "prop": {"emission": {
+            "impl": "image", "prop": {"file": str(tmp_path / "grid.exr")}}}}
     jscene, jcomp, tscene, tcomp = _compile_both(_scene(env))
     jenv, tenv = jscene.environment, tscene.environment
     if name == "spherical_alias":

@@ -1,6 +1,7 @@
 """The port stands alone: no module of luisarender_tpu_torch, and none of
 the scripts that drive it on the card (chip_smoke.py and the A/B scripts),
-imports JAX or anything of the JAX package; importing and
+imports JAX or anything of the JAX package, nor Pillow (the card's machine
+has none: the port decodes PNG itself); importing and
 rendering with it loads neither; its entry points default to the CUDA card
 and raise where there is none."""
 
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "luisarender_tpu")
+FORBIDDEN = ("jax", "jaxlib", "luisarender_tpu", "PIL")
 
 
 def _forbidden(name):
@@ -55,13 +56,17 @@ from luisarender_tpu_torch import testing
 scene = lt.Scene.from_dict(testing.cornell_box(resolution=(8, 8), spp=1, depth=2))
 img = lt.render(scene, device="cpu")["cornell.exr"]
 assert img.shape == (8, 8, 3) and img.mean() > 0
+# image textures: the port's own PNG decoder
+scene = lt.Scene.from_dict(testing.cornell_textured(resolution=(8, 8), spp=1, depth=2))
+assert lt.render(scene, device="cpu")["cornell.exr"].mean() > 0
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "luisarender_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "luisarender_tpu", "PIL"))
 print("LOADED", loaded)
 """
 
 
 def test_import_and_render_load_neither_jax_nor_the_reference():
+    """Nor Pillow, on a scene with image textures."""
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
         text=True, timeout=300,

@@ -5,7 +5,9 @@ walk_plain), the 8-wide traces (wide8.cu and subpacket.cu against
 ops/wide8.py wide8_plain and ops/subpacket.py subpacket_plain), the
 binary-tree trace (trace.cu against ops/trace.py walk_plain) and the fused
 whole-path kernel (fused_path.cu against ops/fused_path.py paths_plain),
-its environment and ray-input modes included.
+its environment mode (on constant maps and on the Nishita sky and an EXR
+sun map, whose alias tables the candidates sample) and ray-input mode
+included.
 
 Marked `gpu`; every test skips where no card is present. On a machine with
 a card and without JAX:
@@ -555,7 +557,7 @@ def _fused_env_case(cuda, kind, res, depth):
     return fp, compiled, fp.fused_tables(compiled), cam, pxy, kw, env
 
 
-@pytest.mark.parametrize("kind", ["spherical", "directional", "env_only"])
+@pytest.mark.parametrize("kind", ["spherical", "directional", "env_only", "nishitasky", "image"])
 def test_fused_env_mode_matches_plain(cuda, kind):
     """The environment mode: rgb, rays and the 7 escape words bit for bit
     on every lane of a permuted pixel list, one launch counted as an

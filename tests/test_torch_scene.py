@@ -97,8 +97,8 @@ def test_unsupported_plugins_raise_not_implemented():
         lt.Scene.from_dict(d)
     d = testing.cornell_box(resolution=(8, 8), spp=1)
     d["render"]["shapes"][0]["prop"]["surface"] = {"impl": "matte", "prop": {
-        "Kd": {"impl": "image", "prop": {"file": "floor.png"}}}}
-    with pytest.raises(NotImplementedError, match="image"):
+        "Kd": {"impl": "normal_map", "prop": {"file": "floor.png"}}}}
+    with pytest.raises(NotImplementedError, match="normal_map"):
         lt.Scene.from_dict(d)
 
 
