@@ -210,6 +210,24 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              phase 7; testing.cornell_textured (48^2, 8 spp, a textured
              back wall and a textured light, brute kernels once a bounce)
              against tests/golden/cornell_textured_48_8spp.exr
+ 10 surfaces mix and layered surfaces, normal maps, the text SDL, motion
+             blur and checkpoints (phase_surfaces): testing.cornell_coated
+             (512^2, depth 8, spp cut from 256 to COATED_SPP: coats in
+             closed form and by the walk, a mix by a checkerboard, a
+             normal-mapped floor, a glass sphere whose eta varies) through
+             render on the general fork, both brute kernels once a bounce
+             and nothing else, with the records of phase 8 and the brute
+             kernels on one sample's first four bounces bit for bit against
+             their plain versions; scenes/cornell.luisa through render_file
+             (512^2, depth 8, 256 spp, one fused launch a sample) against
+             scenes/cornell.json's render by the goldens' rule, their fused
+             tables equal, and the fused kernel on one of its samples bit
+             for bit; testing.cornell_motion (the short block under lerp,
+             MOTION_BUCKETS shutter buckets, each compiled at its time and
+             its compile timed, MOTION_SPP spp a bucket on the fused fork)
+             and the fused kernel on one bucket bit for bit; a checkpoint
+             interrupted after 4 of 8 spp at 64^2 and resumed, bit for bit
+             the whole render
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -2779,6 +2797,265 @@ def phase_textures(torch, lt, brute, fp, device, main_recs):
     return recs
 
 
+# --------------------------------------------------------------------------
+# phase 10: mix and layered surfaces, normal maps, the text SDL, motion blur
+# and checkpoints
+# --------------------------------------------------------------------------
+
+LUISA_SCENE = ROOT / "scenes" / "cornell.luisa"
+# the coated and motion-blur Cornell boxes' spp, cut from 256 as the other
+# general-fork renders are cut
+COATED_SPP = 32
+MOTION_SPP = 32
+MOTION_BUCKETS = 6
+# the motion-blur bucket whose fused launch is held against the plain version
+MOTION_HELD_BUCKET = 2
+
+
+def hold_fused_sample(torch, fp, compiled, scene, device, what, shutter_time=0.0):
+    """The fused kernel on one sample of every pixel of a compiled scene,
+    its camera posed at `shutter_time`, bit for bit against its plain
+    version; its device time, the plain version's and the bound."""
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+
+    cam_node, integ = scene.cameras[0], scene.integrator
+    check(compiled.plan.fused_path, f"{what}: the fused kernel does not cover it")
+    cam = fp.camgen_params(cam_node, integ.sampler.seed, time=shutter_time)
+    check(cam is not None, f"{what}: no in-kernel camera")
+    w, h = cam_node.film.resolution
+    pxy = pixel_grid(w, h, device)
+    kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
+              rr_threshold=integ.rr_threshold)
+    tables = fp.fused_tables(compiled)
+    rgb_k, rays_k = fp.paths(tables, cam, pxy, 0, 0, **kw)
+    torch.cuda.synchronize()
+    (rgb_p, rays_p), counts, plain_ms = fused_work(torch, fp, tables, cam, pxy, 0, kw)
+    share, err, _ = bit_equal(torch, f"fused {what}", rgb_k, rays_k, rgb_p, rays_p)
+    check(bool(torch.isfinite(rgb_k).all()) and float(rgb_k.mean()) > 0.0,
+          f"fused {what}: non-finite or black")
+    ms = device_ms(torch, lambda: fp.paths(tables, cam, pxy, 0, 0, **kw), iters=20)
+    return {"n": pxy.shape[0], "depth": integ.max_depth, "rays": int(rays_k.sum()),
+            "share_bit_equal": share, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **fused_bound(tables, counts, pxy.shape[0])}
+
+
+def timed_compiles():
+    """Wrap scene/compiler.py compile_scene, which the shutter buckets call
+    (integrators/base.py), to record each call's shutter time and seconds;
+    returns (records, undo)."""
+    import torch
+    from luisarender_tpu_torch.scene import compiler
+
+    orig, recs, clock = compiler.compile_scene, [], time.perf_counter
+
+    def timed(scene, device=None, time=0.0):
+        torch.cuda.synchronize()
+        t0 = clock()
+        out = orig(scene, device=device, time=time)
+        torch.cuda.synchronize()
+        recs.append({"time": float(time), "seconds": clock() - t0})
+        return out
+
+    compiler.compile_scene = timed
+
+    def undo():
+        compiler.compile_scene = orig
+
+    return recs, undo
+
+
+def checkpoint_resume(torch, lt, device):
+    """testing.cornell_box at 64^2, 8 spp, on the card: rendered whole, then
+    interrupted after its first pass of 4 samples (the checkpoint written
+    then), then resumed; the resumed image must equal the whole one bit for
+    bit."""
+    import tempfile
+
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.integrators import mega_path
+
+    class Interrupted(Exception):
+        pass
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "film.npz")
+
+        def scene():
+            d = testing.cornell_box(resolution=(64, 64), spp=8, depth=5)
+            d["render"]["integrator"]["prop"].update(
+                {"checkpoint_file": ckpt, "checkpoint_interval": 4, "samples_per_pass": 4})
+            return lt.Scene.from_dict(d)
+
+        t0 = time.perf_counter()
+        whole = lt.render(scene(), device=device)["cornell.exr"]
+        whole_seconds = time.perf_counter() - t0
+        os.remove(ckpt)
+        orig = mega_path.path_trace_batch
+
+        def interrupted(*args, **kw):
+            if args[5] == 4:
+                raise Interrupted
+            return orig(*args, **kw)
+
+        mega_path.path_trace_batch = interrupted
+        try:
+            lt.render(scene(), device=device)
+            check(False, "checkpoint: the interrupted render ran to its end")
+        except Interrupted:
+            pass
+        finally:
+            mega_path.path_trace_batch = orig
+        done_at_interrupt = int(np.load(ckpt)["done"])
+        resumed_scene = scene()
+        t0 = time.perf_counter()
+        resumed = lt.render(resumed_scene, device=device)["cornell.exr"]
+        resumed_seconds = time.perf_counter() - t0
+    check(done_at_interrupt == 4, f"checkpoint: {done_at_interrupt} spp at the interrupt")
+    check(resumed_scene.integrator.fused_passes == 4,
+          f"checkpoint: the resumed render ran {resumed_scene.integrator.fused_passes} samples")
+    equal = bool(np.array_equal(resumed, whole))
+    check(equal, "checkpoint: the resumed image differs from the whole render "
+                 f"(max |d| {float(np.abs(resumed - whole).max())})")
+    check_image(whole, 64, 64, "checkpoint")
+    return {"phase": "surfaces", "what": "checkpoint resume, testing.cornell_box 64^2, 8 spp",
+            "done_at_interrupt": done_at_interrupt, "bit_equal": equal,
+            "whole_seconds": whole_seconds, "resumed_seconds": resumed_seconds}
+
+
+def phase_surfaces(torch, lt, brute, fp, device):
+    """Mix and layered surfaces, normal maps, glass with a varying eta, the
+    text SDL, motion blur and checkpoints: (i) testing.cornell_coated (512^2,
+    depth 8, spp cut to COATED_SPP: a closed-form coat over gold, the
+    stochastic walk over matte, a mix of matte and plastic by a checkerboard,
+    a normal-mapped floor, a glass sphere with a checkerboard eta) through
+    render on the general fork with both brute kernels once a bounce and
+    nothing else, and the brute kernels on one sample's first four bounces
+    bit for bit against their plain versions; (ii) scenes/cornell.luisa
+    through render_file at its own 512^2, depth 8, 256 spp, one fused
+    launch a sample, against scenes/cornell.json's render by the
+    reference's rule, its fused tables equal to cornell.json's, and the
+    fused kernel on one sample against its plain version; (iii)
+    testing.cornell_motion (the short block under lerp, shutter [0, 1] in
+    MOTION_BUCKETS buckets, 512^2, depth 8, MOTION_SPP spp): a compile and a
+    fused render a bucket, each compile timed, and the fused kernel on one
+    bucket's sample against its plain version; (iv) a checkpoint resume at
+    64^2, 8 spp, bit for bit."""
+    from luisarender_tpu_torch import testing
+
+    recs = {}
+    # (i) the coated Cornell box
+    scene = lt.Scene.from_dict(testing.cornell_coated(spp=COATED_SPP))
+    rec, _ = spectral_render(torch, lt, brute, fp, scene, device, "testing.cornell_coated",
+                             "brute")
+    compiled = lt.compile_scene(scene, device=device)
+    names = [c.impl_names[0] for c in compiled.plan.surface_types]
+    glass = compiled.arrays["surfaces"][names.index("glass")]
+    check(compiled.plan.any_normal_maps and compiled.plan.num_tris == 32
+          and compiled.plan.num_spheres == 1 and "layered<MatteSurface,k=10>" in names
+          and "layered<MetalSurface,k=0>" in names
+          and "mix<MatteSurface,PlasticSurface>" in names
+          and float(glass["cauchy_a"][0]) == 1.5 and float(glass["cauchy_b"][0]) == 0.0,
+          f"coated cornell: types {names}, plan {compiled.plan.any_normal_maps}")
+    cap = capture_main_path_inputs(torch, brute, compiled, scene, max_depth=4)
+    kern = {}
+    for kind in ("closest", "any"):
+        fn_k = brute.closest if kind == "closest" else brute.any_hit
+        errs, ms = [], []
+        for args in cap[kind]:
+            errs.append(max(compare_case(torch, brute, kind, args)[0]))
+            ms.append(device_ms(torch, lambda: fn_k(*args), iters=20))
+        kern[kind] = {"inputs": len(cap[kind]), "max_abs_err": max(errs), "ms": ms}
+    del cap, compiled
+    rec.update({"phase": "surfaces", "surface_types": names, "cut": {"spp": [256, COATED_SPP]},
+                "kernels": kern})
+    recs["coated"] = rec
+    emit(rec)
+
+    # (ii) the text SDL's Cornell box beside the JSON one
+    reset_counts(brute, fp)
+    t0 = time.perf_counter()
+    images = lt.render_file(str(LUISA_SCENE), save=False, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(brute, fp)
+    luisa = lt.load_scene(str(LUISA_SCENE))
+    cam = luisa.cameras[0]
+    img = images[cam.file]
+    check_image(img, 512, 512, "cornell.luisa")
+    others = {k: v for k, v in counts.items() if k != "fused_path"}
+    check(counts["fused_path"] == cam.spp == 256 and not any(others.values()),
+          f"cornell.luisa: launches {counts}")
+    json_scene = lt.load_scene(str(MAIN_SCENE))
+    img_json, json_seconds, _ = render_counted(torch, lt, brute, fp, json_scene, device)
+    frac, rel = frac_off(img, img_json), float(img.mean() / img_json.mean() - 1.0)
+    t_luisa = fp.fused_tables(lt.compile_scene(luisa, device=device))
+    compiled_json = lt.compile_scene(json_scene, device=device)
+    t_json = fp.fused_tables(compiled_json)
+    same_tables = all(torch.equal(getattr(t_luisa, k), getattr(t_json, k))
+                      for k in ("tri", "shade", "sph", "inst", "entry", "light"))
+    check(same_tables and len(luisa.shapes) == len(json_scene.shapes),
+          "cornell.luisa: its fused tables differ from cornell.json's")
+    compiled_luisa = lt.compile_scene(luisa, device=device)
+    held = hold_fused_sample(torch, fp, compiled_luisa, luisa, device, "cornell.luisa")
+    rays = held["rays"] * cam.spp  # a sample's rays, the same every sample in count
+    recs["luisa"] = {"phase": "surfaces", "scene": "scenes/cornell.luisa (render_file)",
+                     "resolution": [512, 512], "depth": 8, "spp": cam.spp, "cut": None,
+                     "seconds": seconds, "launches": counts, "image_mean": float(img.mean()),
+                     "json_seconds": json_seconds, "frac_pixels_off_vs_json": frac,
+                     "mean_rel_diff_vs_json": rel,
+                     "max_abs_diff_vs_json": float(np.abs(img - img_json).max()),
+                     "fused_tables_equal_json": same_tables,
+                     "mray_per_s_estimate": rays / seconds / 1e6, "kernel": held}
+    emit(recs["luisa"])
+    check(frac < 0.02 and abs(rel) < 0.005,
+          f"cornell.luisa: {frac:.4f} of pixels off cornell.json's, mean off by {rel:.5f}")
+
+    # (iii) motion blur: a compile and a fused render a shutter bucket
+    scene = lt.Scene.from_dict(testing.cornell_motion(spp=MOTION_SPP,
+                                                      shutter_samples=MOTION_BUCKETS))
+    integ, cam = scene.integrator, scene.cameras[0]
+    compiles, undo = timed_compiles()
+    try:
+        img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    finally:
+        undo()
+    check_image(img, 512, 512, "motion blur")
+    times, _ = cam.shutter_weights(MOTION_BUCKETS)
+    others = {k: v for k, v in counts.items() if k != "fused_path"}
+    check([c["time"] for c in compiles] == [float(t) for t in times]
+          and counts["fused_path"] == integ.fused_passes == MOTION_BUCKETS * MOTION_SPP
+          and not any(others.values()),
+          f"motion blur: compiles {compiles}, launches {counts}")
+    t_held = float(times[MOTION_HELD_BUCKET])
+    compiled_t = lt.compile_scene(scene, device=device, time=t_held)
+    compiled_0 = lt.compile_scene(scene, device=device, time=0.0)
+
+    def block_min_x(c):
+        # the short block's (instance 5) rows of the trace table, whose order
+        # follows the tree of each compile (shade_table column 31: instance)
+        tr = c.arrays["trace"]
+        return float(tr["tri_v0"][tr["shade_table"][:, 31].long() == 5, 0].min())
+
+    moved = block_min_x(compiled_t) - block_min_x(compiled_0)
+    check(abs(moved - 120.0 * t_held) < 1e-2, f"motion blur: the block moved {moved}")
+    held = hold_fused_sample(torch, fp, compiled_t, scene, device,
+                             f"motion blur bucket {MOTION_HELD_BUCKET}", shutter_time=t_held)
+    recs["motion"] = {"phase": "surfaces", "scene": "testing.cornell_motion",
+                      "resolution": [512, 512], "depth": 8, "spp": MOTION_SPP,
+                      "buckets": MOTION_BUCKETS, "cut": {"spp": [256, MOTION_SPP]},
+                      "seconds": seconds, "rays": integ.rays_traced,
+                      "mray_per_s": integ.rays_traced / seconds / 1e6,
+                      "bucket_compiles": compiles, "launches": counts,
+                      "image_mean": float(img.mean()), "held_bucket_time": t_held,
+                      "held_bucket_block_shift": moved, "kernel": held}
+    emit(recs["motion"])
+
+    # (iv) a checkpoint resume
+    recs["checkpoint"] = checkpoint_resume(torch, lt, device)
+    emit(recs["checkpoint"])
+    return recs
+
+
 def main():
     import torch
 
@@ -2836,6 +3113,7 @@ def main():
     phase_golden(torch, lt, device)
     spectral = phase_spectral(torch, lt, brute, fp, device)
     textures = phase_textures(torch, lt, brute, fp, device, main_recs)
+    surfaces = phase_surfaces(torch, lt, brute, fp, device)
 
     entries = []
     for name, kind_key, line in (("brute_closest", "closest", 79),
@@ -2850,6 +3128,8 @@ def main():
             "launches_spectral": spectral["cornell"]["launches"][name],
             # the sky.json render's: one a bounce
             "launches_sky": textures["sky"]["launches"][name],
+            # the coated Cornell box's: one a bounce
+            "launches_coated": surfaces["coated"]["launches"][name],
             "max_abs_err": brute_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -2875,6 +3155,11 @@ def main():
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
         })
+        if name == "fused_path":
+            # scenes/cornell.luisa's render (one a sample) and the
+            # motion-blur render's (one a sample of each shutter bucket)
+            entries[-1].update({"launches_luisa": surfaces["luisa"]["launches"][name],
+                                "launches_motion": surfaces["motion"]["launches"][name]})
         if name == "fused_path_env":
             # the environment mode (fused_path.py has_env): the candidates
             # and the miss pass run beside the kernel

@@ -35,9 +35,11 @@ from .spectra import hero as _spec_hero  # noqa: F401
 from .spectra import srgb as _spec_srgb  # noqa: F401
 from .surfaces import disney as _surf_disney  # noqa: F401
 from .surfaces import glass as _surf_glass  # noqa: F401
+from .surfaces import layered as _surf_layered  # noqa: F401
 from .surfaces import matte as _surf_matte  # noqa: F401
 from .surfaces import metal as _surf_metal  # noqa: F401
 from .surfaces import mirror as _surf_mirror  # noqa: F401
+from .surfaces import mix as _surf_mix  # noqa: F401
 from .surfaces import null as _surf_null  # noqa: F401
 from .surfaces import plastic as _surf_plastic  # noqa: F401
 from .textures import constant as _tex_constant  # noqa: F401
@@ -53,7 +55,8 @@ from .scene.scene import Scene
 
 
 def load_scene(path, macros=None) -> Scene:
-    """Parse and materialize a scene file (JSON SDL)."""
+    """Parse and materialize a scene file (JSON or the .luisa text SDL);
+    `macros` overrides the text format's `define`s."""
     return Scene.from_file(path, macros)
 
 

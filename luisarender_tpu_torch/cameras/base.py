@@ -3,8 +3,9 @@
 Counterpart of luisarender_tpu/cameras/base.py: per-camera film, filter,
 transform, spp, output path and near / far clip planes; `generate_rays` =
 filter-sampled pixel offset -> subclass camera-space ray -> camera-to-world
-transform, the clip planes' depths turned into the ray's t range. Shutter
-spans (motion blur) are not ported yet.
+transform, the clip planes' depths turned into the ray's t range; a
+shutter span with its buckets' times and weights (motion blur: the
+integrator renders a bucket a time, integrators/base.py).
 """
 
 from __future__ import annotations
@@ -35,11 +36,8 @@ class Camera(SceneNode):
         self.spp = desc.int("spp", 1024)
         self.file = desc.string("file", "render.exr")
         span = desc.float2("shutter_span", (0.0, 0.0))
-        if span[1] > span[0]:
-            raise NotImplementedError(
-                f"camera '{desc.identifier}': 'shutter_span' is not supported by "
-                "luisarender_tpu_torch yet"
-            )
+        self.shutter_span = (float(span[0]), float(span[1]))
+        self.shutter_samples = desc.int("shutter_samples", 0)
         # near / far clip planes at camera-space depth: `clip` = (near, far)
         # (a scalar broadcasts to both, as float2 reads it); `clip_plane` a
         # near plane, (near, 1e10). Sorted and clamped to [0, 1e10].
@@ -65,22 +63,31 @@ class Camera(SceneNode):
         detail (Interaction.footprint). (0, 0) here."""
         return 0.0, 0.0
 
-    def camera_to_world(self) -> np.ndarray:
+    def camera_to_world(self, time=0.0) -> np.ndarray:
         if self.transform is None:
             return np.eye(4)
-        return self.transform.matrix(0.0)
+        return self.transform.matrix(time)
+
+    def shutter_weights(self, n_buckets: int):
+        """(times, weights) of the shutter buckets: n_buckets evenly spaced
+        times over the span, equally weighted; one bucket at the span's
+        start where the span is empty or n_buckets <= 1."""
+        t0, t1 = self.shutter_span
+        if t1 <= t0 or n_buckets <= 1:
+            return [t0], [1.0]
+        return list(np.linspace(t0, t1, n_buckets)), list(np.ones(n_buckets) / n_buckets)
 
     def _generate_ray_in_camera_space(self, pixel, u_lens):
         """pixel: (N, 2) float continuous pixel coordinates. Returns
         (origin, direction, weight) in camera space."""
         raise NotImplementedError
 
-    def generate_rays(self, pixel_xy, u_filter, u_lens):
-        """Returns (ray, pixel_f, weight)."""
+    def generate_rays(self, pixel_xy, u_filter, u_lens, time=0.0):
+        """Returns (ray, pixel_f, weight), the camera posed at `time`."""
         offset, filter_weight = self.filter.sample(u_filter)
         pixel = pixel_xy.to(torch.float32) + 0.5 + offset
         o_c, d_c, weight = self._generate_ray_in_camera_space(pixel, u_lens)
-        c2w = np.asarray(self.camera_to_world(), dtype=np.float32)
+        c2w = np.asarray(self.camera_to_world(float(time)), dtype=np.float32)
 
         def rot(v):
             x, y, z = v[..., 0], v[..., 1], v[..., 2]

@@ -37,18 +37,18 @@ import numpy as np
 from .core.device import resolve_device
 from .ops import subpacket
 from .scene.compiler import (
-    INT_INSTANCE_KEYS, CompiledScene, ScenePlan, hoist_spectral_coeffs, tables_to_device,
+    INT_INSTANCE_KEYS, CompiledScene, ScenePlan, drop_unused, hoist_spectral_coeffs,
+    tables_to_device,
 )
 from .scene.node import SceneNodeTag
-from .scene.registry import lookup
+from .scene.registry import lookup, registered
+from .surfaces.base import ALPHA_PARAM, NORMAL_MAP_PARAM
 
 TRACE_KEYS = ("tri_v0", "tri_e1", "tri_e2", "prim_index", "tri_opaque", "shade_table",
               "sph", "aabb_min", "aabb_max", "skip", "node_first", "node_count",
               "cluster_nodes", "cluster_tris", "cluster_woop", "cluster_slab8",
               "cluster_meta8", "cluster_cboxes")
 ATLAS_KEYS = ("texture_atlas", "texture_atlas_rects", "texture_atlas_mips")
-# wrapper-feature textures the port does not support
-_UNSUPPORTED_TEXTURES = ("normal_map", "alpha")
 
 
 def _hoist(table, const, name, default, channels):
@@ -70,26 +70,85 @@ def _hoist(table, const, name, default, channels):
     return (vals[:, 0] if channels == 1 else vals), h
 
 
+def _wrapper_param(name):
+    """(default, channels) of a surface's wrapper texture, a child's under
+    its prefix included (`a_alpha`, `i_normal_map`), else None."""
+    for wname, default, channels in (NORMAL_MAP_PARAM, ALPHA_PARAM):
+        if name == wname or name.endswith("_" + wname):
+            return default, channels
+    return None
+
+
 def _convert_rows(table, cls, const):
-    for name in _UNSUPPORTED_TEXTURES:
-        if np.any(np.asarray(table.get(name + "__src", -1)) >= 0) or np.any(
-            np.asarray(table.get(name, -1)) >= 0
-        ):
-            raise NotImplementedError(
-                f"the '{name}' texture is not supported by luisarender_tpu_torch yet"
-            )
-    tex_names = {name for name, _, _ in cls.texture_params}
-    tex_names.update(_UNSUPPORTED_TEXTURES)
-    out = {
-        k: np.asarray(v)
-        for k, v in table.items()
-        if not k.endswith("__src") and k not in tex_names
-    }
-    for name, default, channels in cls.texture_params:
-        out[name], h = _hoist(table, const, name, default, channels)
+    """A reference parameter table as the port's: the class's texture
+    parameters and a surface's wrapper textures (normal map, alpha; their
+    `<name>__src` columns) hoisted, the wrapper textures with their
+    presence flags `<name>__p`."""
+    params = {name: (default, ch) for name, default, ch in cls.texture_params}
+    specs = {k[: -len("__src")]: None for k in table if k.endswith("__src")}
+    specs = {name: params.get(name) or _wrapper_param(name) for name in specs}
+    specs = {name: spec for name, spec in specs.items() if spec is not None}
+    out = {k: np.asarray(v) for k, v in table.items()
+           if not k.endswith("__src") and k not in specs}
+    for name, spec in specs.items():
+        out[name], h = _hoist(table, const, name, *spec)
         if h is not None:
             out[name + "__h"] = h
-    return out
+        if _wrapper_param(name) is not None:
+            present = (np.asarray(table[name + "__src"]) >= 0) | (
+                np.asarray(table.get(name, -1)) >= 0)
+            out[name + "__p"] = present.astype(np.float32)
+    return drop_unused(out)
+
+
+def _any_wrapper(tables, name):
+    return any(name + "__p" in t for t in tables)
+
+
+def _generated_surface(name):
+    """The port's class for a surface type name of the reference's plan:
+    a registered plugin name, a class name (`MatteSurface`), or a generated
+    type `mix<A,B>` / `layered<A,k=K>` whose parts are such names and
+    nest; inside them the reference names a nested mix by its class name
+    `Mix_A_B`, which resolves too. A nested layered type's class name
+    `Layered_A` does not carry the walk's depth, so it is refused: give
+    `layered<A,k=K>` in its place."""
+    from .surfaces import layered, mix
+
+    name = name.strip()
+    for head in ("mix<", "layered<"):
+        if name.startswith(head) and name.endswith(">"):
+            # the two parts: split at the comma outside any nested <...>
+            args, depth, start = [], 0, len(head)
+            for i in range(len(head), len(name) - 1):
+                depth += {"<": 1, ">": -1}.get(name[i], 0)
+                if name[i] == "," and depth == 0:
+                    args.append(name[start:i])
+                    start = i + 1
+            args.append(name[start:-1])
+            if len(args) != 2:
+                raise ValueError(f"surface type '{name}': expected 2 parts")
+            if head == "mix<":
+                return mix.monomorphized(*(_generated_surface(a) for a in args))
+            if not args[1].startswith("k="):
+                raise ValueError(f"surface type '{name}': no walk depth k=")
+            return layered.monomorphized(_generated_surface(args[0]), int(args[1][2:]))
+    by_class = {c.__name__: c for c in registered(SceneNodeTag.SURFACE)}
+    if name in by_class:
+        return by_class[name]
+    if name.startswith("Mix_"):
+        # Mix_<A>_<B>: the split where both parts resolve
+        body = name[len("Mix_"):]
+        for i in (i for i, c in enumerate(body) if c == "_"):
+            try:
+                return mix.monomorphized(_generated_surface(body[:i]),
+                                         _generated_surface(body[i + 1:]))
+            except (ValueError, NotImplementedError):
+                continue
+    if name.startswith(("Mix_", "Layered_")):
+        raise ValueError(f"surface type '{name}': give the generated type's full name "
+                         "(mix<A,B> or layered<A,k=K>)")
+    return lookup(SceneNodeTag.SURFACE, name)
 
 
 def _two_level_plan(t2):
@@ -125,12 +184,13 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
 
     surface_types / light_types / texture_types: impl names in the
     reference plan's tag order (`[c.impl_names[0] for c in
-    plan.surface_types]`; the texture tables' own order, which is the
+    plan.surface_types]`, a generated mix / layered type by its full name,
+    `_generated_surface`; the texture tables' own order, which is the
     plan's, when texture_types is None); bvh_leaf_size, env_distance: the
     reference plan's."""
     if texture_types is None:
         texture_types = list(arrays.get("textures", {}))
-    surf_cls = tuple(lookup(SceneNodeTag.SURFACE, n) for n in surface_types)
+    surf_cls = tuple(_generated_surface(n) for n in surface_types)
     light_cls = tuple(lookup(SceneNodeTag.LIGHT, n) for n in light_types)
     tex_cls = tuple(lookup(SceneNodeTag.TEXTURE, n) for n in texture_types)
     ref_tex = arrays.get("textures", {})
@@ -189,6 +249,8 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
                      for c in tex_cls),
         needs_footprint=any(c.impl_names[0] in out["textures"] and c.reads_footprint
                             for c in tex_cls),
+        any_normal_maps=_any_wrapper(out["surfaces"], "normal_map"),
+        any_alpha=_any_wrapper(out["surfaces"], "alpha"),
         **statics,
     )
     return out, plan

@@ -22,6 +22,10 @@ def roughness_to_alpha(roughness):
     return torch.clamp(roughness * roughness, min=1e-4)
 
 
+def alpha_to_roughness(alpha):
+    return torch.sqrt(torch.clamp(alpha, min=1e-4))
+
+
 def ggx_d(wh, alpha):
     """Normal distribution function D(wh)."""
     ax, ay = alpha[..., 0], alpha[..., 1]
@@ -134,3 +138,13 @@ def fresnel_schlick(cos_i, f0):
     m = torch.clamp(1.0 - torch.abs(cos_i), 0.0, 1.0)
     w = (m * m) * (m * m) * m
     return f0 + (1.0 - f0) * w[..., None]
+
+
+def fresnel_dielectric_integral(eta):
+    """The hemispherical average of the dielectric Fresnel reflectance
+    (Egan and Hilgeman's rational fits), as the reference takes it."""
+    inv = 1.0 / eta
+    f_lt1 = -0.4399 + 0.7099 * inv - 0.3319 * inv * inv + 0.0636 * inv * inv * inv
+    e2 = eta * eta
+    f_ge1 = -1.4399 / e2 + 0.7099 / eta + 0.6681 + 0.0636 * eta
+    return torch.where(eta < 1.0, f_lt1, f_ge1)

@@ -38,8 +38,8 @@ def u32(x):
 
 
 def mul32(a, m):
-    """(a * m) mod 2^32 for a uint32 word tensor a and a constant m (an
-    int, or an int64 tensor of constants that broadcasts against a)."""
+    """(a * m) mod 2^32 for a uint32 word tensor a and m an int or a
+    uint32 word tensor that broadcasts against a."""
     lo = m & 0xFFFF
     hi = (m >> 16) & 0xFFFF
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & MASK32
@@ -59,6 +59,41 @@ def xxhash32(*words):
     h = mul32(h ^ (h >> 15), PRIME32_2)
     h = mul32(h ^ (h >> 13), PRIME32_3)
     return h ^ (h >> 16)
+
+
+def pcg(v):
+    """The PCG output function of a uint32 state."""
+    state = (mul32(u32(v), 747796405) + 2891336453) & MASK32
+    word = mul32(((state >> ((state >> 28) + 4)) ^ state), 277803737)
+    return (word >> 22) ^ word
+
+
+def _lcg16(v):
+    return (mul32(v, 1664525) + 1013904223) & MASK32
+
+
+def pcg2d(v0, v1):
+    """The 2D PCG hash: two decorrelated uint32 streams."""
+    v0, v1 = _lcg16(u32(v0)), _lcg16(u32(v1))
+    for _ in range(2):
+        v0 = (v0 + mul32(v1, 1664525)) & MASK32
+        v1 = (v1 + mul32(v0, 1664525)) & MASK32
+        v0, v1 = v0 ^ (v0 >> 16), v1 ^ (v1 >> 16)
+    return v0, v1
+
+
+def pcg3d(v0, v1, v2):
+    """The 3D PCG hash of three uint32 words (tensors or ints that
+    broadcast together)."""
+    v0, v1, v2 = u32(v0), u32(v1), u32(v2)
+    for i in range(2):
+        v0, v1, v2 = _lcg16(v0), _lcg16(v1), _lcg16(v2)
+        v0 = (v0 + mul32(v1, v2)) & MASK32
+        v1 = (v1 + mul32(v2, v0)) & MASK32
+        v2 = (v2 + mul32(v0, v1)) & MASK32
+        if i == 0:
+            v0, v1, v2 = v0 ^ (v0 >> 16), v1 ^ (v1 >> 16), v2 ^ (v2 >> 16)
+    return v0, v1, v2
 
 
 def uniform_u32_to_float(bits):

@@ -32,10 +32,11 @@ from . import common
 from .base import ProgressiveIntegrator
 
 
-def camera_rays(camera, sampler, pixel_xy, sample_index):
+def camera_rays(camera, sampler, pixel_xy, sample_index, time=0.0):
     """Each pixel's sampler state past its camera draws, and its camera ray
-    and weight: the filter's 2D draw, then the lens's where the camera
-    samples a lens (u_lens 0.5 elsewhere). Returns (state, ray, weight)."""
+    (the camera posed at shutter time `time`) and weight: the filter's 2D
+    draw, then the lens's where the camera samples a lens (u_lens 0.5
+    elsewhere). Returns (state, ray, weight)."""
     state = sampler.start(pixel_xy, sample_index)
     state, u_filter = sampler.generate_pixel_2d(state)
     if camera.requires_lens_sampling:
@@ -43,21 +44,22 @@ def camera_rays(camera, sampler, pixel_xy, sample_index):
     else:
         u_lens = torch.full((pixel_xy.shape[0], 2), 0.5, dtype=torch.float32,
                             device=pixel_xy.device)
-    ray, _, cam_weight = camera.generate_rays(pixel_xy, u_filter, u_lens)
+    ray, _, cam_weight = camera.generate_rays(pixel_xy, u_filter, u_lens, time)
     return state, ray, cam_weight
 
 
 def general_path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
-                             sample_index, *, max_depth, rr_depth, rr_threshold):
+                             sample_index, *, max_depth, rr_depth, rr_threshold, time=0.0):
     """The general fork: one sample of each pixel of pixel_xy (N, 2) int32
-    through the host bounce loop. Returns (rgb (N, 3), filter weight (N,),
-    stats) with stats 'rays' (closest + shadow rays traced, a device
-    tensor) and 'bounces' (bounce steps run)."""
+    through the host bounce loop, the camera posed at shutter time `time`.
+    Returns (rgb (N, 3), filter weight (N,), stats) with stats 'rays'
+    (closest + shadow rays traced, a device tensor) and 'bounces' (bounce
+    steps run)."""
     spectrum = compiled.spectrum
     n = pixel_xy.shape[0]
     c = compiled.plan.spectral_dim
 
-    state, ray, cam_weight = camera_rays(camera, sampler, pixel_xy, sample_index)
+    state, ray, cam_weight = camera_rays(camera, sampler, pixel_xy, sample_index, time)
     if spectrum.is_fixed:
         # sRGB reads only the draws' shape and device
         swl = spectrum.sample_wavelengths(pixel_xy[:, :1])
@@ -83,9 +85,10 @@ def general_path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
 
 def path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
                      sample_index, *, max_depth, rr_depth, rr_threshold,
-                     with_stats=False):
+                     time=0.0, with_stats=False):
     """Trace one sample for each pixel of pixel_xy (N, 2) int32, on the
-    fused fork where the scene allows it, else the general one.
+    fused fork where the scene allows it, else the general one; the camera
+    is posed at shutter time `time` on both.
 
     Returns (rgb (N, 3), filter_weight (N,)); with_stats=True appends a dict
     with 'rays' (closest + shadow rays traced, a device tensor), 'bounces'
@@ -95,19 +98,20 @@ def path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
         raise RuntimeError("a spectrum that is not fixed must never take the fused fork, "
                            "whose kernel renders sRGB only")
     if fused_path.use_fused(compiled, sampler, light_sampler):
-        cam = fused_path.camgen_params(camera, sampler.seed)
+        cam = fused_path.camgen_params(camera, sampler.seed, time=time)
         if cam is not None:
             rgb, n_rays = fused_path.trace_paths_fused_camgen(
                 compiled, cam, pixel_xy, sample_index, light_sampler=light_sampler, **kw)
         else:
-            state0, ray, cam_weight = camera_rays(camera, sampler, pixel_xy, sample_index)
+            state0, ray, cam_weight = camera_rays(camera, sampler, pixel_xy, sample_index,
+                                                  time)
             rgb, n_rays = fused_path.trace_paths_fused(
                 compiled, ray, cam_weight, state0, light_sampler=light_sampler, **kw)
         weight = torch.ones((pixel_xy.shape[0],), dtype=torch.float32, device=pixel_xy.device)
         stats = {"rays": n_rays, "bounces": 0, "fused": 1}
     else:
         rgb, weight, stats = general_path_trace_batch(
-            compiled, camera, sampler, light_sampler, pixel_xy, sample_index, **kw)
+            compiled, camera, sampler, light_sampler, pixel_xy, sample_index, time=time, **kw)
         stats["fused"] = 0
     if with_stats:
         return rgb, weight, stats
@@ -148,46 +152,44 @@ class MegakernelPathTracing(ProgressiveIntegrator):
             return None
         if not fused_path.use_fused(compiled, self.sampler, self.light_sampler):
             return None
-        return fused_path.camgen_params(camera, self.sampler.seed)
+        return fused_path.camgen_params(camera, self.sampler.seed, time=self.render_time)
 
     def _render_one_camera(self, compiled, camera):
         w, h = camera.film.resolution
         dev = compiled.device
         pixel_xy = pixel_grid(w, h, dev)
         film = camera.film
-        rays = torch.zeros((), dtype=torch.int64, device=dev)
-        accum = film.prepare(dev)
+        rays = [torch.zeros((), dtype=torch.int64, device=dev)]
+        spd = max(min(self.samples_per_pass, camera.spp), 1)
         cam = self._persistent_camera(compiled, camera)
-        if cam is not None:
-            # one persistent launch per pass of samples_per_pass samples; the
+
+        def persistent_pass(accum, done, n):
+            # one persistent launch a pass of samples_per_pass samples; the
             # pass's mean enters the film with weight n, as in the reference
-            spd = max(min(self.samples_per_pass, camera.spp), 1)
-            done = 0
-            while done < camera.spp:
-                n = min(spd, camera.spp - done)
-                rgb_sum, n_rays = fused_path.trace_paths_fused_persistent(
-                    compiled, cam, pixel_xy, done, n, **self._kw())
-                rays = rays + n_rays
-                self.fused_passes += 1
-                accum = film.accumulate_image(
-                    accum, rgb_sum.reshape(h, w, 3) / float(n),
-                    torch.full((h, w), float(n), dtype=torch.float32, device=dev),
+            rgb_sum, n_rays = fused_path.trace_paths_fused_persistent(
+                compiled, cam, pixel_xy, done, n, **self._kw())
+            rays[0] = rays[0] + n_rays
+            self.fused_passes += 1
+            return film.accumulate_image(
+                accum, rgb_sum.reshape(h, w, 3) / float(n),
+                torch.full((h, w), float(n), dtype=torch.float32, device=dev),
+            )
+
+        def sample_pass(accum, done, n):
+            for sample_index in range(done, done + n):
+                rgb, weight, stats = path_trace_batch(
+                    compiled, camera, self.sampler, self.light_sampler, pixel_xy,
+                    sample_index, time=self.render_time, with_stats=True, **self._kw(),
                 )
-                done += n
-            self.rays_traced += int(rays)
-            return film.develop(accum)
-        for sample_index in range(camera.spp):
-            rgb, weight, stats = path_trace_batch(
-                compiled, camera, self.sampler, self.light_sampler, pixel_xy,
-                sample_index, with_stats=True, **self._kw(),
-            )
-            rays = rays + stats["rays"]
-            self.bounces_run += stats["bounces"]
-            self.fused_passes += stats["fused"]
-            accum = film.accumulate_image(
-                accum, rgb.reshape(h, w, 3), weight.reshape(h, w)
-            )
-        self.rays_traced += int(rays)
+                rays[0] = rays[0] + stats["rays"]
+                self.bounces_run += stats["bounces"]
+                self.fused_passes += stats["fused"]
+                accum = film.accumulate_image(accum, rgb.reshape(h, w, 3), weight.reshape(h, w))
+            return accum
+
+        accum = self._progressive_loop(film, camera.spp, spd,
+                                       persistent_pass if cam is not None else sample_pass, dev)
+        self.rays_traced += int(rays[0])
         return film.develop(accum)
 
 

@@ -142,6 +142,8 @@ def _fold_surface(name, row, out):
     cover it."""
     if any(k.endswith("__h") and int(v) >= 0 for k, v in row.items()):
         return False  # a texture that varies: the kernel reads constants only
+    if float(row.get("normal_map__p", 0.0)) > 0.5 or float(row.get("alpha__p", 0.0)) > 0.5:
+        return False  # a normal map or an alpha texture, even a constant one
     out[17] = float(row.get("two_sided", 0.0))
     if name == "matte":
         sg = float(_vec(row, "sigma")[0]) * (np.pi / 180.0)
@@ -326,16 +328,17 @@ def use_fused(compiled, sampler, light_sampler) -> bool:
     return type(light_sampler).__name__ == "UniformLightSampler"
 
 
-def camgen_params(camera, sampler_seed):
+def camgen_params(camera, sampler_seed, time=0.0):
     """The in-kernel camera generation's scalars (pinhole camera, box
-    filter, no clip plane), or None for a camera it cannot make."""
+    filter, no clip plane), the camera posed at shutter time `time`, or
+    None for a camera it cannot make."""
     if type(camera).__name__ != "PinholeCamera":
         return None
     if type(camera.filter).__name__ != "BoxFilter":
         return None
     if camera.clip_plane is not None:
         return None
-    c2w = np.asarray(camera.camera_to_world(), np.float32)
+    c2w = np.asarray(camera.camera_to_world(float(time)), np.float32)
     resx, resy = camera.film.resolution
     tan_half = float(np.tan(np.deg2rad(camera.fov) * 0.5))
     p = {

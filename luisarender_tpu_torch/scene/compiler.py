@@ -57,6 +57,7 @@ from ..ops.subpacket import build_bvh8, build_slab_meta, build_woop_table
 from ..ops.wide8 import build_cluster_boxes
 from ..ops.fused_path import build_fused_pack
 from ..shapes.base import compute_vertex_normals
+from ..surfaces.mix import device_class
 from .geometry import build_shade_table, build_shade_table_object
 
 # above this many triangles a scene traces with the cluster kernel, as in
@@ -98,6 +99,10 @@ class ScenePlan:
     # so the general fork carries the cone (integrators/common.py)
     needs_footprint: bool = False
     two_level: bool = False  # TLAS + shared per-mesh BLAS (accel/twolevel.py)
+    # a surface row names a normal map (surfaces/base.py shading_frame reads
+    # it only then) / an alpha texture (read by nothing on the device)
+    any_normal_maps: bool = False
+    any_alpha: bool = False
     # the two-level composition's static routing, an entry an instance
     tl_inst_mesh: tuple = ()  # the instance's unique mesh
     tl_inst_opaque: tuple = ()  # it blocks shadow rays
@@ -205,24 +210,32 @@ def hoist_spectral_coeffs(arrays, plan, spectrum):
     return out
 
 
+def drop_unused(table):
+    """A parameter table without the columns no row uses: a texture
+    parameter's handle column (`<name>__h`, textures/base.py) where no row
+    has a varying texture, so such a type never evaluates textures, and a
+    wrapper texture's presence flag (`<name>__p`, surfaces/base.py) where
+    no row names one, so its closures never map a normal."""
+    for k in [k for k in table if k.endswith("__h")]:
+        if np.all(np.asarray(table[k]) < 0):
+            del table[k]
+    for k in [k for k in table if k.endswith("__p")]:
+        if not np.any(np.asarray(table[k]) > 0.5):
+            del table[k]
+    return table
+
+
 def stack_rows(rows_list):
-    """Per-type lists of row dicts -> per-type dicts of stacked columns. A
-    texture parameter's handle column (`<name>__h`, textures/base.py) is
-    dropped where no row has a varying texture, so such a type never
-    evaluates textures."""
-    out = []
-    for rows in rows_list:
-        d = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
-        for k in [k for k in d if k.endswith("__h")]:
-            if np.all(d[k] < 0):
-                del d[k]
-        out.append(d)
-    return out
+    """Per-type lists of row dicts -> per-type dicts of stacked columns,
+    the unused ones dropped (drop_unused)."""
+    return [drop_unused({k: np.stack([r[k] for r in rows]) for k in rows[0]})
+            for rows in rows_list]
 
 
 class SceneCompiler:
-    def __init__(self, scene):
+    def __init__(self, scene, time=0.0):
         self.scene = scene
+        self.time = float(time)  # the shutter time world transforms are baked at
         self.spectrum = scene.spectrum.model()
         self._surface_types: list = []
         self._surface_rows: list = []
@@ -313,7 +326,8 @@ class SceneCompiler:
     def compile_surface(self, node):
         key = id(node)
         if key not in self._surface_cache:
-            cls = type(node)
+            # mix and layered compile to generated classes (surfaces/mix.py)
+            cls = device_class(node)
             if cls not in self._surface_types:
                 self._surface_types.append(cls)
                 self._surface_rows.append([])
@@ -345,7 +359,7 @@ class SceneCompiler:
         def walk(shape, parent_m, surface, light, visible):
             m = parent_m
             if shape.transform is not None and not shape.transform.is_identity:
-                m = parent_m @ shape.transform.matrix(0.0)
+                m = parent_m @ shape.transform.matrix(self.time)
             surface = shape.surface or surface
             light = shape.light or light
             visible = visible and shape.visible
@@ -764,9 +778,18 @@ class SceneCompiler:
             needs_footprint=any(rows and cls.reads_footprint for cls, rows in
                                 zip(self._texture_types, self._texture_rows)),
             two_level=two_level,
+            any_normal_maps=self._any_wrapper("normal_map"),
+            any_alpha=self._any_wrapper("alpha"),
             **statics,
         )
         return arrays, plan
+
+    def _any_wrapper(self, name):
+        """Whether a surface row names the wrapper texture `name` itself
+        (a child's inside a mix or layered row does not count, as in the
+        reference)."""
+        return any(float(r.get(name + "__p", 0.0)) > 0.5
+                   for rows in self._surface_rows for r in rows)
 
     def compile(self, device) -> CompiledScene:
         arrays, plan = self.compile_numpy()
@@ -779,6 +802,7 @@ class SceneCompiler:
         )
 
 
-def compile_scene(scene, device=None) -> CompiledScene:
-    """Compile `scene` onto `device` (default: the first CUDA card)."""
-    return SceneCompiler(scene).compile(resolve_device(device))
+def compile_scene(scene, device=None, time=0.0) -> CompiledScene:
+    """Compile `scene` onto `device` (default: the first CUDA card), its
+    world transforms baked at shutter time `time`."""
+    return SceneCompiler(scene, time).compile(resolve_device(device))

@@ -3,7 +3,7 @@
 Counterpart of luisarender_tpu/scene/parser.py: JSON with `@name`
 references, inline internal nodes, `import` lists and a singleton root node
 named "render", collected into a global node table. The text (`.luisa`)
-format is not ported yet.
+format goes to scene/text_parser.py.
 """
 
 from __future__ import annotations
@@ -85,10 +85,9 @@ def parse_scene_file(path, macros: Optional[dict[str, str]] = None) -> SceneDesc
     if path.suffix.lower() in (".json", ".luisa_render", ".lr"):
         _parse_json_file(desc, path)
     elif path.suffix.lower() == ".luisa":
-        raise NotImplementedError(
-            f"{path}: the .luisa text format is not ported to "
-            "luisarender_tpu_torch yet; use the JSON format"
-        )
+        from .text_parser import parse_text_file
+
+        parse_text_file(desc, path, macros or {})
     else:
         raise SceneNodeError(f"unknown scene file format: {path}")
     desc.validate()

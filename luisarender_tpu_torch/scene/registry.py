@@ -43,3 +43,8 @@ def lookup(tag: SceneNodeTag, impl_type: str) -> type:
             f"luisarender_tpu_torch yet; available: {available}"
         )
     return cls
+
+
+def registered(tag: SceneNodeTag) -> list:
+    """The distinct classes registered under a category."""
+    return list(dict.fromkeys(_REGISTRY[tag].values()))

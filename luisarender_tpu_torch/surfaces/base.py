@@ -20,13 +20,18 @@ import torch
 
 from ..core import frame as fr
 from ..scene.scene import SceneNode
-from ..textures.base import evaluate_tex_params
+from ..textures.base import compile_tex_param, evaluate_tex_params
 
 # surface event codes
 EVENT_REFLECT = 0
 EVENT_ENTER = 1
 EVENT_EXIT = 2
 EVENT_THROUGH = 3
+
+# the wrapper textures every surface may name (the reference's NormalMap and
+# Opacity wrappers as data): (name, default rgba, channels)
+NORMAL_MAP_PARAM = ("normal_map", (0.5, 0.5, 1.0, 0.0), 3)
+ALPHA_PARAM = ("alpha", (1.0, 1.0, 1.0, 1.0), 1)
 
 
 class Surface(SceneNode):
@@ -38,16 +43,32 @@ class Surface(SceneNode):
 
     def __init__(self, scene, desc):
         super().__init__(scene, desc)
-        for name in ("normal_map", "alpha"):
-            if desc.node(name) is not None:
-                raise NotImplementedError(
-                    f"surface '{desc.identifier}': the '{name}' texture is not "
-                    "supported by luisarender_tpu_torch yet"
-                )
+        self.normal_map = scene.load_texture(desc.node("normal_map"))
+        self.alpha = scene.load_texture(desc.node("alpha"))
         self.two_sided = desc.bool("two_sided", False)
 
-    def compile_common(self) -> dict:
-        return {"two_sided": np.float32(1.0 if self.two_sided else 0.0)}
+    def __init_subclass__(cls, **kw):
+        # the normal map is a texture parameter of every surface; a class
+        # that declares its own texture_params gets it in front
+        super().__init_subclass__(**kw)
+        own = cls.__dict__.get("texture_params")
+        if own and not any(name == "normal_map" for name, _, _ in own):
+            cls.texture_params = (NORMAL_MAP_PARAM,) + tuple(own)
+
+    def compile_common(self, compiler) -> dict:
+        """The row entries every surface carries: `two_sided`, and the
+        wrapper textures as the reference compiles them, with a presence
+        flag each (`normal_map__p`, `alpha__p`: 1 where the surface names
+        the texture, a constant included), compiled first as the reference
+        compiles them. The normal map is also one of the class's
+        texture_params, so dispatch evaluates it at the hit; alpha is read
+        by nothing on the device, as in the reference."""
+        row = {"two_sided": np.float32(1.0 if self.two_sided else 0.0)}
+        for name, default, channels in (NORMAL_MAP_PARAM, ALPHA_PARAM):
+            tex = getattr(self, name)
+            compile_tex_param(compiler, tex, default, row, name, channels)
+            row[name + "__p"] = np.float32(tex is not None)
+        return row
 
     def compile(self, compiler) -> dict:
         raise NotImplementedError
@@ -60,10 +81,36 @@ class Surface(SceneNode):
     def sample(params, ctx, it, swl, wo, u_lobe, u):
         raise NotImplementedError
 
+    @staticmethod
+    def albedo(params, ctx, it, swl):
+        return torch.zeros(it.p.shape[:-1] + (swl.dimension,), dtype=torch.float32,
+                           device=it.p.device)
 
-def oriented_frame(params, it, wo):
-    """Shading frame, flipped toward wo when the surface is two-sided."""
+    @staticmethod
+    def roughness(params, ctx, it):
+        return torch.ones(it.p.shape[:-1] + (2,), dtype=torch.float32, device=it.p.device)
+
+
+def shading_frame(params, ctx, it):
+    """The shading frame, tangent-space normal mapped where the row names a
+    normal map and the plan has any: the mapped normal (value * 2 - 1,
+    normalised, to world space) and the tangent rebuild the frame. A type
+    none of whose rows names one has no `normal_map__p` column
+    (scene/compiler.py drop_unused); the reference rebuilds its frame from
+    the same normal and tangent, which gives the same frame."""
     frame = it.shading_frame()
+    if "normal_map__p" in params and ctx.plan.any_normal_maps:
+        n_local = fr.normalize(params["normal_map"] * 2.0 - 1.0)
+        has = (params["normal_map__p"] > 0.5)[..., None]
+        n_world = fr.normalize(fr.to_world(frame, n_local))
+        n = torch.where(has, n_world, frame["n"])
+        frame = fr.frame_from_z_and_hint(n, it.tangent)
+    return frame
+
+
+def oriented_frame(params, ctx, it, wo):
+    """Shading frame, flipped toward wo when the surface is two-sided."""
+    frame = shading_frame(params, ctx, it)
     flip = ((fr.dot(wo, frame["n"]) < 0.0) & (params["two_sided"] > 0.5))[..., None]
     return {
         "s": frame["s"],

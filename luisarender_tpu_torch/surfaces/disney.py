@@ -21,7 +21,7 @@ from ..core import sampling
 from ..core.colorspace import cie_y_of_srgb
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
-from ..textures.base import compile_tex_params
+from ..textures.base import compile_tex_params, spectral_param
 from .base import (
     EVENT_ENTER, EVENT_EXIT, EVENT_REFLECT, EVENT_THROUGH, Surface, oriented_frame,
 )
@@ -83,7 +83,7 @@ class DisneySurface(Surface):
 
     def compile(self, compiler) -> dict:
         return {
-            **self.compile_common(),
+            **self.compile_common(compiler),
             **compile_tex_params(self, compiler),
             "thin": np.float32(1.0 if self.thin else 0.0),
             "remap_roughness": np.float32(1.0 if self.remap_roughness else 0.0),
@@ -252,14 +252,14 @@ class DisneySurface(Surface):
 
     @staticmethod
     def evaluate(params, ctx, it, swl, wo, wi):
-        frame = oriented_frame(params, it, wo)
+        frame = oriented_frame(params, ctx, it, wo)
         c = DisneySurface._ctx(params, ctx, swl)
         f, pdf = DisneySurface._eval_local(c, fr.to_local(frame, wo), fr.to_local(frame, wi))
         return {"f": f, "pdf": pdf}
 
     @staticmethod
     def sample(params, ctx, it, swl, wo, u_lobe, u):
-        frame = oriented_frame(params, it, wo)
+        frame = oriented_frame(params, ctx, it, wo)
         c = DisneySurface._ctx(params, ctx, swl)
         wo_l = fr.to_local(frame, wo)
         w_diff, w_spec, w_cc, _ = DisneySurface.lobe_weights(c)
@@ -315,3 +315,12 @@ class DisneySurface(Surface):
             "event": event,
             "eta": torch.where(c["thin"], torch.ones_like(eta), eta),
         }
+
+    @staticmethod
+    def albedo(params, ctx, it, swl):
+        return spectral_param(ctx, params, "color", swl, "albedo")
+
+    @staticmethod
+    def roughness(params, ctx, it):
+        r = params["roughness"]
+        return torch.stack([r, r], dim=-1)

@@ -111,11 +111,10 @@ class GlassSurface(Surface):
             tex = scene.load_texture(eta_node)
             v = tex.evaluate_static()
             if v is None:
-                raise NotImplementedError(
-                    "glass: a varying 'eta' texture is not supported by "
-                    "luisarender_tpu_torch yet"
-                )
-            if tex.channels >= 3:  # values at the Fraunhofer lines
+                # a texture that varies is loaded and never compiled or
+                # read: the index is Cauchy (1.5, 0), as in the reference
+                self.cauchy = (1.5, 0.0)
+            elif tex.channels >= 3:  # values at the Fraunhofer lines
                 self.cauchy = fit_cauchy(float(v[0]), float(v[1]), float(v[2]))
             else:
                 self.cauchy = (float(v[0]), 0.0)
@@ -124,7 +123,7 @@ class GlassSurface(Surface):
 
     def compile(self, compiler) -> dict:
         return {
-            **self.compile_common(),
+            **self.compile_common(compiler),
             **compile_tex_params(self, compiler),
             **roughness_row(self),
             "cauchy_a": np.float32(self.cauchy[0]),
@@ -210,7 +209,7 @@ class GlassSurface(Surface):
 
     @staticmethod
     def evaluate(params, ctx, it, swl, wo, wi):
-        frame = oriented_frame(params, it, wo)
+        frame = oriented_frame(params, ctx, it, wo)
         f, pdf = GlassSurface._eval_local(
             params, ctx, swl, fr.to_local(frame, wo), fr.to_local(frame, wi)
         )
@@ -218,7 +217,7 @@ class GlassSurface(Surface):
 
     @staticmethod
     def sample(params, ctx, it, swl, wo, u_lobe, u):
-        frame = oriented_frame(params, it, wo)
+        frame = oriented_frame(params, ctx, it, wo)
         wo_l = fr.to_local(frame, wo)
         alpha = resolve_alpha(params)
         eta_t = GlassSurface._eta_t(params, swl)
@@ -241,3 +240,11 @@ class GlassSurface(Surface):
         ).to(torch.int32)
         return {"f": f, "pdf": pdf, "wi": fr.to_world(frame, wi_l), "event": event,
                 "eta": eta_t}
+
+    @staticmethod
+    def albedo(params, ctx, it, swl):
+        return spectral_param(ctx, params, "kr", swl, "albedo")
+
+    @staticmethod
+    def roughness(params, ctx, it):
+        return mf.alpha_to_roughness(resolve_alpha(params))

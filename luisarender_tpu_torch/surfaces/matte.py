@@ -29,7 +29,7 @@ class MatteSurface(Surface):
         self.sigma = scene.load_texture(desc.node("sigma"))
 
     def compile(self, compiler) -> dict:
-        return {**self.compile_common(), **compile_tex_params(self, compiler)}
+        return {**self.compile_common(compiler), **compile_tex_params(self, compiler)}
 
     # --- device closure ---
 
@@ -74,7 +74,7 @@ class MatteSurface(Surface):
 
     @staticmethod
     def evaluate(params, ctx, it, swl, wo, wi):
-        frame = oriented_frame(params, it, wo)
+        frame = oriented_frame(params, ctx, it, wo)
         wo_l = fr.to_local(frame, wo)
         wi_l = fr.to_local(frame, wi)
         f, pdf = MatteSurface._f_pdf(params, ctx, swl, wo_l, wi_l)
@@ -83,7 +83,7 @@ class MatteSurface(Surface):
 
     @staticmethod
     def sample(params, ctx, it, swl, wo, u_lobe, u):
-        frame = oriented_frame(params, it, wo)
+        frame = oriented_frame(params, ctx, it, wo)
         wo_l = fr.to_local(frame, wo)
         wi_l = sampling.sample_cosine_hemisphere(u)
         flip = torch.tensor([1.0, 1.0, -1.0], dtype=wi_l.dtype, device=wi_l.device)
@@ -99,3 +99,7 @@ class MatteSurface(Surface):
                                 device=pdf.device),
             "eta": torch.ones_like(pdf),
         }
+
+    @staticmethod
+    def albedo(params, ctx, it, swl):
+        return spectral_param(ctx, params, "kd", swl, "albedo")

@@ -150,7 +150,7 @@ class MetalSurface(Surface):
     def compile(self, compiler) -> dict:
         ld = self.ld
         return {
-            **self.compile_common(),
+            **self.compile_common(compiler),
             **compile_tex_params(self, compiler),
             **roughness_row(self),
             "eta_n": self.n3,
@@ -184,13 +184,21 @@ class MetalSurface(Surface):
     @staticmethod
     def evaluate(params, ctx, it, swl, wo, wi):
         return reflect_evaluate(
-            params, it, wo, wi,
+            params, ctx, it, wo, wi,
             lambda a, b: MetalSurface._eval_local(params, ctx, swl, a, b),
         )
 
     @staticmethod
     def sample(params, ctx, it, swl, wo, u_lobe, u):
         return reflect_sample(
-            params, it, wo, u,
+            params, ctx, it, wo, u,
             lambda a, b: MetalSurface._eval_local(params, ctx, swl, a, b),
         )
+
+    @staticmethod
+    def albedo(params, ctx, it, swl):
+        return MetalSurface._fresnel(params, swl, torch.ones(it.p.shape[:-1], device=it.p.device))
+
+    @staticmethod
+    def roughness(params, ctx, it):
+        return mf.alpha_to_roughness(resolve_alpha(params))

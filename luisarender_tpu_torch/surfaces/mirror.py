@@ -36,10 +36,10 @@ def resolve_alpha(params):
     return torch.where(remap, mf.roughness_to_alpha(r), torch.clamp(r, min=1e-4))
 
 
-def reflect_sample(params, it, wo, u, eval_local):
+def reflect_sample(params, ctx, it, wo, u, eval_local):
     """Shared sample() of the GGX reflectors: reflect wo about a visible
     normal; eval_local(wo_l, wi_l) -> (f, pdf)."""
-    frame = oriented_frame(params, it, wo)
+    frame = oriented_frame(params, ctx, it, wo)
     wo_l = fr.to_local(frame, wo)
     wh = mf.ggx_sample_wh(wo_l, u, resolve_alpha(params))
     wi_l = fr.reflect(wo_l, wh)
@@ -55,8 +55,8 @@ def reflect_sample(params, it, wo, u, eval_local):
     }
 
 
-def reflect_evaluate(params, it, wo, wi, eval_local):
-    frame = oriented_frame(params, it, wo)
+def reflect_evaluate(params, ctx, it, wo, wi, eval_local):
+    frame = oriented_frame(params, ctx, it, wo)
     f, pdf = eval_local(fr.to_local(frame, wo), fr.to_local(frame, wi))
     f, pdf = validate_sides(it, frame, wo, wi, f, pdf)
     return {"f": f, "pdf": pdf}
@@ -91,7 +91,7 @@ class MirrorSurface(Surface):
         self.remap_roughness = desc.bool("remap_roughness", True)
 
     def compile(self, compiler) -> dict:
-        return {**self.compile_common(), **compile_tex_params(self, compiler), **roughness_row(self)}
+        return {**self.compile_common(compiler), **compile_tex_params(self, compiler), **roughness_row(self)}
 
     @staticmethod
     def _eval_local(params, ctx, swl, wo_l, wi_l):
@@ -103,13 +103,21 @@ class MirrorSurface(Surface):
     @staticmethod
     def evaluate(params, ctx, it, swl, wo, wi):
         return reflect_evaluate(
-            params, it, wo, wi,
+            params, ctx, it, wo, wi,
             lambda a, b: MirrorSurface._eval_local(params, ctx, swl, a, b),
         )
 
     @staticmethod
     def sample(params, ctx, it, swl, wo, u_lobe, u):
         return reflect_sample(
-            params, it, wo, u,
+            params, ctx, it, wo, u,
             lambda a, b: MirrorSurface._eval_local(params, ctx, swl, a, b),
         )
+
+    @staticmethod
+    def albedo(params, ctx, it, swl):
+        return spectral_param(ctx, params, "kd", swl, "albedo")
+
+    @staticmethod
+    def roughness(params, ctx, it):
+        return mf.alpha_to_roughness(resolve_alpha(params))

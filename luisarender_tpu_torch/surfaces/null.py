@@ -23,4 +23,4 @@ class NullSurface(Surface):
         return True
 
     def compile(self, compiler) -> dict:
-        return self.compile_common()
+        return self.compile_common(compiler)

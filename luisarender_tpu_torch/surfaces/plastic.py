@@ -19,7 +19,7 @@ from ..core.colorspace import cie_y_of_srgb
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
 from ..textures.base import compile_tex_params, spectral_param
-from .base import EVENT_REFLECT, Surface, validate_sides
+from .base import EVENT_REFLECT, Surface, shading_frame, validate_sides
 from .mirror import resolve_alpha, roughness_row
 
 
@@ -44,7 +44,7 @@ class PlasticSurface(Surface):
         self.remap_roughness = desc.bool("remap_roughness", True)
 
     def compile(self, compiler) -> dict:
-        return {**self.compile_common(), **compile_tex_params(self, compiler), **roughness_row(self)}
+        return {**self.compile_common(compiler), **compile_tex_params(self, compiler), **roughness_row(self)}
 
     @staticmethod
     def _ctx(params, ctx, swl):
@@ -98,7 +98,7 @@ class PlasticSurface(Surface):
 
     @staticmethod
     def evaluate(params, ctx, it, swl, wo, wi):
-        frame = it.shading_frame()
+        frame = shading_frame(params, ctx, it)
         wo_l0 = fr.to_local(frame, wo)
         wo_l = PlasticSurface._flip(wo_l0, wo_l0)
         wi_l = PlasticSurface._flip(wo_l0, fr.to_local(frame, wi))
@@ -109,7 +109,7 @@ class PlasticSurface(Surface):
 
     @staticmethod
     def sample(params, ctx, it, swl, wo, u_lobe, u):
-        frame = it.shading_frame()
+        frame = shading_frame(params, ctx, it)
         wo_l0 = fr.to_local(frame, wo)
         wo_l = PlasticSurface._flip(wo_l0, wo_l0)
         kd, kd_lum, eta, sigma, alpha = PlasticSurface._ctx(params, ctx, swl)
@@ -128,3 +128,11 @@ class PlasticSurface(Surface):
             "event": torch.full(pdf.shape, EVENT_REFLECT, dtype=torch.int32, device=pdf.device),
             "eta": torch.ones_like(pdf),
         }
+
+    @staticmethod
+    def albedo(params, ctx, it, swl):
+        return ctx.spectrum.decode_albedo(params["kd"], swl)
+
+    @staticmethod
+    def roughness(params, ctx, it):
+        return mf.alpha_to_roughness(resolve_alpha(params))

@@ -259,6 +259,118 @@ def cornell_textured(resolution=(48, 48), spp=8, depth=5):
     return d
 
 
+def bumps_png() -> str:
+    """A 64 x 64 tangent-space normal map of a sinusoidal height field
+    (normals * 0.5 + 0.5), baked as a PNG."""
+    yy, xx = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    k = 2.0 * np.pi / 16.0
+    dx = 0.6 * np.cos(xx * k) * np.sin(yy * k)
+    dy = 0.6 * np.sin(xx * k) * np.cos(yy * k)
+    n = np.stack([-dx, -dy, np.ones_like(dx)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return bake_png("bumps", (n * 0.5 + 0.5).astype(np.float32))
+
+
+def _const(v):
+    return {"impl": "constant", "prop": {"v": v}}
+
+
+def _coat():
+    """The coat both blocks wear: absorbing (sigma_a [0.2, 0.4, 0.8],
+    thickness 0.5) and of roughness 0.3 (GGX alpha 0.09, near the 0.1 of
+    Mitsuba's rough coating; a smooth coat, alpha 1e-4, lights the box
+    with fireflies worth ten times its mean at 8 spp)."""
+    return {"sigma_a": _const([0.2, 0.4, 0.8]), "thickness": _const([0.5]),
+            "roughness": _const([0.3])}
+
+
+def cornell_coated(resolution=(512, 512), spp=32, depth=8):
+    """The Cornell box with the surfaces of the layered / mix slice:
+
+    - tall block: a closed-form `layered` coat (`_coat`: sigma_a [0.2,
+      0.4, 0.8], thickness 0.5, roughness 0.3) over gold `metal` of
+      roughness 0.3;
+    - short block: the same coat with the stochastic walk (`max_depth` 10,
+      the default) over an orange `matte`;
+    - back wall: a `mix` of red `matte` and blue `plastic`, its ratio a
+      checkerboard of 0.2 / 0.8 (the wall gets uvs);
+    - floor: white `matte` with a `normal_map`, bumps_png repeated 4 x 4
+      (the floor gets uvs);
+    - an analytic glass sphere whose `eta` is a checkerboard of 1.3 / 1.7,
+      which renders with Cauchy (1.5, 0) as in the reference.
+
+    It has 32 triangles and a sphere, so it traces with the brute-force
+    kernels; mix, layered and the normal map keep it off the fused fork."""
+    d = cornell_box(resolution=resolution, spp=spp, depth=depth)
+    shapes = d["render"]["shapes"]
+    quad_uv = [0.0, 0.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0]
+    floor = shapes[0]["prop"]
+    floor["uvs"] = quad_uv
+    floor["surface"] = {"impl": "matte", "prop": {
+        "Kd": _const(WHITE),
+        "normal_map": {"impl": "image", "prop": {"file": bumps_png(), "uv_scale": [4.0, 4.0]}}}}
+    back = shapes[2]["prop"]
+    back["uvs"] = quad_uv
+    back["surface"] = {"impl": "mix", "prop": {
+        "a": {"impl": "matte", "prop": {"Kd": _const(RED)}},
+        "b": {"impl": "plastic", "prop": {"Kd": _const([0.2, 0.3, 0.7]),
+                                          "roughness": _const([0.2])}},
+        "ratio": {"impl": "checkerboard", "prop": {
+            "on": _const([0.2]), "off": _const([0.8]), "uv_scale": [4.0, 4.0]}}}}
+    shapes[5]["prop"]["surface"] = {"impl": "layered", "prop": {
+        **_coat(), "stochastic": True,
+        "base": {"impl": "matte", "prop": {"Kd": _const([0.8, 0.5, 0.2])}}}}
+    shapes[6]["prop"]["surface"] = {"impl": "layered", "prop": {
+        **_coat(), "base": {"impl": "metal", "prop": {"eta": "Au", "roughness": _const([0.3])}}}}
+    shapes.append({"impl": "sphere", "prop": {
+        "surface": {"impl": "glass", "prop": {"eta": {"impl": "checkerboard", "prop": {
+            "on": _const([1.3]), "off": _const([1.7])}}}},
+        "transform": {"impl": "srt", "prop": {"scale": [75, 75, 75],
+                                              "translate": [420, 80, 130]}}}})
+    return d
+
+
+def motion_blur(resolution=(48, 16), spp=16, depth=2, shutter=True):
+    """The reference's motion-blur scene (tests/test_motion_blur.py): a
+    small emissive quad moving under `lerp` from x = -0.6 to 0.6 over the
+    shutter [0, 1], 6 shutter samples, seen by a pinhole camera at 48 x 16."""
+    move = {"impl": "lerp", "prop": {
+        "transforms": [{"impl": "srt", "prop": {"translate": [-0.6, 0.0, 0.0]}},
+                       {"impl": "srt", "prop": {"translate": [0.6, 0.0, 0.0]}}],
+        "time_points": [0.0, 1.0]}}
+    cam = {"fov": 45.0, "spp": spp, "file": "mb.exr",
+           "film": {"impl": "color", "prop": {"resolution": list(resolution)}},
+           "transform": {"impl": "view", "prop": {"origin": [0, 0, 2.5], "front": [0, 0, -1]}}}
+    if shutter:
+        cam["shutter_span"] = [0.0, 1.0]
+        cam["shutter_samples"] = 6
+    return {"render": {
+        "cameras": [{"impl": "pinhole", "prop": cam}],
+        "integrator": {"impl": "megapath", "prop": {"depth": depth}},
+        "shapes": [{"impl": "inlinemesh", "prop": {
+            "positions": [-0.15, -0.5, 0, 0.15, -0.5, 0, 0.15, 0.5, 0, -0.15, 0.5, 0],
+            "indices": [0, 1, 2, 0, 2, 3],
+            "surface": {"impl": "matte", "prop": {}},
+            "light": {"impl": "diffuse", "prop": {"emission": _const([5.0, 5.0, 5.0])}},
+            "transform": move}}]}}
+
+
+def cornell_motion(resolution=(512, 512), spp=32, depth=8, shutter_samples=6):
+    """The Cornell box with its short block moving under `lerp`: two `srt`
+    keyframes 120 units apart along x at time_points [0, 1], a shutter
+    span [0, 1] and `shutter_samples` buckets. Every surface stays matte,
+    so each bucket renders on the fused fork."""
+    d = cornell_box(resolution=resolution, spp=spp, depth=depth)
+    d["render"]["shapes"][5]["prop"]["transform"] = {"impl": "lerp", "prop": {
+        "transforms": [{"impl": "srt", "prop": {"translate": [0.0, 0.0, 0.0]}},
+                       {"impl": "srt", "prop": {"translate": [120.0, 0.0, 0.0]}}],
+        "time_points": [0.0, 1.0]}}
+    cam = d["render"]["cameras"][0]["prop"]
+    cam["shutter_span"] = [0.0, 1.0]
+    cam["shutter_samples"] = shutter_samples
+    return d
+
+
 def mesh_heavy(res=(1280, 720), spp=4, depth=5, n=5, subdiv=5, accel="auto",
                textured=False):
     """The reference's bedroom-class scene (luisarender_tpu/testing.py

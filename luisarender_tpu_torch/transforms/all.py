@@ -1,8 +1,10 @@
-"""Transform nodes: identity, matrix, srt, view (look-at).
+"""Transform nodes: identity, matrix, srt, view (look-at), stack and lerp.
 
 Counterpart of luisarender_tpu/transforms/all.py. Transforms are host-side:
 `matrix(time)` returns a numpy 4x4 that the scene compiler bakes into
-world-space geometry. Stack and lerp (motion blur) are not ported yet.
+world-space geometry at a shutter time. `lerp` keyframes matrices over
+time (the source of motion blur); `stack` composes transforms, the last
+listed applying first.
 """
 
 from __future__ import annotations
@@ -15,6 +17,10 @@ from ..scene.scene import SceneNode
 
 
 class Transform(SceneNode):
+    @property
+    def is_static(self) -> bool:
+        return True
+
     @property
     def is_identity(self) -> bool:
         return False
@@ -104,3 +110,49 @@ class ViewTransform(Transform):
         m[:3, 2] = -f
         m[:3, 3] = self.position
         return m
+
+
+@register(SceneNodeTag.TRANSFORM, "stack", "Stack")
+class StackTransform(Transform):
+    def __init__(self, scene, desc):
+        super().__init__(scene, desc)
+        self.transforms = [scene.load_transform(t) for t in desc.node_list("transforms")]
+
+    @property
+    def is_static(self):
+        return all(t.is_static for t in self.transforms)
+
+    def matrix(self, time=0.0):
+        m = np.eye(4)
+        # the product in list order: the last listed applies first
+        for t in self.transforms:
+            m = m @ t.matrix(time)
+        return m
+
+
+@register(SceneNodeTag.TRANSFORM, "lerp", "Lerp")
+class LerpTransform(Transform):
+    """Matrices keyframed at `time_points`, interpolated linearly between
+    neighbours and clamped to the first and last outside them."""
+
+    def __init__(self, scene, desc):
+        super().__init__(scene, desc)
+        self.transforms = [scene.load_transform(t) for t in desc.node_list("transforms")]
+        self.time_points = desc.float_list("time_points", None)
+        if self.time_points is None or len(self.time_points) != len(self.transforms):
+            raise ValueError("lerp transform needs matching time_points/transforms")
+
+    @property
+    def is_static(self):
+        return len(self.transforms) <= 1
+
+    def matrix(self, time=0.0):
+        tp = self.time_points
+        if time <= tp[0]:
+            return self.transforms[0].matrix(time)
+        if time >= tp[-1]:
+            return self.transforms[-1].matrix(time)
+        i = int(np.searchsorted(tp, time)) - 1
+        w = (time - tp[i]) / max(tp[i + 1] - tp[i], 1e-12)
+        return (1.0 - w) * self.transforms[i].matrix(time) + w * self.transforms[
+            i + 1].matrix(time)

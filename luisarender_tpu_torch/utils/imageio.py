@@ -185,17 +185,23 @@ def save_png(path, image: np.ndarray):
 
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-# channels a pixel of each 8-bit colour type: grey, RGB, palette, grey-alpha, RGBA
+# samples a pixel of each colour type: grey, RGB, palette, grey-alpha, RGBA
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-def _unfilter(data, h, w, bpp):
+def _unfilter(data, h, stride, bpp):
     """Undo the PNG scanline filters (None, Sub, Up, Average, Paeth) of h
-    rows of w * bpp bytes, each led by its filter byte -> (h, w * bpp)
-    uint8. Sub and Up run vectorized; Average and Paeth, whose bytes
-    depend on the decoded byte before them, byte by byte."""
-    stride = w * bpp
-    rows = np.frombuffer(data, np.uint8)[: h * (stride + 1)].reshape(h, stride + 1)
+    rows of `stride` bytes, each led by its filter byte, bpp the bytes a
+    pixel (at least 1) -> (h, stride) uint8. Sub and Up run vectorized;
+    Average and Paeth, whose bytes depend on the decoded byte before them,
+    byte by byte."""
+    rows = np.frombuffer(data, np.uint8)[: h * (stride + 1)]
+    if rows.shape[0] < h * (stride + 1):
+        raise ValueError("PNG: image data ends early")
+    rows = rows.reshape(h, stride + 1)
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.int64)
     for y in range(h):
@@ -204,7 +210,7 @@ def _unfilter(data, h, w, bpp):
         if ftype == 0:
             cur = line
         elif ftype == 1:
-            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
+            cur = np.cumsum(line.reshape(stride // bpp, bpp), axis=0).reshape(-1) & 0xFF
         elif ftype == 2:
             cur = (line + prev) & 0xFF
         elif ftype in (3, 4):
@@ -230,11 +236,50 @@ def _unfilter(data, h, w, bpp):
     return out
 
 
+def _png_samples(data, h, w, ch, depth):
+    """The filtered rows of an h x w image (data: its rows, each led by a
+    filter byte) -> (h, w, ch) int64 samples at `depth` bits."""
+    stride = (w * ch * depth + 7) // 8
+    rows = _unfilter(data, h, stride, max(1, ch * depth // 8))
+    if depth == 16:
+        v = rows.reshape(h, w * ch, 2).astype(np.int64)
+        return ((v[..., 0] << 8) | v[..., 1]).reshape(h, w, ch)
+    if depth == 8:
+        return rows.astype(np.int64).reshape(h, w, ch)
+    per = 8 // depth
+    shifts = np.asarray([8 - depth * (i + 1) for i in range(per)], np.int64)
+    v = (rows.astype(np.int64)[..., None] >> shifts) & ((1 << depth) - 1)
+    return v.reshape(h, stride * per)[:, : w * ch].reshape(h, w, ch)
+
+
+def _png_pixels(raw, h, w, ch, depth, interlace):
+    """(h, w, ch) samples of the decompressed image data, Adam7's seven
+    passes put in place where the PNG is interlaced."""
+    if not interlace:
+        return _png_samples(raw, h, w, ch, depth)
+    out = np.zeros((h, w, ch), np.int64)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue
+        size = ph * ((pw * ch * depth + 7) // 8 + 1)
+        out[y0::dy, x0::dx] = _png_samples(raw[pos : pos + size], ph, pw, ch, depth)
+        pos += size
+    return out
+
+
 def png_rgba8(path) -> np.ndarray:
-    """An 8-bit PNG file -> (H, W, 4) uint8 RGBA, as Pillow's
-    `Image.open(path).convert("RGBA")` gives it: grey replicated into RGB,
-    a palette's colours and its tRNS alphas, a tRNS colour key of grey or
-    RGB made transparent, alpha 255 elsewhere."""
+    """A PNG file of any bit depth, colour type and interlace -> (H, W, 4)
+    uint8 RGBA, as Pillow 12's `Image.open(path).convert("RGBA")` gives it:
+
+    - grey of 1, 2 or 4 bits scaled to 8 (x255, x85, x17), replicated into
+      RGB; 16-bit grey clamped to 255 (Pillow opens it as I;16);
+    - 16-bit RGB, RGBA and grey-alpha reduced to their high bytes;
+    - a palette's colours and its tRNS alphas (indices of 1-8 bits);
+    - a tRNS colour key of grey or RGB made transparent where the 8-bit
+      pixel equals it: a 1-bit key scaled by 255, a 16-bit key's low byte;
+      alpha 255 elsewhere."""
     data = Path(path).read_bytes()
     if data[:8] != _PNG_MAGIC:
         raise ValueError(f"{path}: not a PNG file")
@@ -260,14 +305,10 @@ def png_rgba8(path) -> np.ndarray:
     if ihdr is None:
         raise ValueError(f"{path}: PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if ctype not in _PNG_CHANNELS:
-        raise ValueError(f"{path}: PNG colour type {ctype}")
-    if depth != 8:
-        raise NotImplementedError(f"{path}: {depth}-bit PNG (only 8-bit is decoded)")
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNG")
+    if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16):
+        raise ValueError(f"{path}: PNG colour type {ctype} at {depth} bits")
     ch = _PNG_CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch).reshape(h, w, ch)
+    px = _png_pixels(zlib.decompress(b"".join(idat)), h, w, ch, depth, interlace)
     out = np.full((h, w, 4), 255, np.uint8)
     if ctype == 3:
         if palette is None:
@@ -276,21 +317,31 @@ def png_rgba8(path) -> np.ndarray:
         if trns is not None:
             t = np.frombuffer(trns, np.uint8)[: palette.shape[0]]
             alpha[: t.shape[0]] = t
-        idx = px[..., 0]
-        out[..., :3] = palette[np.minimum(idx, palette.shape[0] - 1)]
-        out[..., 3] = alpha[np.minimum(idx, palette.shape[0] - 1)]
-    elif ctype in (0, 4):
-        out[..., :3] = px[..., :1]
+        idx = np.minimum(px[..., 0], palette.shape[0] - 1)
+        out[..., :3] = palette[idx]
+        out[..., 3] = alpha[idx]
+        return out
+    if depth == 16:
+        # grey opens as I;16 and clamps; the other types keep the high byte
+        px8 = np.minimum(px, 255) if ctype == 0 else px >> 8
+    elif depth < 8:
+        px8 = px * (255 // ((1 << depth) - 1))
+    else:
+        px8 = px
+    if ctype in (0, 4):
+        out[..., :3] = px8[..., :1]
         if ctype == 4:
-            out[..., 3] = px[..., 1]
+            out[..., 3] = px8[..., 1]
         elif trns is not None:
             key = struct.unpack(">H", trns[:2])[0]
-            out[..., 3] = np.where(px[..., 0] == key, 0, 255)
-    else:
-        out[..., : ch] = px
-        if ctype == 2 and trns is not None:
-            key = np.asarray(struct.unpack(">HHH", trns[:6]))
-            out[..., 3] = np.where(np.all(px == key, axis=-1), 0, 255)
+            key = key * 255 if depth == 1 else key & 0xFF if depth == 16 else key
+            out[..., 3] = np.where(px8[..., 0] == key, 0, 255)
+        return out
+    out[..., :ch] = px8
+    if ctype == 2 and trns is not None:
+        key = np.asarray(struct.unpack(">HHH", trns[:6]))
+        key = key & 0xFF if depth == 16 else key
+        out[..., 3] = np.where(np.all(px8 == key, axis=-1), 0, 255)
     return out
 
 

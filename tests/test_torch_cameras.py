@@ -260,7 +260,7 @@ def test_megawave_renders_ray_input_scenes_a_sample_a_launch(monkeypatch):
 def test_scenes_load_and_route():
     """Every new camera, filter and clip plane loads; a clipped pinhole and
     any other camera or filter leave the in-kernel camera; a shutter span
-    still raises."""
+    loads with the reference's span and bucket weights."""
     for camera, props in (("thinlens", THINLENS), ("ortho", ORTHO)):
         for filt in FILTERS:
             scene = lt.Scene.from_dict(_cornell(camera, props, filt))
@@ -269,5 +269,9 @@ def test_scenes_load_and_route():
     assert scene.cameras[0].clip_plane == (10.0, 1e10)
     assert tfused.camgen_params(scene.cameras[0], 0) is None
     assert tfused.camgen_params(lt.Scene.from_dict(_cornell()).cameras[0], 0) is not None
-    with pytest.raises(NotImplementedError, match="shutter_span"):
-        lt.Scene.from_dict(_cornell(cam_props={"shutter_span": [0.0, 1.0]}))
+    shutter = _cornell(cam_props={"shutter_span": [0.0, 1.0], "shutter_samples": 6})
+    cam = lt.Scene.from_dict(shutter).cameras[0]
+    jcam = lr.Scene.from_dict(shutter).cameras[0]
+    assert cam.shutter_span == jcam.shutter_span == (0.0, 1.0) and cam.shutter_samples == 6
+    np.testing.assert_array_equal(np.asarray(cam.shutter_weights(6)),
+                                  np.asarray(jcam.shutter_weights(6)))

@@ -7,8 +7,11 @@ shapes/loop_subdiv.py) against the JAX package, on the CPU.
 (a) load_image bit for bit against the reference's (which decodes PNG
     through Pillow): PNGs written by save_png, by Pillow in each 8-bit mode,
     and by hand with each scanline filter in each colour type; EXR, PFM,
-    Radiance HDR (flat and run-length) and NPY. 16-bit and interlaced PNGs
-    raise NotImplementedError.
+    Radiance HDR (flat and run-length) and NPY. Every PNG form Pillow's
+    convert("RGBA") takes, written by hand (1-, 2-, 4-, 8- and 16-bit grey,
+    8- and 16-bit RGB, RGBA and grey-alpha, 1- to 8-bit palettes, each
+    plain and Adam7-interlaced, with and without tRNS), decodes byte-equal
+    to Pillow's RGBA.
 (b) the atlas, its rects and its mip table exactly equal, on images of odd
     sizes, one file used by two textures and a `gamma` copy.
 (c) ImageTexture.evaluate_rows on seeded uvs and footprints, every wrap,
@@ -91,21 +94,55 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def _png(path, px, ctype, filters, palette=None, trns=None, depth=8, interlace=0):
-    """A PNG written by hand: px (H, W, C) uint8, each row filtered with
-    filters[y % len(filters)] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _pack_rows(px, depth):
+    """Samples (H, W, C) at `depth` bits -> (H, row bytes) uint8, MSB first."""
     h, w, c = px.shape
-    rows = px.reshape(h, w * c).astype(np.int64)
+    flat = px.reshape(h, w * c).astype(np.int64)
+    if depth == 16:
+        out = np.zeros((h, w * c * 2), np.uint8)
+        out[:, 0::2], out[:, 1::2] = flat >> 8, flat & 0xFF
+        return out
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    nb = (w * c + per - 1) // per
+    pad = np.zeros((h, nb * per), np.int64)
+    pad[:, : w * c] = flat
+    shifts = np.asarray([8 - depth * (i + 1) for i in range(per)])
+    return (pad.reshape(h, nb, per) << shifts).sum(-1).astype(np.uint8)
+
+
+def _filter_rows(rows, bpp, filters):
     raw = b""
-    prev = np.zeros(w * c, np.int64)
-    for y in range(h):
+    prev = np.zeros(rows.shape[1], np.int64)
+    for y in range(rows.shape[0]):
         f = filters[y % len(filters)]
-        cur = rows[y]
-        left = np.concatenate([np.zeros(c, np.int64), cur[:-c]])
-        upleft = np.concatenate([np.zeros(c, np.int64), prev[:-c]])
+        cur = rows[y].astype(np.int64)
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
         pred = [0, left, prev, (left + prev) >> 1, _paeth(left, prev, upleft)][f]
         raw += bytes([f]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes()
         prev = cur
+    return raw
+
+
+def _png(path, px, ctype, filters, palette=None, trns=None, depth=8, interlace=0):
+    """A PNG written by hand: px (H, W, C) samples at `depth` bits, each row
+    filtered with filters[y % len(filters)] (0 None, 1 Sub, 2 Up, 3
+    Average, 4 Paeth), Adam7's seven passes filtered apart where
+    interlace=1."""
+    h, w, c = px.shape
+    bpp = max(1, c * depth // 8)
+    if interlace:
+        raw = b"".join(_filter_rows(_pack_rows(px[y0::dy, x0::dx], depth), bpp, filters)
+                       for x0, y0, dx, dy in _ADAM7
+                       if px[y0::dy, x0::dx].shape[0] and px[y0::dy, x0::dx].shape[1])
+    else:
+        raw = _filter_rows(_pack_rows(px, depth), bpp, filters)
 
     def chunk(tag, payload):
         return (struct.pack(">I", len(payload)) + tag + payload
@@ -180,17 +217,79 @@ def test_pillow_pngs_load_like_the_reference(tmp_path, mode):
 
 
 def test_save_png_files_and_refusals(tmp_path):
+    """save_png's files, and the two forms the port's decoder once refused
+    (a 16-bit and an interlaced PNG), load like the reference's."""
     rs = np.random.default_rng(4)
     for c in (1, 3, 4):
         tio.save_png(tmp_path / f"s{c}.png", rs.uniform(0, 1, (9, 14, c)).astype(np.float32))
         out = _same_load(tmp_path / f"s{c}.png")
         assert out.shape == (9, 14, 4)
     px = _noise(4, 4, 3, seed=1)
-    with pytest.raises(NotImplementedError, match="interlaced"):
-        tio.load_image(_png(tmp_path / "i.png", px, 2, [0], interlace=1))
-    raw16 = np.repeat(px, 2, axis=-1)
-    with pytest.raises(NotImplementedError, match="16-bit"):
-        tio.load_image(_png(tmp_path / "d.png", raw16, 2, [0], depth=16))
+    _same_load(_png(tmp_path / "i.png", px, 2, [0], interlace=1))
+    raw16 = px.astype(np.int64) * 257 + np.arange(3)
+    _same_load(_png(tmp_path / "d.png", raw16, 2, [0], depth=16))
+
+
+# (colour type, bit depth) of every form; grey and palette at every depth
+PNG_FORMS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2),
+             (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+def _form_case(ctype, depth, trns, seed):
+    """Samples of a 13 x 11 image at the form's depth (16-bit grey partly
+    below 256, where Pillow's clamp leaves it), its palette and a tRNS
+    chunk: a palette's alphas, or the colour key of the first pixel."""
+    rs = np.random.default_rng(seed)
+    c = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    px = rs.integers(0, 1 << depth, (13, 11, c))
+    if ctype == 0 and depth == 16:
+        px[::2] = rs.integers(0, 300, px[::2].shape)
+    palette = rs.integers(0, 256, (1 << depth, 3)) if ctype == 3 else None
+    key = None
+    if trns and ctype == 3:
+        key = bytes(rs.integers(0, 256, min(5, 1 << depth)).astype(np.uint8))
+    elif trns:
+        key = struct.pack(">" + "H" * c, *(int(v) for v in px[0, 0]))
+    return px, palette, key
+
+
+# every form plain and interlaced, with a tRNS chunk where the form allows one
+PNG_CASES = [(c, d, i, t) for c, d in PNG_FORMS for i in (0, 1)
+             for t in ((False,) if c in (4, 6) else (False, True))]
+
+
+@pytest.mark.parametrize("ctype,depth,interlace,trns", PNG_CASES,
+                         ids=[f"type{c}_{d}bit{'_adam7' if i else ''}{'_trns' if t else ''}"
+                              for c, d, i, t in PNG_CASES])
+def test_png_forms_load_like_pillow(tmp_path, ctype, depth, interlace, trns):
+    """Every PNG form, rows filtered with all five filters in turn: the
+    port's RGBA byte-equal to Pillow's convert("RGBA"), and load_image to
+    the reference's. Pillow's rules, not the specification's: 16-bit grey
+    clamps to 255, the other 16-bit types keep their high byte, a 2- or
+    4-bit grey key never matches its scaled grey."""
+    px, palette, key = _form_case(ctype, depth, trns, seed=10 * ctype + depth)
+    path = _png(tmp_path / "f.png", px, ctype, [0, 1, 2, 3, 4], palette=palette,
+                trns=key, depth=depth, interlace=interlace)
+    ref = np.asarray(Image.open(path).convert("RGBA"))
+    got = tio.png_rgba8(path)
+    assert got.dtype == np.uint8 and got.shape == ref.shape == (13, 11, 4)
+    np.testing.assert_array_equal(got, ref)
+    _same_load(path)
+
+
+def test_png_sixteen_bit_traps():
+    """The two 16-bit traps on exact values: grey 0, 255, 256, 1000, 65535
+    -> 0, 255, 255, 255, 255 (clamped); RGB 256, 1000, 65535 -> 1, 3, 255
+    (the high byte)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        grey = np.asarray([0, 255, 256, 1000, 65535]).reshape(1, 5, 1)
+        got = tio.png_rgba8(_png(Path(d) / "g.png", grey, 0, [0], depth=16))
+        np.testing.assert_array_equal(got[0, :, 0], [0, 255, 255, 255, 255])
+        rgb = np.repeat(np.asarray([256, 1000, 65535]).reshape(1, 3, 1), 3, axis=-1)
+        got = tio.png_rgba8(_png(Path(d) / "c.png", rgb, 2, [0], depth=16))
+        np.testing.assert_array_equal(got[0, :, 0], [1, 3, 255])
 
 
 def _hdr_bytes(rgbe, rle):

@@ -1161,3 +1161,66 @@ def test_two_level_composition_matches_plain_walk(cuda, tmp_path, grouped):
     for trace in (twolevel.trace_closest_2l_cluster, twolevel.trace_any_2l_cluster):
         with pytest.raises(RuntimeError, match="malformed cluster tree"):
             trace(bad, rays)
+
+
+def _coated_inputs(cuda):
+    """The brute kernels' inputs of the first sample of testing.cornell_coated
+    (mix, layered and normal-mapped surfaces; 32 rows and a glass sphere) at
+    256^2 on the general fork: each bounce's closest and shadow rays, the
+    trace module's calls recorded."""
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.integrators.mega_path import general_path_trace_batch, pixel_grid
+
+    scene = lt.Scene.from_dict(testing.cornell_coated(resolution=(256, 256), spp=1, depth=4))
+    compiled = lt.compile_scene(scene, device=cuda)
+    assert not compiled.plan.fused_path and compiled.plan.any_normal_maps
+    captured = {"closest": [], "any": []}
+    orig = brute.closest, brute.any_hit
+
+    def rec(kind, fn):
+        def call(*args):
+            captured[kind].append(tuple(a.clone() for a in args))
+            return fn(*args)
+        return call
+
+    brute.closest, brute.any_hit = rec("closest", orig[0]), rec("any", orig[1])
+    try:
+        integ = scene.integrator
+        general_path_trace_batch(compiled, scene.cameras[0], integ.sampler, integ.light_sampler,
+                                 pixel_grid(256, 256, cuda), 0, max_depth=4,
+                                 rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
+    finally:
+        brute.closest, brute.any_hit = orig
+    assert captured["closest"] and captured["any"]
+    return captured
+
+
+def test_coated_cornell_inputs_match_plain(cuda):
+    """The brute kernels on every input of the coated Cornell box's first
+    sample, bit for bit against their plain versions."""
+    cap = _coated_inputs(cuda)
+    for args in cap["closest"]:
+        _assert_same(brute.closest(*args), brute.closest_plain(*args))
+    for args in cap["any"]:
+        assert torch.equal(brute.any_hit(*args), brute.any_plain(*args))
+
+
+def test_fused_kernel_on_a_motion_blur_bucket(cuda):
+    """The fused kernel on one shutter bucket of testing.cornell_motion (the
+    short block moved to its place at t = 0.4, the camera posed at that
+    time), every lane bit-equal with the plain version."""
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+    from luisarender_tpu_torch.ops import fused_path
+
+    scene = lt.Scene.from_dict(testing.cornell_motion(resolution=(128, 128), spp=1))
+    t = float(scene.cameras[0].shutter_weights(6)[0][2])
+    compiled = lt.compile_scene(scene, device=cuda, time=t)
+    assert compiled.plan.fused_path
+    cam = fused_path.camgen_params(scene.cameras[0], scene.integrator.sampler.seed, time=t)
+    kw = dict(max_depth=8, rr_depth=0, rr_threshold=0.95)
+    rgb, _ = _equal_to_plain(fused_path, fused_path.fused_tables(compiled), cam,
+                             pixel_grid(128, 128, cuda), 1, 0, kw)
+    assert torch.isfinite(rgb).all() and rgb.mean().item() > 0.0

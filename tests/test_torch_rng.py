@@ -79,3 +79,23 @@ def test_uniform_u32_to_float_bit_exact():
     got = trng.uniform_u32_to_float(_t(w))
     np.testing.assert_array_equal(_bits_f32(got.numpy()), _bits_f32(ref))
     assert float(got.max()) == trng.ONE_MINUS_EPSILON
+
+
+@pytest.mark.parametrize("fn", ["pcg", "pcg2d", "pcg3d", "pcg3d_counter"])
+def test_pcg_hashes_bit_exact(fn):
+    """pcg, pcg2d and pcg3d on random words; `pcg3d_counter` is the layered
+    walk's draw, pcg3d(seed, k + 1, seed ^ 0x9E3779B9) with an int counter."""
+    words = [_words(4096, seed=20 + k) for k in range(3)]
+    if fn == "pcg3d_counter":
+        ref = jrng.pcg3d(jnp.asarray(words[0]), jnp.uint32(3),
+                         jnp.asarray(words[0]) ^ np.uint32(0x9E3779B9))
+        got = trng.pcg3d(_t(words[0]), 3, _t(words[0]) ^ 0x9E3779B9)
+    else:
+        k = {"pcg": 1, "pcg2d": 2, "pcg3d": 3}[fn]
+        ref = getattr(jrng, fn)(*[jnp.asarray(w) for w in words[:k]])
+        got = getattr(trng, fn)(*[_t(w) for w in words[:k]])
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(_bits_u32(g.numpy()), _bits_u32(r))
