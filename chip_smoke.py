@@ -228,6 +228,35 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              and the fused kernel on one bucket bit for bit; a checkpoint
              interrupted after 4 of 8 spp at 64^2 and resumed, bit for bit
              the whole render
+ 11 samplers the five low-discrepancy samplers (phase_samplers): the Sobol
+             direction table's first build (1,024 dimensions) timed; each
+             sampler's testing.cornell_box (32^2, 4 spp, depth 4, the general
+             fork, brute kernels once a bounce) against
+             tests/golden/cornell_<impl>_32_4spp.exr; scenes/cornell.json
+             (512^2, depth 8, spp cut from 256 to SAMPLER_SPP) under zsobol
+             and pmj02bn with the records of phase 8 beside phase 8's
+             independent render of it on the general fork; the brute kernels
+             on one zsobol sample's 16 inputs bit for bit against their
+             plain versions; each sampler's device ops and ms of start, a 1D
+             and a 2D draw on 512^2 lanes; each sampler's states and draws
+             on the card bit-equal with the CPU's
+ 12 wavefront the wavepath integrator (phase_wavefront): bench.py's Cornell
+             configuration (1024^2, 4 spp, depth 5) on the fused pool, one
+             persistent launch a tile and nothing else, the kernel on the
+             tile's first WAVE_HELD_LANES lanes bit for bit against its plain
+             version, the image bit-equal with megawave's, also in tiles of
+             WAVE_SMALL_TILE pixels; bench.py's mesh
+             configuration (testing.mesh_heavy flat, 4 spp, depth 5,
+             state_count 2^20: one tile of 921,600 slots) on the general
+             pool with the cluster kernels once an iteration each, its
+             iterations, refills and host reads, against phase 4's megapath
+             image by the goldens' rule; seconds and Mpaths/s of both; the
+             wavepath golden (32^2, 8 spp, a pool of 256) on the general pool
+             by the rule, on the fused pool by its mean and each sample
+             against the general fork by the rule of phase 3
+ 13 display  testing.cornell_box 64^2 with the display film (aces, served on
+             port 0): /, /frame.png and /stats.json from 127.0.0.1, the
+             preview PNG in a temporary directory, a preview a pass
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -501,6 +530,21 @@ def compare_case(torch, brute, kind, args):
     check(err == 0.0, f"any: occlusion differs from the plain version "
                       f"on {int((occ_k != occ_p).sum())} lanes")
     return [err], float(occ_k.float().mean())
+
+
+def hold_brute_inputs(torch, brute, cap):
+    """The brute kernels on captured inputs (capture_main_path_inputs), bit
+    for bit against their plain versions; device ms of each input."""
+    kern = {}
+    for kind in ("closest", "any"):
+        fn_k = brute.closest if kind == "closest" else brute.any_hit
+        errs, ms = [], []
+        for args in cap[kind]:
+            errs.append(max(compare_case(torch, brute, kind, args)[0]))
+            ms.append(device_ms(torch, lambda: fn_k(*args), iters=20))
+        kern[kind] = {"inputs": len(cap[kind]), "max_abs_err": max(errs), "ms": ms,
+                      "sample_ms": sum(ms)}
+    return kern
 
 
 def random_case(torch, device, p, n, seed):
@@ -1925,6 +1969,8 @@ def phase_main(torch, lt, brute, fp, device, flat_trace):
     emit(recs["mesh_heavy"])
     recs.update(phase_routes(torch, lt, brute, fp, device, img))
     recs.update(phase_twolevel(torch, lt, brute, fp, device, img, recs["mesh_heavy"], flat_trace))
+    # the wavefront phase holds its mesh-heavy image against this one
+    recs["mesh_heavy_image"] = img
     return recs
 
 
@@ -2416,7 +2462,8 @@ def spectral_render(torch, lt, brute, fp, scene, device, what, trace_key, no_fus
     cam, integ = scene.cameras[0], scene.integrator
     w, h = cam.film.resolution
     compiled, compile_seconds = timed_compile(torch, lt, scene, device)
-    check(not compiled.plan.fused_path or no_fused, f"{what}: compiled for the fused fork")
+    check(not fp.use_fused(compiled, integ.sampler, integ.light_sampler) or no_fused,
+          f"{what}: takes the fused fork")
     if no_fused:
         os.environ["LUISARENDER_TPU_NO_FUSED"] = "1"
     try:
@@ -2450,12 +2497,9 @@ def spectral_render(torch, lt, brute, fp, scene, device, what, trace_key, no_fus
 
 
 def spectrum_ops(torch, compiled, n, device):
-    """The spectrum layer's operations on n lanes, each timed alone: the
-    profiler's device ms a call (None where it traces no device work) and
-    the CUDA events' ms a call, host dispatch included. The coefficient
-    decodes read the scene's first matte and light rows."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The spectrum layer's operations on n lanes, each timed alone
+    (call_ops). The coefficient decodes read the scene's first matte and
+    light rows."""
     spec = compiled.spectrum
     gen = torch.Generator(device=device).manual_seed(5)
     u = torch.rand((n, 1), device=device, generator=gen)
@@ -2475,20 +2519,7 @@ def spectrum_ops(torch, compiled, n, device):
         "decode_illuminant_per_ray": lambda: spec.decode_illuminant(rgb, swl),
         "srgb": lambda: spec.srgb(vals, swl),
     }
-    out = {}
-    for name, fn in fns.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fn()
-            torch.cuda.synchronize()
-        evts = device_events(prof)
-        busy = sum(e.device_time_total for e in evts) / 10 / 1e3
-        out[name] = {"device_ms": busy or None,
-                     "device_ops": sum(e.count for e in evts) / 10 if busy else None,
-                     "events_ms": events_ms(torch, fn, 10)}
-    return out
+    return call_ops(torch, fns)
 
 
 def ratio(a, b):
@@ -2805,7 +2836,7 @@ def phase_textures(torch, lt, brute, fp, device, main_recs):
 LUISA_SCENE = ROOT / "scenes" / "cornell.luisa"
 # the coated and motion-blur Cornell boxes' spp, cut from 256 as the other
 # general-fork renders are cut
-COATED_SPP = 32
+COATED_SPP = 8
 MOTION_SPP = 32
 MOTION_BUCKETS = 6
 # the motion-blur bucket whose fused launch is held against the plain version
@@ -2957,14 +2988,7 @@ def phase_surfaces(torch, lt, brute, fp, device):
           and float(glass["cauchy_a"][0]) == 1.5 and float(glass["cauchy_b"][0]) == 0.0,
           f"coated cornell: types {names}, plan {compiled.plan.any_normal_maps}")
     cap = capture_main_path_inputs(torch, brute, compiled, scene, max_depth=4)
-    kern = {}
-    for kind in ("closest", "any"):
-        fn_k = brute.closest if kind == "closest" else brute.any_hit
-        errs, ms = [], []
-        for args in cap[kind]:
-            errs.append(max(compare_case(torch, brute, kind, args)[0]))
-            ms.append(device_ms(torch, lambda: fn_k(*args), iters=20))
-        kern[kind] = {"inputs": len(cap[kind]), "max_abs_err": max(errs), "ms": ms}
+    kern = hold_brute_inputs(torch, brute, cap)
     del cap, compiled
     rec.update({"phase": "surfaces", "surface_types": names, "cut": {"spp": [256, COATED_SPP]},
                 "kernels": kern})
@@ -3056,6 +3080,380 @@ def phase_surfaces(torch, lt, brute, fp, device):
     return recs
 
 
+# --------------------------------------------------------------------------
+# phase 11: the low-discrepancy samplers
+# --------------------------------------------------------------------------
+
+SAMPLERS = ("paddedsobol", "sobol", "zsobol", "pmj02bn", "tileshared")
+SAMPLER_GOLDEN = ROOT / "tests" / "golden" / "cornell_{}_32_4spp.exr"
+# scenes/cornell.json's spp under a low-discrepancy sampler, cut from 256 as
+# the other general-fork renders are cut
+SAMPLER_SPP = 32
+# the draws a bounce takes (integrators/common.py bounce_step): u_sel,
+# u_light, u_lobe, u_bsdf, u_rr
+BOUNCE_DRAWS = ("1d", "2d", "1d", "2d", "1d")
+
+
+def call_ops(torch, fns, iters=10):
+    """Each fn of fns timed alone: the profiler's device ms and device ops a
+    call (None where it traces no device work) and the CUDA events' ms a
+    call, host dispatch included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evts = device_events(prof)
+        busy = sum(e.device_time_total for e in evts) / iters / 1e3
+        out[name] = {"device_ms": busy or None,
+                     "device_ops": sum(e.count for e in evts) / iters if busy else None,
+                     "events_ms": events_ms(torch, fn, iters)}
+    return out
+
+
+def sampler_draws(sampler, pxy, sample_index):
+    """A path's state and draws: start, the filter's 2D draw, one bounce's
+    (BOUNCE_DRAWS); returns (state, [draws])."""
+    state = sampler.start(pxy, sample_index)
+    state, u = sampler.generate_pixel_2d(state)
+    draws = [u]
+    for op in BOUNCE_DRAWS:
+        state, u = getattr(sampler, "generate_" + op)(state)
+        draws.append(u)
+    return state, draws
+
+
+def phase_samplers(torch, lt, brute, fp, device, spectral):
+    """The five low-discrepancy samplers (samplers/lds.py), on the general
+    fork with the brute kernels: (i) the Sobol direction table's first
+    build (1,024 dimensions, core/sobolgen.py) timed; (ii) each sampler's
+    Cornell box (32^2, 4 spp, depth 4) against its golden; (iii)
+    scenes/cornell.json (512^2, depth 8, spp cut to SAMPLER_SPP) under
+    zsobol and pmj02bn through render, both brute kernels once a bounce and
+    nothing else, with the records of phase 8 beside phase 8's independent
+    render of the same scene on the general fork; (iv) the brute kernels on
+    one zsobol sample's 16 inputs bit for bit against their plain versions;
+    (v) each sampler's device ops and ms a call on 512^2 lanes; (vi) each
+    sampler's states and draws on the card bit-equal with the same draws on
+    the CPU (256^2 pixels, two sample indices)."""
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.core import cache, sobolgen
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+
+    recs = {}
+    # (i) the Sobol table: its first build on this machine's host
+    path = cache.table_path("sobol_matrices_1024_20180813_jk64", ("sobolgen.py",))
+    cached = path.exists()
+    t0 = time.perf_counter()
+    table = sobolgen.sobol_matrices(1024)
+    recs["sobol_table"] = {"phase": "samplers", "what": "sobol_matrices(1024)",
+                           "seconds": time.perf_counter() - t0, "was_cached": cached,
+                           "shape": list(table.shape)}
+    emit(recs["sobol_table"])
+
+    # (ii) the goldens
+    goldens = {}
+    for impl in SAMPLERS:
+        scene = lt.Scene.from_dict(testing.with_sampler(
+            testing.cornell_box(resolution=(32, 32), spp=4, depth=4), impl))
+        img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+        integ = scene.integrator
+        check(integ.fused_passes == 0 and counts["brute_closest"] == integ.bounces_run > 0,
+              f"{impl} golden: fused passes {integ.fused_passes}, launches {counts}")
+        goldens[impl] = {"seconds": seconds, **golden_check(
+            img, str(SAMPLER_GOLDEN).format(impl), 32, 32, f"{impl} golden")}
+    recs["goldens"] = {"phase": "samplers", "what": "cornell_box 32^2, 4 spp, depth 4",
+                       **goldens}
+    emit(recs["goldens"])
+
+    # (iii) the 512^2 Cornell box under zsobol and pmj02bn
+    for impl in ("zsobol", "pmj02bn"):
+        scene = lt.Scene.from_dict(
+            testing.with_sampler(spectral_dict(MAIN_SCENE, spp=SAMPLER_SPP), impl))
+        rec, _ = spectral_render(torch, lt, brute, fp, scene, device,
+                                 f"scenes/cornell.json, {impl}", "brute")
+        indep = spectral["cornell_srgb"]
+        rec.update({"phase": "samplers", "sampler": impl, "cut": {"spp": [256, SAMPLER_SPP]},
+                    "independent": {k: indep[k] for k in ("seconds", "rays", "mray_per_s")},
+                    "independent_profile_one_sample": indep["profile_one_sample"]})
+        recs[impl] = rec
+        emit(rec)
+
+    # (iv) the brute kernels on one zsobol sample's inputs
+    scene = lt.Scene.from_dict(testing.with_sampler(spectral_dict(MAIN_SCENE), "zsobol"))
+    compiled = lt.compile_scene(scene, device=device)
+    cap = capture_main_path_inputs(torch, brute, compiled, scene,
+                                   max_depth=scene.integrator.max_depth)
+    recs["kernels"] = {"phase": "samplers", "what": "brute kernels on one zsobol sample",
+                       "n": 512 * 512, **hold_brute_inputs(torch, brute, cap)}
+    del cap, compiled
+    emit(recs["kernels"])
+
+    # (v) device ops and ms a call on 512^2 lanes; (vi) card against CPU
+    pxy = pixel_grid(512, 512, device)
+    small = pixel_grid(256, 256, device)
+    ops, same = {}, {}
+    for impl in ("independent",) + SAMPLERS:
+        sampler = lt.Scene.from_dict(testing.with_sampler(
+            testing.cornell_box(resolution=(8, 8), spp=1), impl)).integrator.sampler
+        st = sampler.start(pxy, 3)
+        ops[impl] = call_ops(torch, {
+            "start": lambda: sampler.start(pxy, 3),
+            "generate_1d": lambda: sampler.generate_1d(st),
+            "generate_2d": lambda: sampler.generate_2d(st)})
+        ops[impl]["ops_per_draw_2d"] = ratio(ops[impl]["generate_2d"]["device_ops"], 2)
+        if impl == "independent":
+            continue
+        for si in (0, 5):
+            s_k, d_k = sampler_draws(sampler, small, si)
+            s_c, d_c = sampler_draws(sampler, small.cpu(), si)
+            equal = (all(a.device.type == "cuda" and torch.equal(a.cpu(), b)
+                         for a, b in zip(d_k, d_c))
+                     and all(torch.equal(s_k[k].cpu(), s_c[k]) for k in s_c))
+            check(equal, f"{impl}: the card's draws differ from the CPU's at sample {si}")
+        same[impl] = True
+    recs["draws"] = {"phase": "samplers", "what": "sampler calls on 512^2 lanes",
+                     "ops": ops, "card_equals_cpu_256sq": same}
+    emit(recs["draws"])
+    return recs
+
+
+# --------------------------------------------------------------------------
+# phase 12: the wavefront integrator
+# --------------------------------------------------------------------------
+
+WAVE_GOLDEN = ROOT / "tests" / "golden" / "wavepath_32_8spp.exr"
+# bench.py's Cornell configuration (cornell_1024_wavefront_paths)
+WAVE_CORNELL = dict(resolution=(1024, 1024), spp=4, depth=5)
+# the persistent kernel's lanes held against its plain version
+WAVE_HELD_LANES = 65_536
+# a pool a quarter of the image: four tiles, three starting past pixel 0
+WAVE_SMALL_TILE = 1 << 18
+
+
+def wave_render(torch, lt, brute, fp, scene, device, what):
+    """render() with the counts read around it; the record's seconds,
+    paths and Mpaths/s, and the pool's counters."""
+    cam, integ = scene.cameras[0], scene.integrator
+    w, h = cam.film.resolution
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    check_image(img, w, h, what)
+    paths = w * h * cam.spp
+    rec = {"phase": "wavefront", "scene": what, "resolution": [w, h], "spp": cam.spp,
+           "depth": integ.max_depth, "state_count": integ.state_count,
+           "seconds": seconds, "paths": paths, "mpaths_per_s": paths / seconds / 1e6,
+           "rays": integ.rays_traced, "mray_per_s": integ.rays_traced / seconds / 1e6,
+           "iterations": integ.iterations_run, "refills": integ.refills,
+           "host_reads": integ.host_reads, "persistent_launches": integ.fused_passes,
+           "launches": counts, "image_mean": float(img.mean())}
+    return rec, img
+
+
+def phase_wavefront(torch, lt, brute, fp, device, main_recs):
+    """The wavepath integrator (integrators/wave_path.py): (i) bench.py's
+    Cornell configuration (testing.cornell_box 1024^2, 4 spp, depth 5) on
+    the fused pool, one persistent launch a tile and nothing else, the
+    kernel on the tile's first WAVE_HELD_LANES lanes bit for bit against its
+    plain version (its counters' traced lanes equal to the plain version's
+    rays), the image bit-equal with megawave's (samples_per_pass 4: one
+    launch of the same lanes), and so with a pool of WAVE_SMALL_TILE (four
+    tiles); (ii) bench.py's mesh configuration
+    (testing.mesh_heavy 1280 x 720, 4 spp, depth 5, flat, state_count 2^20:
+    one tile of 921,600 slots) on the general pool, the cluster kernels once
+    an iteration each and nothing else, its image against phase 4's megapath
+    render by the goldens' rule; (iii) the wavepath golden (32^2, 8 spp, a
+    pool of 256) on the general pool by the rule and on the fused pool by
+    its mean, its samples against the general fork's by the rule of phase
+    3."""
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.integrators.mega_path import (
+        general_path_trace_batch, path_trace_batch, pixel_grid,
+    )
+    from luisarender_tpu_torch.utils import imageio
+
+    recs = {}
+    # (i) the fused pool on bench.py's Cornell box
+    scene = lt.Scene.from_dict(testing.cornell_box(**WAVE_CORNELL, integrator="wavepath"))
+    rec, img = wave_render(torch, lt, brute, fp, scene, device, "testing.cornell_box wavepath")
+    w, h = WAVE_CORNELL["resolution"]
+    tiles = -(-w * h // scene.integrator.state_count)
+    others = {k: v for k, v in rec["launches"].items() if k != "fused_path_persistent"}
+    check(rec["launches"]["fused_path_persistent"] == rec["persistent_launches"] == tiles
+          and rec["iterations"] == 0 and not any(others.values()),
+          f"wavepath cornell: launches {rec['launches']}, tiles {tiles}")
+    mega = lt.Scene.from_dict(testing.cornell_box(**WAVE_CORNELL, integrator="megawave"))
+    img_mega, mega_seconds, _ = render_counted(torch, lt, brute, fp, mega, device)
+    # tiles smaller than the image: each launch starts past pixel 0
+    small = lt.Scene.from_dict(testing.wavepath(testing.cornell_box(**WAVE_CORNELL),
+                                                state_count=WAVE_SMALL_TILE))
+    small_rec, img_small = wave_render(torch, lt, brute, fp, small, device,
+                                       "testing.cornell_box wavepath, small tiles")
+    small_tiles = -(-w * h // WAVE_SMALL_TILE)
+    rec.update({"tiles": tiles, "megawave_seconds": mega_seconds,
+                "bit_equal_megawave": bool(np.array_equal(img, img_mega)),
+                "max_abs_diff_megawave": float(np.abs(img - img_mega).max()),
+                "small_tiles": {k: small_rec[k] for k in (
+                    "state_count", "seconds", "mpaths_per_s", "persistent_launches")},
+                "small_tiles_bit_equal_megawave": bool(np.array_equal(img_small, img_mega))})
+    check(small_rec["launches"]["fused_path_persistent"] == small_tiles,
+          f"wavepath cornell, small tiles: launches {small_rec['launches']}")
+    compiled = lt.compile_scene(scene, device=device)
+    integ = scene.integrator
+    cam = fp.camgen_params(scene.cameras[0], integ.sampler.seed)
+    pxy = pixel_grid(w, h, device)[:WAVE_HELD_LANES].contiguous()
+    kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
+              rr_threshold=integ.rr_threshold)
+    tables = fp.fused_tables(compiled)
+    spp = scene.cameras[0].spp
+    rgb_k, rays_k = fp.paths(tables, cam, pxy, 0, spp, **kw)
+    torch.cuda.synchronize()
+    (rgb_p, rays_p), counts, plain_ms = fused_work(torch, fp, tables, cam, pxy, spp, kw)
+    share, err, _ = bit_equal(torch, "wavepath persistent", rgb_k, rays_k, rgb_p, rays_p)
+    stats = torch.zeros(len(fp.STATS), dtype=torch.int64, device=device)
+    fp.paths(tables, cam, pxy, 0, spp, stats=stats, **kw)
+    use = lane_use(stats)
+    check(use["traced"] == counts["closest"],
+          f"wavepath persistent: traced {use['traced']} != {counts['closest']}")
+    rec["kernel"] = {"n": WAVE_HELD_LANES, "samples": spp, "share_bit_equal": share,
+                     "max_abs_err": err,
+                     "ms": device_ms(torch, lambda: fp.paths(tables, cam, pxy, 0, spp, **kw),
+                                     iters=10),
+                     "plain_ms": plain_ms, **fused_bound(tables, counts, WAVE_HELD_LANES),
+                     "lane_use": use}
+    recs["cornell"] = rec
+    emit(rec)
+    check(rec["bit_equal_megawave"] and rec["small_tiles_bit_equal_megawave"],
+          "wavepath cornell: the image differs from megawave's "
+          f"by up to {rec['max_abs_diff_megawave']}")
+    del compiled, tables
+
+    # (ii) the general pool on bench.py's mesh-heavy scene
+    d = testing.wavepath(testing.mesh_heavy(**{**MESH_HEAVY, "accel": "flat"}),
+                         state_count=1 << 20)
+    scene = lt.Scene.from_dict(d)
+    rec, img = wave_render(torch, lt, brute, fp, scene, device, "testing.mesh_heavy wavepath")
+    launches = rec["launches"]
+    others = {k: v for k, v in launches.items() if k not in ("cluster_closest", "cluster_any")}
+    check(launches["cluster_closest"] == launches["cluster_any"] == rec["iterations"] > 0
+          and rec["refills"] > 0 and not any(others.values()),
+          f"wavepath mesh_heavy: launches {launches}, iterations {rec['iterations']}")
+    ref = main_recs["mesh_heavy_image"]
+    frac, rel = frac_off(img, ref), float(img.mean() / ref.mean() - 1.0)
+    rec.update({"triangles": 512_004, "cut": None,
+                "megapath_seconds": main_recs["mesh_heavy"]["seconds"],
+                "megapath_mray_per_s": main_recs["mesh_heavy"]["mray_per_s"],
+                "frac_pixels_off_megapath": frac, "mean_rel_diff_megapath": rel,
+                "share_pixels_bit_equal_megapath": float((img == ref).all(-1).mean()),
+                "rays_megapath": main_recs["mesh_heavy"]["rays"]})
+    recs["mesh_heavy"] = rec
+    emit(rec)
+    check(frac < 0.02 and abs(rel) < 0.005,
+          f"wavepath mesh_heavy: {frac:.4f} of pixels off megapath's, mean off by {rel:.5f}")
+    # slot i serves its pixel's samples in order, each seeded by (pixel,
+    # sample): the pool's image and ray count are megapath's, bit for bit
+    check(rec["share_pixels_bit_equal_megapath"] == 1.0
+          and rec["rays"] == rec["rays_megapath"],
+          f"wavepath mesh_heavy: {rec['share_pixels_bit_equal_megapath']} of pixels "
+          f"bit-equal with megapath's, rays {rec['rays']} != {rec['rays_megapath']}")
+
+    # (iii) the golden on both pools
+    golden = {"phase": "wavefront", "what": "golden wavepath 32^2, 8 spp, pool 256"}
+    for pool in ("general", "fused"):
+        d = testing.wavepath(testing.cornell_box(resolution=(32, 32), spp=8, depth=4),
+                             state_count=256, iterations_per_launch=4)
+        scene = lt.Scene.from_dict(d)
+        if pool == "general":
+            os.environ["LUISARENDER_TPU_NO_FUSED"] = "1"
+        try:
+            img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+        finally:
+            os.environ.pop("LUISARENDER_TPU_NO_FUSED", None)
+        integ = scene.integrator
+        check((integ.fused_passes == 0 and integ.refills > 0) if pool == "general"
+              else (counts["fused_path_persistent"] == integ.fused_passes == 4),
+              f"wavepath golden {pool}: launches {counts}")
+        if pool == "general":
+            golden[pool] = golden_check(img, WAVE_GOLDEN, 32, 32, "wavepath golden, general")
+            continue
+        ref = imageio.load_exr(str(WAVE_GOLDEN))
+        frac, rel = frac_off(img, ref), float(img.mean() / ref.mean() - 1.0)
+        # the fused fork's paths flip on rounding now and then against the
+        # general fork's: held by the mean, and each sample by the rule of
+        # phase 3 (tests/test_torch_wavefront.py)
+        compiled = lt.compile_scene(scene, device=device)
+        grid = pixel_grid(32, 32, device)
+        kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
+                  rr_threshold=integ.rr_threshold)
+        worst = 0.0
+        for si in range(8):
+            args = (compiled, scene.cameras[0], integ.sampler, integ.light_sampler, grid, si)
+            rgb_f, _, st_f = path_trace_batch(*args, with_stats=True, **kw)
+            rgb_g, _, st_g = general_path_trace_batch(*args, **kw)
+            worst = max(worst, frac_off(rgb_f.cpu().numpy(), rgb_g.cpu().numpy()))
+            check(st_f["fused"] == 1 and abs(int(st_f["rays"]) - int(st_g["rays"]))
+                  <= max(8, int(st_g["rays"]) // 500), f"wavepath golden fused: sample {si}")
+        golden[pool] = {"frac_pixels_off": frac, "mean_rel_diff": rel,
+                        "worst_sample_frac_lanes_off_general": worst}
+        check(abs(rel) < 0.005 and worst < 0.02,
+              f"wavepath golden fused: mean off by {rel:.5f}, a sample {worst:.4f} off")
+    recs["golden"] = golden
+    emit(golden)
+    return recs
+
+
+# --------------------------------------------------------------------------
+# phase 13: the display film
+# --------------------------------------------------------------------------
+
+
+def phase_display(torch, lt, device):
+    """testing.cornell_box 64^2 with the display film (aces, served on port
+    0): /, /frame.png and /stats.json fetched from 127.0.0.1, the preview
+    PNG written in a temporary directory, a preview a pass."""
+    import tempfile
+    import urllib.request
+
+    from luisarender_tpu_torch import testing
+
+    with tempfile.TemporaryDirectory() as tmp:
+        preview = Path(tmp) / "preview.png"
+        d = testing.cornell_box(resolution=(64, 64), spp=8, depth=5)
+        d["render"]["cameras"][0]["prop"]["film"] = {"impl": "display", "prop": {
+            "resolution": [64, 64], "tone_mapping": "aces", "serve": True, "port": 0,
+            "preview_file": str(preview), "target_fps": 1000.0}}
+        scene = lt.Scene.from_dict(d)
+        film = scene.cameras[0].film
+        try:
+            host = film._server._httpd.server_address[0]
+            img = lt.render(scene, device=device)["cornell.exr"]
+
+            def get(path):
+                url = f"http://127.0.0.1:{film._server.port}{path}"
+                return urllib.request.urlopen(url, timeout=10).read()
+
+            page, frame = get("/"), get("/frame.png")
+            stats = json.loads(get("/stats.json"))
+        finally:
+            film._server.close()
+        png = preview.read_bytes()
+    check_image(img, 64, 64, "display")
+    passes = scene.integrator.fused_passes
+    ok = (host == "127.0.0.1" and b"luisarender_tpu live" in page
+          and frame[:8] == png[:8] == b"\x89PNG\r\n\x1a\n" and stats["frame"] >= 1
+          and film._spp_seen == 2)
+    rec = {"phase": "display", "scene": "testing.cornell_box 64^2, 8 spp, display (aces)",
+           "bound_host": host, "frame_png_bytes": len(frame), "preview_png_bytes": len(png),
+           "stats": stats, "passes_seen": film._spp_seen, "fused_passes": passes}
+    emit(rec)
+    check(ok, f"display: {rec}")
+    return rec
+
+
 def main():
     import torch
 
@@ -3114,6 +3512,9 @@ def main():
     spectral = phase_spectral(torch, lt, brute, fp, device)
     textures = phase_textures(torch, lt, brute, fp, device, main_recs)
     surfaces = phase_surfaces(torch, lt, brute, fp, device)
+    samplers = phase_samplers(torch, lt, brute, fp, device, spectral)
+    wavefront = phase_wavefront(torch, lt, brute, fp, device, main_recs)
+    phase_display(torch, lt, device)
 
     entries = []
     for name, kind_key, line in (("brute_closest", "closest", 79),
@@ -3130,6 +3531,8 @@ def main():
             "launches_sky": textures["sky"]["launches"][name],
             # the coated Cornell box's: one a bounce
             "launches_coated": surfaces["coated"]["launches"][name],
+            # scenes/cornell.json's under zsobol: one a bounce
+            "launches_samplers": samplers["zsobol"]["launches"][name],
             "max_abs_err": brute_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -3160,6 +3563,9 @@ def main():
             # motion-blur render's (one a sample of each shutter bucket)
             entries[-1].update({"launches_luisa": surfaces["luisa"]["launches"][name],
                                 "launches_motion": surfaces["motion"]["launches"][name]})
+        if name == "fused_path_persistent":
+            # the wavepath render of bench.py's Cornell box: one a tile
+            entries[-1]["launches_wavefront"] = wavefront["cornell"]["launches"][name]
         if name == "fused_path_env":
             # the environment mode (fused_path.py has_env): the candidates
             # and the miss pass run beside the kernel
@@ -3189,6 +3595,8 @@ def main():
             "launches_spectral": spectral["mesh_heavy"]["launches"][name],
             # the textured mesh-heavy render's: one a bounce
             "launches_textured": textures["mesh_heavy"]["launches"][name],
+            # the wavepath mesh-heavy render's: one an iteration of the pool
+            "launches_wavefront": wavefront["mesh_heavy"]["launches"][name],
             "max_abs_err": cluster_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

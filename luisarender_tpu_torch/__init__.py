@@ -24,11 +24,14 @@ from .cameras import pinhole as _pinhole  # noqa: F401
 from .environments import impls as _env_impls  # noqa: F401
 from .environments import spherical as _env_spherical  # noqa: F401
 from .films import base as _films  # noqa: F401
+from .films import display as _film_display  # noqa: F401
 from .filters import impls as _filters  # noqa: F401
 from .integrators import mega_path as _int_mega  # noqa: F401
+from .integrators import wave_path as _int_wave  # noqa: F401
 from .lights import diffuse as _light_diffuse  # noqa: F401
 from .lightsamplers import uniform as _ls_uniform  # noqa: F401
 from .samplers import base as _samplers  # noqa: F401
+from .samplers import lds as _samplers_lds  # noqa: F401
 from .shapes import impls as _shapes  # noqa: F401
 from .shapes import loop_subdiv as _shape_loop  # noqa: F401
 from .spectra import hero as _spec_hero  # noqa: F401

@@ -20,15 +20,12 @@ triple:
 
 from __future__ import annotations
 
-import hashlib
-import os
-import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from . import cie
+from . import cache, cie
 from .colorspace import SRGB_FROM_XYZ
 
 LAMBDA_MIN = 360.0
@@ -116,12 +113,7 @@ _LUT_CACHE: dict = {}
 
 
 def _lut_path(res: int) -> Path:
-    from ..ops.build import BUILD_DIR
-
-    here = Path(__file__).resolve().parent
-    src = b"".join((here / f).read_bytes() for f in ("rgb2spec.py", "cie.py", "colorspace.py"))
-    key = hashlib.sha256(src + np.__version__.encode()).hexdigest()[:12]
-    return BUILD_DIR / f"rgb2spec_{res}-{key}.npy"
+    return cache.table_path(f"rgb2spec_{res}", ("rgb2spec.py", "cie.py", "colorspace.py"))
 
 
 def build_lut(res: int) -> np.ndarray:
@@ -148,15 +140,7 @@ def lut(res: int = LUT_RES) -> np.ndarray:
     if res in _LUT_CACHE:
         return _LUT_CACHE[res]
     path = _lut_path(res)
-    if path.exists():
-        table = np.load(path)
-    else:
-        table = build_lut(res)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".npy", dir=path.parent)
-        with os.fdopen(fd, "wb") as f:
-            np.save(f, table)
-        os.replace(tmp, path)  # atomic: another process never reads half a file
+    table = cache.load_or_build(path, lambda: build_lut(res))
     if table.shape != (3, res, res, res, 3) or table.dtype != np.float32:
         raise RuntimeError(f"{path}: a coefficient table of shape {table.shape}, "
                            f"{table.dtype}, not (3, {res}, {res}, {res}, 3) float32")

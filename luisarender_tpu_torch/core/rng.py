@@ -49,6 +49,18 @@ def _rotl(x, r):
     return ((x << r) | (x >> (32 - r))) & MASK32
 
 
+def reverse_bits32(x):
+    """The 32 bits of each uint32 word in reverse order (the reference's
+    samplers/lds.py `_reverse_bits32`): swap halves, bytes, nibbles,
+    pairs, bits."""
+    x = u32(x)
+    x = ((x << 16) | (x >> 16)) & MASK32
+    x = ((x & 0x00FF00FF) << 8) | ((x & 0xFF00FF00) >> 8)
+    x = ((x & 0x0F0F0F0F) << 4) | ((x & 0xF0F0F0F0) >> 4)
+    x = ((x & 0x33333333) << 2) | ((x & 0xCCCCCCCC) >> 2)
+    return ((x & 0x55555555) << 1) | ((x & 0xAAAAAAAA) >> 1)
+
+
 def xxhash32(*words):
     """xxhash32 over 1..4 uint32 words (tensors broadcast together)."""
     words = [u32(w) for w in words]

@@ -7,7 +7,9 @@ film's accumulation saved to `checkpoint_file` (an .npz of `accum`, `done`,
 sampler is seeded by the sample index, so a resumed render is the
 uninterrupted one. A camera with a shutter span renders a bucket a
 shutter time (the scene compiled anew at each) and averages the buckets
-by their weights.
+by their weights. After each pass the loop logs its progress and hands
+the accumulation to a film that previews it (films/display.py
+maybe_preview).
 """
 
 from __future__ import annotations
@@ -92,6 +94,9 @@ class ProgressiveIntegrator(Integrator):
             accum = step_fn(accum, done, n)
             done += n
             since_ckpt += n
+            log.info("progress: %d/%d spp", done, spp)
+            if hasattr(film, "maybe_preview"):
+                film.maybe_preview(accum)
             if ckpt and (since_ckpt >= self.checkpoint_interval or done >= spp):
                 np.savez(ckpt, accum=accum.cpu().numpy(), done=done, spp=spp)
                 since_ckpt = 0

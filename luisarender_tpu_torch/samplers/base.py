@@ -1,9 +1,11 @@
 """Sampler interface and the independent (hash + LCG) sampler.
 
-Counterpart of luisarender_tpu/samplers/base.py. The sampler is stateless:
-its per-path state is one uint32 word (an int64 tensor, core/rng.py) seeded
-by xxhash32(sample index, pixel, seed), so draws are bit-exact with the
-reference. Methods return (new_state, u).
+Counterpart of luisarender_tpu/samplers/base.py. A sampler is stateless:
+its per-path state is whatever `start` returns, carried opaque through
+the integrators. For the independent sampler it is one uint32 word (an
+int64 tensor, core/rng.py) seeded by xxhash32(sample index, pixel, seed);
+the low-discrepancy samplers (samplers/lds.py) keep a dict of tensors.
+Draws are bit-exact with the reference. Methods return (new_state, u).
 """
 
 from __future__ import annotations

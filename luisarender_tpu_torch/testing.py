@@ -1,5 +1,6 @@
 """Test scenes as JSON-SDL dicts: the Cornell box and the mesh-heavy scene,
-and their forms under the hero spectrum.
+their forms under the hero spectrum, a low-discrepancy sampler or the
+wavepath integrator.
 
 Counterpart of luisarender_tpu/testing.py `cornell_box` and `mesh_heavy`.
 Cornell geometry uses the classic Cornell box measurement data (public
@@ -498,4 +499,22 @@ def hero(d, dimension=4):
     (plastic_for_disney)."""
     d = plastic_for_disney(d)
     d["render"]["spectrum"] = {"impl": "hero", "prop": {"dimension": dimension}}
+    return d
+
+
+def with_sampler(d, impl, **props):
+    """Scene d with its integrator's sampler set to `impl` (e.g. the goldens
+    tests/golden/cornell_<impl>_32_4spp.exr: cornell_box((32, 32), 4 spp,
+    depth 4) under each low-discrepancy sampler)."""
+    d["render"]["integrator"]["prop"]["sampler"] = {"impl": impl, "prop": props}
+    return d
+
+
+def wavepath(d, **props):
+    """Scene d rendered by the wavepath integrator at its integrator's
+    depth, with `props` (state_count, iterations_per_launch, ...): the
+    golden tests/golden/wavepath_32_8spp.exr is cornell_box((32, 32), 8
+    spp, depth 4) with state_count 256 and iterations_per_launch 4."""
+    d["render"]["integrator"] = {"impl": "wavepath", "prop": {
+        "depth": d["render"]["integrator"]["prop"]["depth"], **props}}
     return d

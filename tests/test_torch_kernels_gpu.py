@@ -1224,3 +1224,30 @@ def test_fused_kernel_on_a_motion_blur_bucket(cuda):
     rgb, _ = _equal_to_plain(fused_path, fused_path.fused_tables(compiled), cam,
                              pixel_grid(128, 128, cuda), 1, 0, kw)
     assert torch.isfinite(rgb).all() and rgb.mean().item() > 0.0
+
+
+def test_low_discrepancy_draws_on_the_card_equal_the_cpu(cuda, monkeypatch):
+    """The five low-discrepancy samplers' states and draws (samplers/lds.py:
+    start, then pixel, 1D and 2D draws over 12 dimensions) on cuda:0
+    bit-equal with the same draws on the CPU, over 4,096 pixels x 3
+    sample indices. sobol reads the 64-dimension prefix of its table,
+    repeated, rather than search 1,024 dimensions here."""
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.core import sobolgen
+
+    table = np.resize(sobolgen.sobol_matrices(64, cache=False), (1024, 32))
+    monkeypatch.setattr(sobolgen, "sobol_matrices", lambda n_dims=1024, **kw: table[:n_dims])
+    pxy = torch.as_tensor(np.random.RandomState(3).randint(0, 1000, (4096, 2)).astype(np.int32))
+    for impl in ("paddedsobol", "sobol", "zsobol", "pmj02bn", "tileshared"):
+        sampler = lt.Scene.from_dict(testing.with_sampler(
+            testing.cornell_box(resolution=(8, 8), spp=1), impl)).integrator.sampler
+        for si in (0, 3, 700):
+            states = [sampler.start(pxy, si), sampler.start(pxy.to(cuda), si)]
+            for op in ("pixel_2d", "1d", "2d", "2d", "1d", "2d", "1d", "1d"):
+                outs = [getattr(sampler, "generate_" + op)(s) for s in states]
+                states = [o[0] for o in outs]
+                assert outs[1][1].device.type == "cuda"
+                assert torch.equal(outs[1][1].cpu(), outs[0][1]), (impl, si, op)
+            for k in states[0]:
+                assert torch.equal(states[1][k].cpu(), states[0][k]), (impl, si, k)
