@@ -257,6 +257,26 @@ Phases, one JSON line each; any failure exits non-zero before the result:
  13 display  testing.cornell_box 64^2 with the display film (aces, served on
              port 0): /, /frame.png and /stats.json from 127.0.0.1, the
              preview PNG in a temporary directory, a preview a pass
+ 14 media    participating media on megavpt (phase_media): scenes/fog.json
+             through render_file (512^2, depth 10, spp cut from 256 to
+             FOG_SPP; a homogeneous fog sphere of 5,120 null-surface
+             triangles, 5,152 triangles on the cluster route) and
+             testing.fog_grid (the sphere a 32^3 density grid, FOG_GRID_SPP
+             spp), each with one cluster closest and two any-hit launches a
+             loop iteration and nothing else: seconds, Mpaths/s, iterations
+             and host reads a sample, one sample's wall and busy ms under the
+             profiler; both 32^2 goldens (tests/golden/fog_32_8spp.exr,
+             fog_grid_32_8spp.exr) by the goldens' rule; the cluster kernels
+             bit for bit against their plain versions on one fog sample's
+             bounce-1 rays and scatter-event shadow rays (their origins
+             inside the sphere), with their times and bounds
+ 15 aux      the auxiliary integrators (phase_aux) on testing.cornell_box
+             512^2, 4 spp: normal, direct in its three modes, aov's
+             multi-buffer mode with the final dump into a temporary
+             directory (all nine component files written and read back), a
+             group of normal and direct; seconds and brute launches of each,
+             nothing else launched; normal and direct at 32^2 on the card
+             against the CPU render by the goldens' rule
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -2221,17 +2241,22 @@ def phase_general(torch, lt, brute, fp, device):
     return rec
 
 
-def profile_one(torch, fn, kernels, samples):
+def profile_one(torch, fn, kernels, samples, device_only=False):
     """`samples` calls of fn() under torch.profiler, per sample: wall ms,
     device busy ms and share, the named kernels' device ms, device ops.
     The device numbers are None when the profiler traced no device work
     (the card's activity can be held by another tracer of the process);
-    fails when it traced device work but none of the named kernels."""
+    fails when it traced device work but none of the named kernels.
+    device_only=True traces the card's activity alone, whose events are all
+    this reads: a sample of 10^5 device ops also makes ~10^6 host events,
+    which take the profiler minutes to aggregate."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] if device_only else [ProfilerActivity.CPU,
+                                                               ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(samples):
             fn()
@@ -3087,8 +3112,9 @@ def phase_surfaces(torch, lt, brute, fp, device):
 SAMPLERS = ("paddedsobol", "sobol", "zsobol", "pmj02bn", "tileshared")
 SAMPLER_GOLDEN = ROOT / "tests" / "golden" / "cornell_{}_32_4spp.exr"
 # scenes/cornell.json's spp under a low-discrepancy sampler, cut from 256 as
-# the other general-fork renders are cut
-SAMPLER_SPP = 32
+# the other general-fork renders are cut (to 8, from 32, to make room for
+# the media and aux phases)
+SAMPLER_SPP = 8
 # the draws a bounce takes (integrators/common.py bounce_step): u_sel,
 # u_light, u_lobe, u_bsdf, u_rr
 BOUNCE_DRAWS = ("1d", "2d", "1d", "2d", "1d")
@@ -3454,6 +3480,280 @@ def phase_display(torch, lt, device):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 14: participating media (megavpt)
+# --------------------------------------------------------------------------
+
+FOG_GOLDENS = {"fog": ROOT / "tests" / "golden" / "fog_32_8spp.exr",
+               "fog_grid": ROOT / "tests" / "golden" / "fog_grid_32_8spp.exr"}
+# scenes/fog.json's 256 spp cut to FOG_SPP, testing.fog_grid's to FOG_GRID_SPP
+FOG_SPP = 16
+FOG_GRID_SPP = 4
+# the centre and a radius inside the fog sphere's 5,120 triangles
+FOG_CENTER = (275.0, 180.0, 280.0)
+FOG_INNER_RADIUS = 118.0
+
+
+def vpt_record(torch, compiled, scene, img, seconds, counts, what):
+    """A megavpt render's record: seconds (compile included), Mpaths/s,
+    loop iterations and host reads a sample, one sample's wall and busy ms
+    under the profiler, and its launches: the cluster kernels only, one
+    closest and two any-hit launches (scatter-event and surface NEE) an
+    iteration."""
+    from luisarender_tpu_torch.integrators.mega_vpt import vpt_trace_batch
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+
+    cam, integ = scene.cameras[0], scene.integrator
+    w, h = cam.film.resolution
+    check_image(img, w, h, what)
+    others = {k: v for k, v in counts.items() if k not in ("cluster_closest", "cluster_any")}
+    check(counts["cluster_closest"] == integ.iterations_run > 0
+          and counts["cluster_any"] == 2 * integ.iterations_run and not any(others.values()),
+          f"{what}: launches {counts}, iterations {integ.iterations_run}")
+    pxy = pixel_grid(w, h, compiled.device)
+    t0 = time.perf_counter()
+    prof = profile_one(torch, lambda: vpt_trace_batch(
+        compiled, cam, integ.sampler, integ.light_sampler, pxy, 1, max_depth=integ.max_depth,
+        rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold),
+        ("cluster_closest_kernel", "cluster_any_kernel"), 1, device_only=True)
+    # the profile's own cost: a sample before it, the traced one, the
+    # aggregation
+    prof["seconds"] = time.perf_counter() - t0
+    paths = w * h * cam.spp
+    return {"phase": "media", "scene": what, "resolution": [w, h], "spp": cam.spp,
+            "depth": integ.max_depth, "triangles": compiled.plan.num_tris,
+            "medium_types": [c.__name__ for c in compiled.plan.medium_types],
+            "seconds": seconds, "paths": paths, "mpaths_per_s": paths / seconds / 1e6,
+            "rays": integ.rays_traced, "iterations": integ.iterations_run,
+            "iterations_per_sample": integ.iterations_run / cam.spp,
+            "host_reads": integ.host_reads, "host_reads_per_sample": integ.host_reads / cam.spp,
+            "launches": counts, "image_mean": float(img.mean()), "profile_one_sample": prof}
+
+
+def fog_inputs(torch, lt, cluster, device, iterations=3):
+    """The cluster kernels' inputs of the first `iterations` iterations of
+    one scenes/fog.json sample at 512^2: each iteration's closest rays, and
+    its any-hit calls in order (the scatter events' shadow rays, then the
+    surface NEE's)."""
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+    from luisarender_tpu_torch.integrators.mega_vpt import vpt_trace_batch
+
+    scene = lt.Scene.from_dict(testing.fog((512, 512), 1, 10))
+    compiled = lt.compile_scene(scene, device=device)
+    cap = {"closest": [], "any": []}
+    orig = cluster.closest, cluster.any_hit
+
+    def rec(kind, fn):
+        def call(*args):
+            if len(cap["closest"]) <= iterations:
+                cap[kind].append(tuple(a.clone() for a in args[:6]))
+            return fn(*args)
+        return call
+
+    cluster.closest, cluster.any_hit = rec("closest", orig[0]), rec("any", orig[1])
+    try:
+        integ = scene.integrator
+        vpt_trace_batch(compiled, scene.cameras[0], integ.sampler, integ.light_sampler,
+                        pixel_grid(512, 512, device), 0, max_depth=integ.max_depth,
+                        rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
+    finally:
+        cluster.closest, cluster.any_hit = orig
+    torch.cuda.synchronize()
+    return cap
+
+
+def hold_fog_kernels(torch, lt, cluster, device):
+    """The cluster kernels bit for bit against their plain versions on one
+    fog sample's bounce-1 closest rays and on the scatter events' shadow
+    rays of the iteration with the most of them (their origins inside the
+    sphere, whose 5,120 triangles block no shadow ray); each with its time,
+    plain time and bound."""
+    cap = fog_inputs(torch, lt, cluster, device)
+    center = torch.tensor(FOG_CENTER, device=device)
+    scatter = [a for i, a in enumerate(cap["any"]) if i % 2 == 0]
+    live = [int((a[3] > 0).sum()) for a in scatter]
+    shadow = scatter[int(np.argmax(live))]
+    inside = int(((shadow[3] > 0)
+                  & ((shadow[0] - center).norm(dim=-1) < FOG_INNER_RADIUS)).sum())
+    check(max(live) > 0 and inside > 0.9 * max(live),
+          f"fog kernels: {live} live scatter shadow rays, {inside} inside the sphere")
+    out = {}
+    for kind, args, what in (("closest", cap["closest"][1], "bounce-1 rays"),
+                             ("any", shadow, "scatter-event shadow rays")):
+        any_hit = kind == "any"
+        errs, frac, walk, visited, winners, _ = compare_cluster(torch, cluster, any_hit, args)
+        err = torch.zeros(1, dtype=torch.int32, device=device)
+        ms = device_ms(torch, lambda: cluster.launch(*args, any_hit, err), iters=20)
+        check(int(err.item()) == 0, f"fog cluster_{kind}: error word while timing")
+        plain_ms = events_ms(torch, lambda: cluster.walk_plain(*args, any_hit), iters=1)
+        bound_ms, bound_by = cluster_bound(kind, args, walk, visited, winners)
+        out[kind] = {"input": what, "n": int(args[0].shape[0]),
+                     "live": int((args[3] > 0).sum()), "max_abs_err": max(errs),
+                     "hit_fraction": frac, "walk": walk_summary(walk), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    out["any"]["origins_inside_sphere"] = inside
+    return out
+
+
+def phase_media(torch, lt, brute, fp, device):
+    """Participating media on megavpt (integrators/mega_vpt.py): (i)
+    scenes/fog.json through render_file (512^2, depth 10, spp cut from 256
+    to FOG_SPP; 5,152 triangles on the cluster route) and (ii)
+    testing.fog_grid (its sphere a 32^3 density grid, FOG_GRID_SPP spp)
+    through render, each with the cluster kernels only (vpt_record); (iii)
+    the 32^2 goldens of both; (iv) the cluster kernels bit for bit on one
+    fog sample's inputs (hold_fog_kernels)."""
+    import tempfile
+
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.ops import cluster
+
+    recs = {}
+    # (i) the scene file through render_file; the scene it loads kept
+    loaded = {}
+    load_scene = lt.load_scene
+
+    def keep(path, macros=None):
+        loaded["scene"] = load_scene(path, macros)
+        return loaded["scene"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "fog.json"
+        path.write_text(json.dumps(testing.fog(spp=FOG_SPP)))
+        lt.load_scene = keep
+        try:
+            reset_counts(brute, fp)
+            t0 = time.perf_counter()
+            img = lt.render_file(str(path), save=False, device=device)["fog.exr"]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts(brute, fp)
+        finally:
+            lt.load_scene = load_scene
+    scene = loaded["scene"]
+    compiled = lt.compile_scene(scene, device=device)
+    rec = vpt_record(torch, compiled, scene, img, seconds, counts, "scenes/fog.json")
+    rec["cut"] = {"spp": [256, FOG_SPP]}
+    recs["fog"] = rec
+    emit(rec)
+
+    # (ii) the grid
+    scene = lt.Scene.from_dict(testing.fog_grid((512, 512), FOG_GRID_SPP, 10))
+    img, seconds, counts = render_counted(torch, lt, brute, fp, scene, device)
+    compiled = lt.compile_scene(scene, device=device)
+    rec = vpt_record(torch, compiled, scene, img, seconds, counts, "testing.fog_grid")
+    rec["grid_dims"] = list(compiled.arrays["density_grids"].shape[1:])
+    recs["fog_grid"] = rec
+    emit(rec)
+    del compiled
+
+    # (iii) the goldens, (iv) the kernels on fog inputs
+    goldens = {}
+    for name, path in FOG_GOLDENS.items():
+        d = testing.fog((32, 32), 8, 10) if name == "fog" else testing.fog_grid((32, 32), 8, 10)
+        img, seconds, counts = render_counted(torch, lt, brute, fp, lt.Scene.from_dict(d), device)
+        goldens[name] = {"seconds": seconds, **golden_check(img, path, 32, 32, f"{name} golden")}
+    recs["kernels"] = {"phase": "media", "what": "goldens and cluster kernels on fog inputs",
+                       "goldens": goldens, **hold_fog_kernels(torch, lt, cluster, device)}
+    emit(recs["kernels"])
+    return recs
+
+
+# --------------------------------------------------------------------------
+# phase 15: the auxiliary integrators
+# --------------------------------------------------------------------------
+
+AUX_CORNELL = dict(resolution=(512, 512), spp=4, depth=5)
+AUX_INTEGRATORS = {
+    "normal": {"impl": "normal", "prop": {}},
+    "direct_light": {"impl": "direct", "prop": {"importance_sampling": "light"}},
+    "direct_surface": {"impl": "direct", "prop": {"importance_sampling": "surface"}},
+    "direct_both": {"impl": "direct", "prop": {"importance_sampling": "both"}},
+    "aov": {"impl": "aov", "prop": {"noisy_count": 4, "dump": "final", "depth": 5}},
+    "group": {"impl": "group", "prop": {"integrators": [
+        {"impl": "normal", "prop": {}}, {"impl": "direct", "prop": {}}]}},
+}
+# brute launches a sample: (closest, any-hit) of the integrators that trace
+# a fixed number of rays
+AUX_LAUNCHES = {"normal": (1, 0), "direct_light": (1, 1), "direct_surface": (2, 0),
+                "direct_both": (2, 1), "group": (3, 1)}
+
+
+def aux_scene(lt, name, res, spp, out_dir=None):
+    from luisarender_tpu_torch import testing
+
+    d = testing.cornell_box(resolution=res, spp=spp, depth=AUX_CORNELL["depth"])
+    d["render"]["integrator"] = json.loads(json.dumps(AUX_INTEGRATORS[name]))
+    if out_dir is not None:
+        d["render"]["cameras"][0]["prop"]["file"] = str(Path(out_dir) / "cornell.exr")
+    return lt.Scene.from_dict(d)
+
+
+def phase_aux(torch, lt, brute, fp, device):
+    """The auxiliary integrators (integrators/aux.py) on testing.cornell_box
+    (AUX_CORNELL: 512^2, 4 spp; the brute kernels): normal, direct in each
+    importance_sampling mode, aov in multi-buffer mode with the final dump
+    into a temporary directory (every component's file written and read
+    back), and a group of normal and direct, each with its seconds and
+    brute launches and nothing else launched; then normal and direct at
+    32^2 on the card against the port's CPU render by the goldens' rule."""
+    import tempfile
+
+    from luisarender_tpu_torch.utils import imageio
+
+    recs = {}
+    res, spp = AUX_CORNELL["resolution"], AUX_CORNELL["spp"]
+    for name in AUX_INTEGRATORS:
+        with tempfile.TemporaryDirectory() as tmp:
+            scene = aux_scene(lt, name, res, spp, tmp)
+            reset_counts(brute, fp)
+            t0 = time.perf_counter()
+            images = scene.integrator.render(lt.compile_scene(scene, device=device),
+                                             save=name == "aov")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts(brute, fp)
+            rec = {"phase": "aux", "integrator": name, "resolution": list(res), "spp": spp,
+                   "seconds": seconds, "images": len(images), "launches": counts}
+            others = {k: v for k, v in counts.items() if k not in ("brute_closest", "brute_any")}
+            check(not any(others.values()) and counts["brute_closest"] > 0,
+                  f"aux {name}: launches {counts}")
+            if name in AUX_LAUNCHES:
+                want = tuple(spp * k for k in AUX_LAUNCHES[name])
+                check((counts["brute_closest"], counts["brute_any"]) == want,
+                      f"aux {name}: launches {counts}, want {want}")
+            for path, img in images.items():
+                check(img.shape[:2] == (res[1], res[0]) and bool(np.isfinite(img).all()),
+                      f"aux {name}: {path} {img.shape}")
+            if name == "aov":
+                comps = scene.integrator.COMPONENTS
+                check(len(images) == len(comps), f"aov: {sorted(images)}")
+                for path, img in images.items():
+                    check(np.array_equal(imageio.load_exr(path), img), f"aov: {path} on disk")
+                rec["files"] = sorted(Path(p).name for p in images)
+                rec["sample_mean"] = float(images[str(Path(tmp) / "cornell_sample.exr")].mean())
+            else:
+                img = images[scene.cameras[0].file]
+                check(img.mean() > 0.0, f"aux {name}: the image is black")
+                rec["image_mean"] = float(img.mean())
+        recs[name] = rec
+        emit(rec)
+
+    held = {}
+    for name in ("normal", "direct_light", "direct_surface", "direct_both"):
+        card, cpu = (lt.render(aux_scene(lt, name, (32, 32), 8), device=dev)["cornell.exr"]
+                     for dev in (device, "cpu"))
+        frac, rel = frac_off(card, cpu), float(card.mean() / cpu.mean() - 1.0)
+        held[name] = {"frac_pixels_off": frac, "mean_rel_diff": rel}
+        check(frac < 0.02 and abs(rel) < 0.005,
+              f"aux {name}: the card's 32^2 render {frac:.4f} off the CPU's, mean {rel:.5f}")
+    recs["held"] = {"phase": "aux", "what": "32^2, 8 spp on the card against the CPU",
+                    **held}
+    emit(recs["held"])
+    return recs
+
+
 def main():
     import torch
 
@@ -3515,6 +3815,8 @@ def main():
     samplers = phase_samplers(torch, lt, brute, fp, device, spectral)
     wavefront = phase_wavefront(torch, lt, brute, fp, device, main_recs)
     phase_display(torch, lt, device)
+    media = phase_media(torch, lt, brute, fp, device)
+    aux = phase_aux(torch, lt, brute, fp, device)
 
     entries = []
     for name, kind_key, line in (("brute_closest", "closest", 79),
@@ -3533,6 +3835,8 @@ def main():
             "launches_coated": surfaces["coated"]["launches"][name],
             # scenes/cornell.json's under zsobol: one a bounce
             "launches_samplers": samplers["zsobol"]["launches"][name],
+            # the auxiliary integrators' 512^2 renders together (phase 15)
+            "launches_aux": sum(r["launches"][name] for k, r in aux.items() if k != "held"),
             "max_abs_err": brute_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -3597,6 +3901,10 @@ def main():
             "launches_textured": textures["mesh_heavy"]["launches"][name],
             # the wavepath mesh-heavy render's: one an iteration of the pool
             "launches_wavefront": wavefront["mesh_heavy"]["launches"][name],
+            # scenes/fog.json's megavpt render: closest one an iteration, any
+            # two (scatter-event and surface NEE); and testing.fog_grid's
+            "launches_media": media["fog"]["launches"][name],
+            "launches_media_grid": media["fog_grid"]["launches"][name],
             "max_abs_err": cluster_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -26,10 +26,15 @@ from .environments import spherical as _env_spherical  # noqa: F401
 from .films import base as _films  # noqa: F401
 from .films import display as _film_display  # noqa: F401
 from .filters import impls as _filters  # noqa: F401
+from .integrators import aux as _int_aux  # noqa: F401
 from .integrators import mega_path as _int_mega  # noqa: F401
+from .integrators import mega_vpt as _int_vpt  # noqa: F401
 from .integrators import wave_path as _int_wave  # noqa: F401
 from .lights import diffuse as _light_diffuse  # noqa: F401
 from .lightsamplers import uniform as _ls_uniform  # noqa: F401
+from .media import base as _media_base  # noqa: F401
+from .media import grid as _media_grid  # noqa: F401
+from .phasefunctions import hg as _phase_hg  # noqa: F401
 from .samplers import base as _samplers  # noqa: F401
 from .samplers import lds as _samplers_lds  # noqa: F401
 from .shapes import impls as _shapes  # noqa: F401

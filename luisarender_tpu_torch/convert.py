@@ -10,11 +10,13 @@ skip, node_first, node_count), cluster_nodes, cluster_tris and the 8-wide
 tables (cluster_woop, cluster_slab8, cluster_meta8, cluster_cboxes)}, instances.*,
 light_entries.*, the light alias tables and light-triangle rows, the
 surface / light / texture rows with their textures, the image atlas
-(texture_atlas, its rects and mip table), the environment's tables, and
-the fused tables. A two-level scene's `trace2` comes across
-whole (TLAS, BLASes, instance and shade rows, the per-mesh cluster tables
-`cl_nodes_{m}` / `cl_tris_{m}`); the plan's statics that route its
-composed trace are read back from its instance rows (`_two_level_plan`).
+(texture_atlas, its rects and mip table), the environment's tables, the
+media rows with the instances' medium columns and the density grids
+(density_grids, density_grid_dims), and the fused tables. A two-level
+scene's `trace2` comes across whole (TLAS, BLASes, instance and shade
+rows, the per-mesh cluster tables `cl_nodes_{m}` / `cl_tris_{m}`); the
+plan's statics that route its composed trace are read back from its
+instance rows (`_two_level_plan`).
 
 Both packages keep triangles in the order of the same SAH tree, and the
 cluster tables carry each triangle's slot in it, so a converted scene's
@@ -37,8 +39,8 @@ import numpy as np
 from .core.device import resolve_device
 from .ops import subpacket
 from .scene.compiler import (
-    INT_INSTANCE_KEYS, CompiledScene, ScenePlan, drop_unused, hoist_spectral_coeffs,
-    tables_to_device,
+    FLOAT_INSTANCE_KEYS, INT_INSTANCE_KEYS, CompiledScene, ScenePlan, drop_unused,
+    hoist_spectral_coeffs, tables_to_device,
 )
 from .scene.node import SceneNodeTag
 from .scene.registry import lookup, registered
@@ -49,6 +51,7 @@ TRACE_KEYS = ("tri_v0", "tri_e1", "tri_e2", "prim_index", "tri_opaque", "shade_t
               "cluster_nodes", "cluster_tris", "cluster_woop", "cluster_slab8",
               "cluster_meta8", "cluster_cboxes")
 ATLAS_KEYS = ("texture_atlas", "texture_atlas_rects", "texture_atlas_mips")
+GRID_KEYS = ("density_grids", "density_grid_dims")
 
 
 def _hoist(table, const, name, default, channels):
@@ -179,19 +182,21 @@ def _numpy_tree(x):
 
 
 def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
-                   texture_types=None, env_distance=0.0):
+                   texture_types=None, env_distance=0.0, medium_types=(),
+                   env_medium_ref=None):
     """numpy reference tables -> (the port's numpy tables, ScenePlan).
 
-    surface_types / light_types / texture_types: impl names in the
-    reference plan's tag order (`[c.impl_names[0] for c in
+    surface_types / light_types / texture_types / medium_types: impl names
+    in the reference plan's tag order (`[c.impl_names[0] for c in
     plan.surface_types]`, a generated mix / layered type by its full name,
     `_generated_surface`; the texture tables' own order, which is the
-    plan's, when texture_types is None); bvh_leaf_size, env_distance: the
-    reference plan's."""
+    plan's, when texture_types is None); bvh_leaf_size, env_distance,
+    env_medium_ref: the reference plan's."""
     if texture_types is None:
         texture_types = list(arrays.get("textures", {}))
     surf_cls = tuple(_generated_surface(n) for n in surface_types)
     light_cls = tuple(lookup(SceneNodeTag.LIGHT, n) for n in light_types)
+    medium_cls = tuple(lookup(SceneNodeTag.MEDIUM, n) for n in medium_types)
     tex_cls = tuple(lookup(SceneNodeTag.TEXTURE, n) for n in texture_types)
     ref_tex = arrays.get("textures", {})
     const = arrays.get("textures", {}).get("constant", {}).get("value")
@@ -204,7 +209,9 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
     }
     out = {
         "instances": {
-            k: np.asarray(arrays["instances"][k], np.int32) for k in INT_INSTANCE_KEYS
+            **{k: np.asarray(arrays["instances"][k], np.int32) for k in INT_INSTANCE_KEYS},
+            **{k: np.asarray(arrays["instances"][k], np.float32)
+               for k in FLOAT_INSTANCE_KEYS},
         },
         "light_entries": {
             k: np.asarray(v) for k, v in arrays["light_entries"].items()
@@ -216,7 +223,8 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
             _convert_rows(t, c, const) for t, c in zip(arrays["surfaces"], surf_cls)
         ],
         "lights": [_convert_rows(t, c, const) for t, c in zip(arrays["lights"], light_cls)],
-        **{k: np.asarray(arrays[k]) for k in ATLAS_KEYS},
+        **{k: np.asarray(arrays[k]) for k in ATLAS_KEYS + GRID_KEYS},
+        "media": [_numpy_tree(t) for t in arrays.get("media", [])],
         "textures": {
             c.impl_names[0]: _convert_rows(ref_tex[c.impl_names[0]], c, const)
             for c in tex_cls if len(ref_tex.get(c.impl_names[0], {}))
@@ -251,13 +259,17 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
                             for c in tex_cls),
         any_normal_maps=_any_wrapper(out["surfaces"], "normal_map"),
         any_alpha=_any_wrapper(out["surfaces"], "alpha"),
+        medium_types=medium_cls,
+        has_media=bool(medium_cls),
+        env_medium_ref=None if env_medium_ref is None else tuple(env_medium_ref),
         **statics,
     )
     return out, plan
 
 
 def convert(arrays, surface_types, light_types, scene, device=None,
-            bvh_leaf_size=4, texture_types=None, env_distance=0.0) -> CompiledScene:
+            bvh_leaf_size=4, texture_types=None, env_distance=0.0, medium_types=(),
+            env_medium_ref=None) -> CompiledScene:
     """The reference's compiled tables as a port CompiledScene on `device`
     (default: the first CUDA card); `scene` is the port's Scene of the same
     file, whose cameras, integrator and environment render it. The
@@ -266,7 +278,8 @@ def convert(arrays, surface_types, light_types, scene, device=None,
     dev = resolve_device(device)
     spectrum = scene.spectrum.model()
     tables, plan = convert_tables(arrays, surface_types, light_types, bvh_leaf_size,
-                                  texture_types, env_distance)
+                                  texture_types, env_distance, medium_types,
+                                  env_medium_ref)
     plan = dataclasses.replace(plan, spectral_dim=spectrum.dimension)
     if plan.has_environment:
         scene.environment.compile(None)

@@ -57,10 +57,13 @@ def has_work(carry) -> bool:
 
 
 def shade_surface(compiled, light_sampler, it, wo, swl, L, ray, beta,
-                  pdf_bsdf, eta_scale, active, n_rays, uniforms):
+                  pdf_bsdf, eta_scale, active, n_rays, uniforms, defer_shadow=False):
     """NEE + BSDF sampling at surface hits. uniforms = (u_sel, u_light (2),
     u_lobe, u_bsdf (2)). Returns the updated
-    (L, ray, beta, pdf_bsdf, eta_scale, active, n_rays, event)."""
+    (L, ray, beta, pdf_bsdf, eta_scale, active, n_rays, event); with
+    defer_shadow=True the NEE shadow ray is not traced, and a dict {ray,
+    contrib, pending} follows for the caller to trace it and add contrib
+    where it is pending and not occluded."""
     geom = compiled.trace_geometry()
     n = it.p.shape[0]
     c = compiled.plan.spectral_dim
@@ -97,9 +100,15 @@ def shade_surface(compiled, light_sampler, it, wo, swl, L, ray, beta,
         )
         contrib = beta * f_eval["f"] * ls["L"] * w_mis[..., None]
         contrib = torch.where(shadow_pending[..., None], contrib, 0.0)
-        occluded = traverse.trace_any(geom, shadow_ray)
-        nee_ok = shadow_pending & ~occluded
-        L = torch.where(nee_ok[..., None], L + contrib, L)
+        if defer_shadow:
+            shadow = {"ray": shadow_ray, "contrib": contrib, "pending": shadow_pending}
+        else:
+            occluded = traverse.trace_any(geom, shadow_ray)
+            nee_ok = shadow_pending & ~occluded
+            L = torch.where(nee_ok[..., None], L + contrib, L)
+    elif defer_shadow:
+        shadow = {"ray": ray._replace(t_max=torch.zeros_like(zeros)),
+                  "contrib": it.p.new_zeros((n, c)), "pending": zeros > 1.0}
 
     # --- BSDF sampling result ---
     new_ray = ct.spawn_ray(it, s["wi"])
@@ -126,6 +135,8 @@ def shade_surface(compiled, light_sampler, it, wo, swl, L, ray, beta,
     )
     eta_scale = torch.where(active, eta_scale_new, eta_scale)
     active = active & (s["pdf"] > 0) & (beta > 0).any(dim=-1)
+    if defer_shadow:
+        return L, ray, beta, pdf_bsdf, eta_scale, active, n_rays, s["event"], shadow
     return L, ray, beta, pdf_bsdf, eta_scale, active, n_rays, s["event"]
 
 

@@ -48,6 +48,16 @@ def camera_rays(camera, sampler, pixel_xy, sample_index, time=0.0):
     return state, ray, cam_weight
 
 
+def wavelengths(spectrum, sampler, state, pixel_xy):
+    """(state, each lane's wavelengths): a fixed spectrum's (sRGB reads only
+    the shape and device of the draws it is given), else sampled from a 1D
+    draw that follows the camera's, as in the reference."""
+    if spectrum.is_fixed:
+        return state, spectrum.sample_wavelengths(pixel_xy[:, :1])
+    state, u_swl = sampler.generate_1d(state)
+    return state, spectrum.sample_wavelengths(u_swl[..., None])
+
+
 def general_path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
                              sample_index, *, max_depth, rr_depth, rr_threshold, time=0.0):
     """The general fork: one sample of each pixel of pixel_xy (N, 2) int32
@@ -60,13 +70,7 @@ def general_path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
     c = compiled.plan.spectral_dim
 
     state, ray, cam_weight = camera_rays(camera, sampler, pixel_xy, sample_index, time)
-    if spectrum.is_fixed:
-        # sRGB reads only the draws' shape and device
-        swl = spectrum.sample_wavelengths(pixel_xy[:, :1])
-    else:
-        # the wavelengths' draw follows the camera's, as in the reference
-        state, u_swl = sampler.generate_1d(state)
-        swl = spectrum.sample_wavelengths(u_swl[..., None])
+    state, swl = wavelengths(spectrum, sampler, state, pixel_xy)
 
     # the ray cone only where an image texture reads its footprint
     cone = camera.ray_cone() if compiled.plan.needs_footprint else None

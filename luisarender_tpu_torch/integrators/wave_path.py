@@ -40,7 +40,7 @@ from ..scene.node import SceneNodeTag
 from ..scene.registry import register
 from . import common
 from .base import ProgressiveIntegrator
-from .mega_path import camera_rays
+from .mega_path import camera_rays, wavelengths
 
 log = logging.getLogger("luisarender_tpu_torch")
 
@@ -146,11 +146,7 @@ class WavefrontPathTracing(ProgressiveIntegrator):
             the `live` slots are active."""
             state, ray, cam_weight = camera_rays(camera, sampler, pixel_xy, sample_index,
                                                  self.render_time)
-            if spectrum.is_fixed:
-                swl = spectrum.sample_wavelengths(pixel_xy[:, :1])
-            else:
-                state, u_swl = sampler.generate_1d(state)
-                swl = spectrum.sample_wavelengths(u_swl[..., None])
+            state, swl = wavelengths(spectrum, sampler, state, pixel_xy)
             beta = torch.where(live[:, None], cam_weight[:, None].expand(pool, c), 0.0)
             carry = common.init_carry(ray, beta, state, swl, cone=cone)
             carry["active"] = carry["active"] & live

@@ -250,7 +250,7 @@ def _fold_surface(name, row, out):
 
 def build_fused_pack(surface_types, surface_rows, light_types, light_rows,
                      instances, light_entries, spectrum, num_tris, all_opaque,
-                     n_spheres=0, environment=None, two_level=False):
+                     n_spheres=0, environment=None, two_level=False, has_media=False):
     """{"inst_table": (NI, INST_COLS), "entry_table": (max(NL, 1),
     ENTRY_COLS)} numpy tables when the scene qualifies for the fused
     kernel, else None. surface_rows / light_rows: per type, the list of
@@ -258,8 +258,10 @@ def build_fused_pack(surface_types, surface_rows, light_types, light_rows,
     per-instance and per-light-entry columns; environment: the scene's
     environment node, if it has one (spherical and directional ones
     qualify: their candidates and miss pass run outside the kernel); a
-    two-level scene never qualifies (the kernel traces one flat table)."""
-    if two_level or not all_opaque:
+    two-level scene never qualifies (the kernel traces one flat table), nor
+    one with media (has_media, or an instance with a medium tag), as in the
+    reference."""
+    if two_level or has_media or not all_opaque:
         return None
     if environment is not None and type(environment).__name__ not in (
         "SphericalEnvironment", "DirectionalEnvironment"
@@ -287,6 +289,8 @@ def build_fused_pack(surface_types, surface_rows, light_types, light_rows,
     inst_table[:, 15:17] = 1e-4
     for i in range(ni):
         stag = int(instances["surface_tag"][i])
+        if int(instances.get("medium_tag", [-1] * ni)[i]) >= 0:
+            return None
         if stag >= 0:
             row = surface_rows[stag][int(instances["surface_index"][i])]
             if not _fold_surface(surface_types[stag].impl_names[0], row, inst_table[i]):

@@ -32,15 +32,22 @@ to one atlas (`texture_atlas`, `texture_atlas_rects`, `texture_atlas_mips`;
 `_pack_atlas`); the environment, when the scene
 has one, to its own tables (`arrays["environment"]`) and the plan's
 `env_distance`, twice the diagonal of the real geometry's bounds plus one.
-A scene the fused kernel covers also gets its per-instance tables
+Media (media/base.py, media/grid.py) compile to a parameter table a type
+(`arrays["media"]`, the plan's `medium_types`), an instance's to its
+`medium_tag`, `medium_index` and `medium_priority` columns (-1, 0, 0 for
+none, a vacuum or a null medium), the camera's `environment_medium` to the
+plan's `env_medium_ref` (tag, index, priority), and the grids' densities,
+padded, to `density_grids` (G, D, H, W) with their `density_grid_dims`;
+a sphere that carries a medium stays a mesh, as enter / exit parity needs
+it. A scene the fused kernel covers also gets its per-instance tables
 (`arrays["fused"]`, see ops/fused_path.py build_fused_pack); a two-level
-scene never does. Media raise.
+scene or one with media never does.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -108,6 +115,9 @@ class ScenePlan:
     tl_inst_opaque: tuple = ()  # it blocks shadow rays
     tl_inst_visible: tuple = ()
     tl_mesh_count: int = 0
+    medium_types: tuple = ()  # Medium classes; index == medium tag
+    has_media: bool = False
+    env_medium_ref: Optional[tuple] = None  # (tag, index, priority) or None
 
 
 @dataclass
@@ -150,7 +160,10 @@ class CompiledScene:
 
 INT_INSTANCE_KEYS = (
     "surface_tag", "surface_index", "light_tag", "light_index", "light_entry",
+    "medium_tag", "medium_index",
 )
+# the float columns of the instance table
+FLOAT_INSTANCE_KEYS = ("medium_priority",)
 
 
 def tables_to_device(arrays_np: dict, device) -> dict:
@@ -250,6 +263,10 @@ class SceneCompiler:
         # the identity of the array
         self._atlas_images: list = []
         self._atlas_image_ids: dict = {}
+        self._medium_types: list = []
+        self._medium_rows: list = []
+        self._medium_cache: dict = {}
+        self._density_grids: list = []  # (D, H, W) float32 volumes
 
     def register_texture_row(self, cls, row: dict) -> int:
         from ..textures.base import make_handle
@@ -317,73 +334,102 @@ class SceneCompiler:
             atlas[ry : ry + h, rx : rx + w] = img
         return atlas, np.asarray(rects, np.int32), np.asarray(mip_table, np.int32)
 
+    def register_density_grid(self, grid: np.ndarray) -> int:
+        self._density_grids.append(np.asarray(grid, np.float32))
+        return len(self._density_grids) - 1
+
+    def _pack_density_grids(self):
+        """Every grid zero-padded into one (G, D, H, W) block, and its own
+        (D, H, W) a row; a 1^3 block without grids."""
+        if not self._density_grids:
+            return np.zeros((1, 1, 1, 1), np.float32), np.ones((1, 3), np.int32)
+        shape = np.max([g.shape for g in self._density_grids], axis=0)
+        out = np.zeros((len(self._density_grids), *shape), np.float32)
+        dims = np.zeros((len(self._density_grids), 3), np.int32)
+        for i, g in enumerate(self._density_grids):
+            out[i, : g.shape[0], : g.shape[1], : g.shape[2]] = g
+            dims[i] = g.shape
+        return out, dims
+
+    def compile_medium(self, node):
+        return self._compile_row(node, type(node), self._medium_types, self._medium_rows,
+                                 self._medium_cache)
+
+    def _medium_columns(self, medium):
+        """(tag, index, priority) of an instance's medium; (-1, 0, 0.0) for
+        none, a vacuum or a null medium."""
+        if medium is None or medium.is_null or medium.is_vacuum:
+            return -1, 0, 0.0
+        return (*self.compile_medium(medium), float(medium.priority))
+
     def compile_texture(self, node) -> int:
         key = id(node)
         if key not in self._texture_cache:
             self._texture_cache[key] = node.compile(self)
         return self._texture_cache[key]
 
-    def compile_surface(self, node):
+    def _compile_row(self, node, cls, types, rows_list, cache):
+        """(tag, index) of a node's row in the table of its class `cls`,
+        compiled once a node."""
         key = id(node)
-        if key not in self._surface_cache:
-            # mix and layered compile to generated classes (surfaces/mix.py)
-            cls = device_class(node)
-            if cls not in self._surface_types:
-                self._surface_types.append(cls)
-                self._surface_rows.append([])
-            tag = self._surface_types.index(cls)
-            rows = self._surface_rows[tag]
+        if key not in cache:
+            if cls not in types:
+                types.append(cls)
+                rows_list.append([])
+            tag = types.index(cls)
+            rows = rows_list[tag]
             rows.append(node.compile(self))
-            self._surface_cache[key] = (tag, len(rows) - 1)
-        return self._surface_cache[key]
+            cache[key] = (tag, len(rows) - 1)
+        return cache[key]
+
+    def compile_surface(self, node):
+        # mix and layered compile to generated classes (surfaces/mix.py)
+        return self._compile_row(node, device_class(node), self._surface_types,
+                                 self._surface_rows, self._surface_cache)
 
     def compile_light(self, node):
-        key = id(node)
-        if key not in self._light_cache:
-            cls = type(node)
-            if cls not in self._light_types:
-                self._light_types.append(cls)
-                self._light_rows.append([])
-            tag = self._light_types.index(cls)
-            rows = self._light_rows[tag]
-            rows.append(node.compile(self))
-            self._light_cache[key] = (tag, len(rows) - 1)
-        return self._light_cache[key]
+        return self._compile_row(node, type(node), self._light_types, self._light_rows,
+                                 self._light_cache)
 
     def _walk_shapes(self):
-        """(shape, world_matrix, surface, light, visible) for every mesh
-        instance; a group's or instance's transform, surface, light and
-        visibility pass down to its children."""
+        """(shape, world_matrix, surface, light, medium, visible) for every
+        mesh instance; a group's or instance's transform, surface, light,
+        medium and visibility pass down to its children."""
         out = []
 
-        def walk(shape, parent_m, surface, light, visible):
+        def walk(shape, parent_m, surface, light, medium, visible):
             m = parent_m
             if shape.transform is not None and not shape.transform.is_identity:
                 m = parent_m @ shape.transform.matrix(self.time)
             surface = shape.surface or surface
             light = shape.light or light
+            medium = shape.medium or medium
             visible = visible and shape.visible
             if shape.is_mesh:
-                out.append((shape, m, surface, light, visible))
+                out.append((shape, m, surface, light, medium, visible))
             else:
                 for child in shape.children():
-                    walk(child, m, surface, light, visible)
+                    walk(child, m, surface, light, medium, visible)
 
         for s in self.scene.shapes:
-            walk(s, np.eye(4), None, None, True)
+            walk(s, np.eye(4), None, None, None, True)
         return out
 
     @staticmethod
-    def analytic_sphere(shape, m, surface, light):
+    def analytic_sphere(shape, m, surface, light, medium=None):
         """(center (3,), radius, rotation (3, 3)) when this instance can be
         intersected as an exact quadric, else None: an analytic sphere with
-        a surface and no light, under a similarity transform (uniform scale
-        times rotation, plus translation)."""
+        a surface, no light and no medium (a vacuum or null one aside: a
+        medium boundary needs the mesh's enter / exit parity), under a
+        similarity transform (uniform scale times rotation, plus
+        translation)."""
         from ..shapes.impls import SphereShape
 
         if not isinstance(shape, SphereShape) or not shape.analytic:
             return None
         if light is not None or surface is None or getattr(surface, "is_null", False):
+            return None
+        if medium is not None and not medium.is_null and not medium.is_vacuum:
             return None
         a = np.asarray(m, np.float64)[:3, :3]
         det = np.linalg.det(a)
@@ -501,9 +547,9 @@ class SceneCompiler:
 
         # the two-level path has no sphere table: its spheres are meshes
         analytic = [
-            self.analytic_sphere(shape, m, surface, light) if scene.accel != "twolevel"
-            else None
-            for shape, m, surface, light, _ in instances
+            self.analytic_sphere(shape, m, surface, light, medium)
+            if scene.accel != "twolevel" else None
+            for shape, m, surface, light, medium, _ in instances
         ]
 
         def count_meshes():
@@ -524,7 +570,7 @@ class SceneCompiler:
         mesh_index = {key: i for i, key in enumerate(unique_meshes)}
 
         all_p, all_n, all_uv, all_t, all_ti = [], [], [], [], []
-        inst_rows = {k: [] for k in INT_INSTANCE_KEYS}
+        inst_rows = {k: [] for k in INT_INSTANCE_KEYS + FLOAT_INSTANCE_KEYS}
         inst_mesh_ids, inst_matrices = [], []  # the two-level instance rows
         light_entries = {
             "inst": [], "alias_offset": [], "tri_offset": [], "tri_count": [],
@@ -538,13 +584,15 @@ class SceneCompiler:
         sphere_rows: list = []  # (instance id, center, radius, rotation)
         v_off = 0
         t_off = 0
-        for inst_id, (shape, m, surface, light, _) in enumerate(instances):
+        for inst_id, (shape, m, surface, light, medium, _) in enumerate(instances):
             an = analytic[inst_id]
             if an is not None:
                 sphere_rows.append((inst_id, *an))
                 s_tag, s_idx = self.compile_surface(surface)
                 for k, v in (("surface_tag", s_tag), ("surface_index", s_idx),
-                             ("light_tag", -1), ("light_index", 0), ("light_entry", -1)):
+                             ("light_tag", -1), ("light_index", 0), ("light_entry", -1),
+                             ("medium_tag", -1), ("medium_index", 0),
+                             ("medium_priority", 0.0)):
                     inst_rows[k].append(v)
                 continue
             mesh = shape.mesh()
@@ -616,6 +664,9 @@ class SceneCompiler:
             inst_rows["light_tag"].append(l_tag)
             inst_rows["light_index"].append(l_idx)
             inst_rows["light_entry"].append(entry_id)
+            for k, v in zip(("medium_tag", "medium_index", "medium_priority"),
+                            self._medium_columns(medium)):
+                inst_rows[k].append(v)
             v_off += pw.shape[0]
             t_off += tris.shape[0]
 
@@ -633,6 +684,9 @@ class SceneCompiler:
         has_env = env is not None and not env.is_null
         if has_env:
             env.compile(self)
+        # the camera's medium: every path starts in it
+        env_tag, env_idx, env_prio = self._medium_columns(scene.environment_medium)
+        env_medium_ref = None if env_tag < 0 else (env_tag, env_idx, env_prio)
 
         # shadow blockers: anything with a surface or a light
         inst_blocks = (np.asarray(inst_rows["surface_tag"]) >= 0) | (
@@ -658,7 +712,8 @@ class SceneCompiler:
         atlas, atlas_rects, atlas_mips = self._pack_atlas()
         arrays = {
             "instances": {
-                k: np.asarray(v, np.int32) for k, v in inst_rows.items()
+                k: np.asarray(v, np.float32 if k in FLOAT_INSTANCE_KEYS else np.int32)
+                for k, v in inst_rows.items()
             },
             "light_entries": {
                 k: np.asarray(v, np.float32 if k == "total_area" else np.int32)
@@ -680,8 +735,10 @@ class SceneCompiler:
                 cls.impl_names[0]: stack_rows([rows])[0]
                 for cls, rows in zip(self._texture_types, self._texture_rows) if rows
             },
+            "media": stack_rows(self._medium_rows),
             "trace": {},
         }
+        arrays["density_grids"], arrays["density_grid_dims"] = self._pack_density_grids()
         statics = {}
         bvh8_stack = 0
         if two_level:
@@ -756,6 +813,7 @@ class SceneCompiler:
             self._light_rows, inst_rows, light_entries, self.spectrum,
             num_tris, bool(np.all(inst_blocks)), n_spheres=len(sphere_rows),
             environment=env if has_env else None, two_level=two_level,
+            has_media=bool(self._medium_types),
         )
         if fused is not None:
             arrays["fused"] = fused
@@ -780,6 +838,9 @@ class SceneCompiler:
             two_level=two_level,
             any_normal_maps=self._any_wrapper("normal_map"),
             any_alpha=self._any_wrapper("alpha"),
+            medium_types=tuple(self._medium_types),
+            has_media=bool(self._medium_types),
+            env_medium_ref=env_medium_ref,
             **statics,
         )
         return arrays, plan

@@ -118,6 +118,9 @@ class Scene:
     def load_medium(self, desc):
         return self.load_node(SceneNodeTag.MEDIUM, desc)
 
+    def load_phase_function(self, desc):
+        return self.load_node(SceneNodeTag.PHASE_FUNCTION, desc)
+
     # --- creation (scene.cpp:201-233) ---
     @classmethod
     def create(cls, desc: SceneDesc) -> "Scene":

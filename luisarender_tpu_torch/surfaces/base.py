@@ -146,7 +146,8 @@ def _select(mask, new, old):
 
 def dispatch(ctx, it, method, *args, init):
     """Evaluate `method` for every surface type present; select by tag.
-    init: dict of per-lane defaults for lanes no type claims."""
+    init: per-lane defaults for lanes no type claims, a dict of tensors or,
+    for a method that returns one (albedo, roughness), a tensor."""
     inst = ctx.arrays["instances"]
     meta = gather_rows(
         {"tag": inst["surface_tag"], "idx": inst["surface_index"]}, it.inst
@@ -158,7 +159,10 @@ def dispatch(ctx, it, method, *args, init):
         rows = gather_rows(ctx.arrays["surfaces"][t], index)
         rows = evaluate_tex_params(ctx, rows, it, surf_cls.texture_params)
         value = getattr(surf_cls, method)(rows, ctx, it, *args)
-        result = {k: _select(mask, value[k], result[k]) for k in result}
+        if isinstance(result, dict):
+            result = {k: _select(mask, value[k], result[k]) for k in result}
+        else:
+            result = _select(mask, value, result)
     return result
 
 

@@ -518,3 +518,55 @@ def wavepath(d, **props):
     d["render"]["integrator"] = {"impl": "wavepath", "prop": {
         "depth": d["render"]["integrator"]["prop"]["depth"], **props}}
     return d
+
+
+# the fog sphere's box: scale 120 about [275, 180, 280]
+FOG_BOUNDS = ([155.0, 60.0, 160.0], [395.0, 300.0, 400.0])
+
+
+def fog(resolution=None, spp=None, depth=None):
+    """scenes/fog.json (the Cornell box around a sphere of homogeneous fog,
+    `megavpt`) as a dict, with its resolution (w, h), spp and depth
+    replaced where given."""
+    import json
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "scenes" / "fog.json"
+    d = json.loads(path.read_text())
+    cam = d["render"]["cameras"][0]["prop"]
+    if resolution is not None:
+        cam["film"]["prop"]["resolution"] = list(resolution)
+    if spp is not None:
+        cam["spp"] = spp
+    if depth is not None:
+        d["render"]["integrator"]["prop"]["depth"] = depth
+    return d
+
+
+def fog_grid(resolution=(512, 512), spp=16, depth=10, dims=(32, 32, 32), seed=0):
+    """fog() with the sphere's medium a `grid` over the sphere's box
+    FOG_BOUNDS: the same sigma_a, sigma_s and `hg` g = 0.3, its density
+    (dims (x, y, z), inline) a smooth field of eight Gaussian blobs over a
+    floor of 0.2, made with numpy from `seed` and scaled so that its mean
+    over the voxel centres inside the sphere is 1: the homogeneous fog's
+    density, so a chord across the sphere has the fog's optical depth on
+    average."""
+    d = fog(resolution, spp, depth)
+    sphere = d["render"]["shapes"][-1]["prop"]
+    homog = sphere["medium"]["prop"]
+    nx, ny, nz = dims
+    rs = np.random.default_rng(seed)
+    z, y, x = np.meshgrid(*(np.linspace(0.0, 1.0, k) for k in (nz, ny, nx)), indexing="ij")
+    field = np.full((nz, ny, nx), 0.2)
+    for _ in range(8):
+        cx, cy, cz = rs.uniform(0.2, 0.8, 3)
+        width = rs.uniform(0.08, 0.2)
+        field += rs.uniform(0.5, 1.5) * np.exp(
+            -((x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2) / (2.0 * width * width))
+    inside = (x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2 <= 0.25
+    field = (field / field[inside].mean()).astype(np.float32)
+    sphere["medium"] = {"impl": "grid", "prop": {
+        "sigma_a": homog["sigma_a"], "sigma_s": homog["sigma_s"], "phase": homog["phase"],
+        "bounds_min": FOG_BOUNDS[0], "bounds_max": FOG_BOUNDS[1],
+        "dimensions": [nx, ny, nz], "density": [float(v) for v in field.reshape(-1)]}}
+    return d

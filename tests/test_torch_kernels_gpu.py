@@ -7,7 +7,9 @@ binary-tree trace (trace.cu against ops/trace.py walk_plain) and the fused
 whole-path kernel (fused_path.cu against ops/fused_path.py paths_plain),
 its environment mode (on constant maps and on the Nishita sky and an EXR
 sun map, whose alias tables the candidates sample) and ray-input mode
-included.
+included; the cluster traces on a megavpt sample of scenes/fog.json (the
+scatter events' shadow rays start inside 5,120 non-opaque triangles), and
+megavpt's 32^2 renders on the card against their goldens.
 
 Marked `gpu`; every test skips where no card is present. On a machine with
 a card and without JAX:
@@ -1251,3 +1253,85 @@ def test_low_discrepancy_draws_on_the_card_equal_the_cpu(cuda, monkeypatch):
                 assert torch.equal(outs[1][1].cpu(), outs[0][1]), (impl, si, op)
             for k in states[0]:
                 assert torch.equal(states[1][k].cpu(), states[0][k]), (impl, si, k)
+
+
+def _fog_inputs(cuda, res=128, iterations=3):
+    """The cluster kernels' inputs of the first `iterations` loop iterations
+    of the first megavpt sample of scenes/fog.json at res^2 (5,152
+    triangles, 5,120 of them the fog sphere's, which block no shadow ray):
+    each iteration's closest rays, then its scatter events' shadow rays
+    (their origins inside the sphere) and its surface NEE's, the trace
+    module's calls recorded in order."""
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.integrators import mega_vpt
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+    from luisarender_tpu_torch.ops import cluster
+
+    scene = lt.Scene.from_dict(testing.fog((res, res), 1, 10))
+    compiled = lt.compile_scene(scene, device=cuda)
+    assert compiled.plan.has_media and "cluster_nodes" in compiled.arrays["trace"]
+    captured = {"closest": [], "any": []}
+    orig = cluster.closest, cluster.any_hit
+
+    def rec(kind, fn):
+        def call(*args):
+            if len(captured["closest"]) <= iterations:
+                captured[kind].append(tuple(a.clone() for a in args))
+            return fn(*args)
+        return call
+
+    cluster.closest, cluster.any_hit = rec("closest", orig[0]), rec("any", orig[1])
+    try:
+        integ = scene.integrator
+        mega_vpt.vpt_trace_batch(compiled, scene.cameras[0], integ.sampler, integ.light_sampler,
+                                 pixel_grid(res, res, cuda), 0, max_depth=10,
+                                 rr_depth=integ.rr_depth, rr_threshold=integ.rr_threshold)
+    finally:
+        cluster.closest, cluster.any_hit = orig
+    return captured
+
+
+def test_fog_cluster_inputs_match_plain(cuda):
+    """The cluster kernels on the fog scene's rays bit for bit against their
+    plain versions, the scatter events' shadow rays (their origins inside
+    the sphere, past its non-opaque triangles) among them."""
+    from luisarender_tpu_torch.ops import cluster
+
+    cap = _fog_inputs(cuda)
+    assert len(cap["closest"]) >= 3 and len(cap["any"]) >= 6
+    for args in cap["closest"]:
+        _assert_same(cluster.closest(*args), cluster.closest_plain(*args))
+    live_inside = 0
+    for args in cap["any"]:
+        assert torch.equal(cluster.any_hit(*args), cluster.any_plain(*args))
+        o, t_max = args[0], args[3]
+        c = torch.tensor([275.0, 180.0, 280.0], device=cuda)
+        live_inside += int(((t_max > 0) & ((o - c).norm(dim=-1) < 118.0)).sum())
+    assert live_inside > 100
+
+
+@pytest.mark.parametrize("name", ["fog", "fog_grid"])
+def test_megavpt_render_on_the_card_matches_golden(cuda, name):
+    """scenes/fog.json and testing.fog_grid at 32^2, 8 spp, depth 10 on the
+    card against the reference's CPU renders tests/golden/<name>_32_8spp.exr:
+    under 2% of pixels off by more than 1e-3, the mean within 0.5%."""
+    from pathlib import Path
+
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.ops import cluster
+    from luisarender_tpu_torch.utils import imageio
+
+    d = testing.fog((32, 32), 8, 10) if name == "fog" else testing.fog_grid((32, 32), 8, 10)
+    scene = lt.Scene.from_dict(d)
+    c0, a0 = cluster.closest_launches, cluster.any_launches
+    img = lt.render(scene, device=cuda)["fog.exr"]
+    iterations = scene.integrator.iterations_run
+    assert cluster.closest_launches - c0 == iterations > 0
+    assert cluster.any_launches - a0 == 2 * iterations
+    golden = Path(__file__).resolve().parent / "golden" / f"{name}_32_8spp.exr"
+    ref = imageio.load_exr(str(golden))
+    assert img.shape == ref.shape and np.isfinite(img).all()
+    assert float((np.abs(img - ref).max(-1) > 1e-3).mean()) < 0.02
+    assert abs(img.mean() / ref.mean() - 1.0) < 0.005

@@ -92,8 +92,8 @@ def test_unsupported_plugins_raise_not_implemented():
     from luisarender_tpu_torch import testing
 
     d = testing.cornell_box(resolution=(8, 8), spp=1)
-    d["render"]["integrator"]["impl"] = "megavpt"
-    with pytest.raises(NotImplementedError, match="megavpt"):
+    d["render"]["integrator"]["impl"] = "pssmlt"
+    with pytest.raises(NotImplementedError, match="pssmlt"):
         lt.Scene.from_dict(d)
     d = testing.cornell_box(resolution=(8, 8), spp=1)
     d["render"]["shapes"][0]["prop"]["surface"] = {"impl": "matte", "prop": {
