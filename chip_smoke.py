@@ -277,6 +277,20 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              group of normal and direct; seconds and brute launches of each,
              nothing else launched; normal and direct at 32^2 on the card
              against the CPU render by the goldens' rule
+ 16 montecarlo the Monte Carlo variants (phase_montecarlo): bench.py's three
+             long-tail configurations (photon mapping, PSSMLT, GPT) on
+             testing.cornell_box at 128^2, 16 spp, depth 6 (GPT's 4),
+             each rendered twice and the second render timed as bench.py
+             times it: seconds, Msamples/s, the brute kernels' launches
+             and nothing else (no fused launch under PSSMLT), one unit of
+             the integrator's work in parts (photon: emission, grid,
+             camera pass, gather; pssmlt: bootstrap, trace, mutation;
+             gpt: a sample, the reconstruction); the three 32^2 goldens
+             (tests/golden/photon_32_4spp.exr, pssmlt_32_4spp.exr,
+             gpt_32_4spp.exr) by the goldens' rule; the brute closest
+             kernel bit for bit against its plain version on the photon
+             walk's first rays (origins on the light) and on GPT's 4N
+             shifted camera rays, with its time and bound
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -3754,6 +3768,214 @@ def phase_aux(torch, lt, brute, fp, device):
     return recs
 
 
+# --------------------------------------------------------------------------
+# phase 16: the Monte Carlo variants
+# --------------------------------------------------------------------------
+
+# bench.py's long-tail configurations (bench.py:583-587) on
+# testing.cornell_box at MC_RES^2, MC_SPP spp, depth 6, nothing cut
+MC_CONFIGS = {
+    "photon_cornell": {"impl": "megapm", "prop": {"depth": 6}},
+    "pssmlt_cornell": {"impl": "pssmlt", "prop": {"depth": 6}},
+    "gpt_cornell": {"impl": "gpt", "prop": {"depth": 4}},
+}
+MC_RES, MC_SPP = 128, 16
+# the 32^2, 4-spp goldens (the reference's CPU renders) and their integrators
+MC_GOLDENS = {
+    "photon": ({"impl": "photon", "prop": {"depth": 6}},
+               ROOT / "tests" / "golden" / "photon_32_4spp.exr"),
+    "pssmlt": ({"impl": "pssmlt", "prop": {"depth": 6, "chains": 1024, "bootstrap": 4096}},
+               ROOT / "tests" / "golden" / "pssmlt_32_4spp.exr"),
+    "gpt": ({"impl": "gpt", "prop": {"depth": 4}},
+            ROOT / "tests" / "golden" / "gpt_32_4spp.exr"),
+}
+
+
+def mc_scene(lt, integrator, res, spp):
+    from luisarender_tpu_torch import testing
+
+    d = testing.cornell_box(resolution=(res, res), spp=spp, depth=6)
+    d["render"]["integrator"] = json.loads(json.dumps(integrator))
+    return lt.Scene.from_dict(d)
+
+
+def synced_ms(torch, fn):
+    """(fn's result, its wall ms to a synchronize of the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mc_parts(torch, compiled, scene, name):
+    """Wall ms of one unit of each integrator's work, each part to a
+    synchronize: photon, one iteration's emission, grid build, camera pass
+    (its gather inside) and the gather alone; pssmlt, the bootstrap, a
+    trace of the chains and a mutation step; gpt, one sample and the
+    reconstruction."""
+    from luisarender_tpu_torch.integrators.gpt import reconstruct_l2
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+    from luisarender_tpu_torch.integrators.pssmlt import MUTATION_SALT, PSSSampler
+
+    integ, cam = scene.integrator, scene.cameras[0]
+    pxy = pixel_grid(MC_RES, MC_RES, compiled.device)
+    if name == "photon_cornell":
+        radius = integ.radii(compiled, 1)[0]
+        photons, emit = synced_ms(torch, lambda: integ._emit_photons(compiled, 0))
+        grid, build = synced_ms(torch, lambda: integ._build_grid(compiled, photons))
+        _, camera = synced_ms(torch, lambda: integ._camera_pass(
+            compiled, cam, pxy, 0, grid, radius, integ.photons_per_iter))
+        gen = torch.Generator(device=compiled.device).manual_seed(0)
+        gp = torch.rand((pxy.shape[0], 3), device=compiled.device, generator=gen) * 500.0
+        ns = torch.nn.functional.normalize(
+            torch.randn(gp.shape, device=compiled.device, generator=gen), dim=-1)
+        _, gather = synced_ms(torch, lambda: integ._gather(
+            compiled, gp, ns, torch.ones_like(gp), gp[:, 0] >= 0, grid, radius,
+            integ.photons_per_iter))
+        valid = int(photons[3].sum())
+        return {"emit_ms": emit, "grid_ms": build, "camera_pass_ms": camera,
+                "gather_ms_uniform_points": gather, "photons_valid": valid,
+                "cells": int((grid[0] >= 0).sum())}
+    if name == "pssmlt_cornell":
+        sampler = PSSSampler(integ.dims() - 2)
+        (b, u), boot = synced_ms(torch, lambda: integ.bootstrap_chains(compiled, cam, sampler))
+        state, trace = synced_ms(torch, lambda: (u, *integ.trace(compiled, cam, sampler, u)))
+        splat = torch.zeros((MC_RES, MC_RES, 3), device=compiled.device)
+        _, mutate = synced_ms(torch, lambda: integ.mutate_step(
+            compiled, cam, sampler, splat, state, MUTATION_SALT))
+        return {"bootstrap_ms": boot, "trace_ms": trace, "mutation_ms": mutate,
+                "chains": integ.chains, "b": float(b)}
+    stats = {}
+    out, sample = synced_ms(torch, lambda: integ.sample(compiled, cam, pxy, 0, stats))
+    img = out["radiance"].reshape(MC_RES, MC_RES, 3)
+    _, recon = synced_ms(torch, lambda: reconstruct_l2(img, img, img))
+    return {"sample_ms": sample, "iterations_a_sample": stats["iterations"],
+            "reconstruct_ms": recon}
+
+
+def mc_held_rays(torch, lt, brute, device):
+    """The brute kernels' inputs of this slice's new ray distributions: the
+    photon walk's first rays (65,536, their origins on the light) and
+    GPT's 4N shifted camera rays (a 128^2 sample: 65,536 rays, the
+    border's off the film)."""
+    from luisarender_tpu_torch.integrators.mega_path import pixel_grid
+
+    calls = []
+    orig = brute.closest
+
+    def rec(*args):
+        calls.append(tuple(a.clone() for a in args))
+        return orig(*args)
+
+    cases = {}
+    brute.closest = rec
+    try:
+        scene = mc_scene(lt, MC_CONFIGS["photon_cornell"], MC_RES, MC_SPP)
+        compiled = lt.compile_scene(scene, device=device)
+        scene.integrator._emit_photons(compiled, 0)
+        cases["photon_first_rays"] = calls[0]
+        calls.clear()
+        scene = mc_scene(lt, MC_CONFIGS["gpt_cornell"], MC_RES, MC_SPP)
+        compiled = lt.compile_scene(scene, device=device)
+        scene.integrator.sample(compiled, scene.cameras[0], pixel_grid(MC_RES, MC_RES, device), 0)
+        # the main path's camera rays, then the shifted paths'
+        cases["gpt_shifted_camera_rays"] = calls[1]
+    finally:
+        brute.closest = orig
+    light_y = 548.0  # testing.cornell_box's light quad
+    o = cases["photon_first_rays"][0]
+    check(o.shape[0] == 65536 and bool(((o[:, 1] - light_y).abs() < 0.1).all()),
+          "montecarlo: the photon walk's first rays do not start on the light")
+    check(cases["gpt_shifted_camera_rays"][0].shape[0] == 4 * MC_RES * MC_RES,
+          "montecarlo: GPT's shifted camera rays are not 4N")
+    return cases
+
+
+def hold_mc_kernels(torch, lt, brute, device):
+    """The brute closest kernel bit for bit against its plain version on
+    mc_held_rays, with its time, plain time and bound."""
+    out = {}
+    for what, args in mc_held_rays(torch, lt, brute, device).items():
+        errs, frac = compare_case(torch, brute, "closest", args)
+        rows, ops = brute_work(torch, brute, "closest", *args)
+        bound_ms, bound_by = kernel_bounds(torch, "closest", rows, ops, args[4])
+        out[what] = {"n": int(args[0].shape[0]), "rows": int(args[4].shape[0]),
+                     "max_abs_err": max(errs), "hit_fraction": frac,
+                     "ms": device_ms(torch, lambda: brute.closest(*args), iters=20),
+                     "plain_ms": events_ms(torch, lambda: brute.closest_plain(*args), iters=2),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def mc_launches_ok(name, counts, integ, spp):
+    """The brute kernels and nothing else, at the counts the integrator's
+    loops give: photon, per iteration 5 emission bounces and 4 camera
+    bounces (closest) and the camera bounces' NEE (any-hit); pssmlt,
+    closest and any-hit once a bounce of each trace, never the fused
+    kernel; gpt, per sample the main and shifted camera rays, then per loop
+    iteration two closest and four any-hit traces."""
+    others = {k: v for k, v in counts.items() if k not in ("brute_closest", "brute_any")}
+    if any(others.values()):
+        return False
+    c, a = counts["brute_closest"], counts["brute_any"]
+    if name == "photon_cornell":
+        cam = min(integ.max_depth, 4)
+        return c == spp * (integ.photon_depth + cam) and a == spp * cam
+    if name == "pssmlt_cornell":
+        traces = max(integ.bootstrap // integ.chains, 1) + 1 + integ.mutations_run
+        return c == a and traces <= c <= traces * integ.max_depth
+    return c == 2 * spp + 2 * integ.iterations_run and a == 4 * integ.iterations_run
+
+
+def phase_montecarlo(torch, lt, brute, fp, device):
+    """The Monte Carlo variants (integrators/megapm.py, pssmlt.py, gpt.py):
+    bench.py's three long-tail configurations at MC_RES^2, MC_SPP spp,
+    depth 6, each rendered twice and the second render timed as bench.py
+    times it (seconds, Msamples/s), its launches the brute kernels'
+    only (mc_launches_ok: no fused launch), one unit of its work in parts
+    (mc_parts); the three 32^2 goldens on the card by the goldens' rule;
+    the brute closest kernel on this slice's new rays (hold_mc_kernels)."""
+    recs = {}
+    for name, integ_d in MC_CONFIGS.items():
+        scene = mc_scene(lt, integ_d, MC_RES, MC_SPP)
+        compiled = lt.compile_scene(scene, device=device)
+        scene.integrator.render(compiled)  # warms the allocator and the caches
+        reset_counts(brute, fp)
+        t0 = time.perf_counter()
+        img = scene.integrator.render(compiled)[scene.cameras[0].file]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(brute, fp)
+        integ = scene.integrator
+        check_image(img, MC_RES, MC_RES, name)
+        check(mc_launches_ok(name, counts, integ, MC_SPP), f"{name}: launches {counts}")
+        samples = MC_RES * MC_RES * MC_SPP
+        rec = {"phase": "montecarlo", "config": name, "integrator": integ_d,
+               "resolution": [MC_RES, MC_RES], "spp": MC_SPP, "seconds": seconds,
+               "msamples_per_s": samples / seconds / 1e6, "launches": counts,
+               "image_mean": float(img.mean())}
+        if name == "pssmlt_cornell":
+            rec.update({"chains": integ.chains, "mutations": integ.mutations_run,
+                        "paths_traced": integ.paths_traced})
+        if name == "gpt_cornell":
+            rec["iterations"] = integ.iterations_run
+        rec["parts"] = mc_parts(torch, compiled, scene, name)
+        recs[name] = rec
+        emit(rec)
+        del compiled
+    goldens = {}
+    for key, (integ_d, path) in MC_GOLDENS.items():
+        img, seconds, counts = render_counted(torch, lt, brute, fp,
+                                              mc_scene(lt, integ_d, 32, 4), device)
+        check(counts["fused_path"] == 0, f"{key} golden: launches {counts}")
+        goldens[key] = {"seconds": seconds, **golden_check(img, path, 32, 32, f"{key} golden")}
+    recs["kernels"] = {"phase": "montecarlo", "what": "goldens and brute kernels on new rays",
+                       "goldens": goldens, "closest": hold_mc_kernels(torch, lt, brute, device)}
+    emit(recs["kernels"])
+    return recs
+
+
 def main():
     import torch
 
@@ -3817,6 +4039,7 @@ def main():
     phase_display(torch, lt, device)
     media = phase_media(torch, lt, brute, fp, device)
     aux = phase_aux(torch, lt, brute, fp, device)
+    montecarlo = phase_montecarlo(torch, lt, brute, fp, device)
 
     entries = []
     for name, kind_key, line in (("brute_closest", "closest", 79),
@@ -3837,6 +4060,8 @@ def main():
             "launches_samplers": samplers["zsobol"]["launches"][name],
             # the auxiliary integrators' 512^2 renders together (phase 15)
             "launches_aux": sum(r["launches"][name] for k, r in aux.items() if k != "held"),
+            # bench.py's long-tail renders, 128^2, 16 spp (phase 16)
+            "launches_montecarlo": {k: montecarlo[k]["launches"][name] for k in MC_CONFIGS},
             "max_abs_err": brute_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -27,8 +27,11 @@ from .films import base as _films  # noqa: F401
 from .films import display as _film_display  # noqa: F401
 from .filters import impls as _filters  # noqa: F401
 from .integrators import aux as _int_aux  # noqa: F401
+from .integrators import gpt as _int_gpt  # noqa: F401
 from .integrators import mega_path as _int_mega  # noqa: F401
 from .integrators import mega_vpt as _int_vpt  # noqa: F401
+from .integrators import megapm as _int_pm  # noqa: F401
+from .integrators import pssmlt as _int_pssmlt  # noqa: F401
 from .integrators import wave_path as _int_wave  # noqa: F401
 from .lights import diffuse as _light_diffuse  # noqa: F401
 from .lightsamplers import uniform as _ls_uniform  # noqa: F401

@@ -12,7 +12,8 @@ light_entries.*, the light alias tables and light-triangle rows, the
 surface / light / texture rows with their textures, the image atlas
 (texture_atlas, its rects and mip table), the environment's tables, the
 media rows with the instances' medium columns and the density grids
-(density_grids, density_grid_dims), and the fused tables. A two-level
+(density_grids, density_grid_dims), the world bounds (world_min,
+world_max) and the fused tables. A two-level
 scene's `trace2` comes across whole (TLAS, BLASes, instance and shade
 rows, the per-mesh cluster tables `cl_nodes_{m}` / `cl_tris_{m}`); the
 plan's statics that route its composed trace are read back from its
@@ -230,6 +231,8 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
             for c in tex_cls if len(ref_tex.get(c.impl_names[0], {}))
         },
         "trace": trace,
+        "world_min": np.asarray(arrays["world_min"], np.float32),
+        "world_max": np.asarray(arrays["world_max"], np.float32),
     }
     if "environment" in arrays:
         out["environment"] = _numpy_tree(arrays["environment"])

@@ -7,7 +7,8 @@ scene (scene/compiler.py).
 
 `evaluate` returns the radiance towards p_from and the solid-angle pdf of
 sampling that point (for MIS); `sample` picks a point on a light entry and
-returns L, pdf, the point and its geometric normal.
+returns L, pdf, the point and its geometric normal; `sample_le` emits a
+photon: a point, its normal, a direction and the emitted weight.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ class Light(SceneNode):
 
     @staticmethod
     def sample(params, ctx, entry, p_from, u, swl):
+        raise NotImplementedError
+
+    @staticmethod
+    def sample_le(params, ctx, entry, u_pos, u_dir, swl):
         raise NotImplementedError
 
 
@@ -78,4 +83,22 @@ def dispatch_sample(ctx, entry_index, p_from, u, swl):
         rows = gather_rows(ctx.arrays["lights"][t], index)
         value = light_cls.sample(rows, ctx, entry, p_from, u, swl)
         result = {k: _select(mask, value[k], result[k]) for k in result}
+    return result
+
+
+def dispatch_sample_le(ctx, entry_index, u_pos, u_dir, swl):
+    """Polymorphic photon emission from the light-list entries entry_index:
+    every light type's sample_le on every lane, selected by the entry's
+    instance's light tag (the first type's where no type claims a lane)."""
+    entries = ctx.arrays["light_entries"]
+    entry = {k: v[entry_index] for k, v in entries.items()}
+    inst = ctx.arrays["instances"]
+    tag = inst["light_tag"][entry["inst"]]
+    index = inst["light_index"][entry["inst"]]
+    result = None
+    for t, light_cls in enumerate(ctx.plan.light_types):
+        rows = gather_rows(ctx.arrays["lights"][t], index)
+        value = light_cls.sample_le(rows, ctx, entry, u_pos, u_dir, swl)
+        result = value if result is None else {
+            k: _select(tag == t, value[k], result[k]) for k in result}
     return result

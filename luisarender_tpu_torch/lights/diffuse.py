@@ -7,7 +7,8 @@ parameter (textures/base.py): its hoisted constant, or a texture that
 varies evaluated at the light's interaction. A path that hits the light
 evaluates it at its hit, ray-cone footprint included; an NEE sample at the
 sampled point, its uv interpolated from the light-triangle row, with no
-footprint (an image's base level), as in the reference.
+footprint (an image's base level), as in the reference. Photon emission
+(`sample_le`) draws a point as NEE does and a cosine-weighted direction.
 """
 
 from __future__ import annotations
@@ -89,6 +90,33 @@ class DiffuseLight(Light):
         idx = torch.clamp(off + i_local, 0, last)
         row = torch.where(take_alias[..., None], rows[idx], row0)
         return row, up
+
+    @staticmethod
+    def sample_le(params, ctx, entry, u_pos, u_dir, swl):
+        """Photon emission: a triangle picked by area, a uniform point on it
+        and a cosine-weighted direction about its ng. Returns the point p,
+        ng, the direction wi and the weight L * pi * area (the flux over the
+        point's and the direction's pdfs, 1 / area and cos / pi)."""
+        row, up = DiffuseLight._pick_triangle(ctx, entry, u_pos[..., 0])
+        bary = sampling.sample_uniform_triangle(torch.stack([up, u_pos[..., 1]], dim=-1))
+        b0, b1 = bary[..., 0], bary[..., 1]
+        b2 = 1.0 - b0 - b1
+        p = row[..., 0:3] + b1[..., None] * row[..., 3:6] + b2[..., None] * row[..., 6:9]
+        ng = row[..., 9:12]
+        wi = fr.to_world(fr.make_frame(ng), sampling.sample_cosine_hemisphere(u_dir))
+        it_light = None
+        if "emission__h" in params:
+            uv = (b0[..., None] * row[..., 12:14] + b1[..., None] * row[..., 14:16]
+                  + b2[..., None] * row[..., 16:18])
+            zero = torch.zeros_like(b0)
+            it_light = Interaction(
+                valid=zero == 0.0, inst=entry["inst"], prim=torch.full_like(entry["inst"], -1),
+                p=p, ng=ng, ns=ng, tangent=row[..., 3:6], uv=uv, prim_area=zero,
+                back_facing=zero > 0.0,
+            )
+        L = DiffuseLight._radiance(params, ctx, it_light, swl)
+        weight = L * (np.pi * entry["total_area"])[..., None]
+        return {"p": p, "ng": ng, "wi": wi, "weight": weight}
 
     @staticmethod
     def sample(params, ctx, entry, p_from, u, swl):

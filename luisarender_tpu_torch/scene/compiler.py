@@ -693,21 +693,22 @@ class SceneCompiler:
             np.asarray(inst_rows["light_tag"]) >= 0
         )
 
+        # world bounds of the real geometry (not the far padding triangle of
+        # a spheres-only scene, which would put env_distance out of float32's
+        # squared range): the photon grid's box, and the environment's
+        # distance
+        real_p = vertex_p[np.abs(vertex_p).max(axis=-1) < 1e29]
+        mins = [real_p.min(axis=0)] if real_p.size else []
+        maxs = [real_p.max(axis=0)] if real_p.size else []
+        for _, center, radius, _ in sphere_rows:
+            mins.append(center - radius)
+            maxs.append(center + radius)
+        if not mins:
+            mins, maxs = [vertex_p.min(axis=0)], [vertex_p.max(axis=0)]
+        world_min, world_max = np.minimum.reduce(mins), np.maximum.reduce(maxs)
         env_distance = 0.0
         if has_env:
-            # world bounds of the real geometry (not the far padding triangle
-            # of a spheres-only scene, which would put env_distance out of
-            # float32's squared range)
-            real_p = vertex_p[np.abs(vertex_p).max(axis=-1) < 1e29]
-            mins = [real_p.min(axis=0)] if real_p.size else []
-            maxs = [real_p.max(axis=0)] if real_p.size else []
-            for _, center, radius, _ in sphere_rows:
-                mins.append(center - radius)
-                maxs.append(center + radius)
-            if not mins:
-                mins, maxs = [vertex_p.min(axis=0)], [vertex_p.max(axis=0)]
-            extent = np.maximum.reduce(maxs) - np.minimum.reduce(mins)
-            env_distance = float(np.linalg.norm(extent)) * 2.0 + 1.0
+            env_distance = float(np.linalg.norm(world_max - world_min)) * 2.0 + 1.0
 
         atlas, atlas_rects, atlas_mips = self._pack_atlas()
         arrays = {
@@ -737,6 +738,8 @@ class SceneCompiler:
             },
             "media": stack_rows(self._medium_rows),
             "trace": {},
+            "world_min": np.asarray(world_min, np.float32),
+            "world_max": np.asarray(world_max, np.float32),
         }
         arrays["density_grids"], arrays["density_grid_dims"] = self._pack_density_grids()
         statics = {}

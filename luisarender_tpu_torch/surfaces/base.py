@@ -90,6 +90,13 @@ class Surface(SceneNode):
     def roughness(params, ctx, it):
         return torch.ones(it.p.shape[:-1] + (2,), dtype=torch.float32, device=it.p.device)
 
+    @staticmethod
+    def eta_value(params, ctx, it, swl):
+        """The closure's relative index of refraction, 1 where it does not
+        refract (the transmissive half-vector shift of integrators/gpt.py
+        reads it)."""
+        return torch.ones(it.p.shape[:-1], dtype=torch.float32, device=it.p.device)
+
 
 def shading_frame(params, ctx, it):
     """The shading frame, tangent-space normal mapped where the row names a

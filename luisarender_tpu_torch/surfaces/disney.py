@@ -90,6 +90,14 @@ class DisneySurface(Surface):
         }
 
     @staticmethod
+    def eta_value(params, ctx, it, swl):
+        """The index (at least 1.001) where specular transmission is on and
+        the surface is not thin, else 1 (a thin surface refracts without
+        bending)."""
+        refractive = (params["specular_trans"] > 0.0) & ~(params["thin"] > 0.5)
+        return torch.where(refractive, torch.clamp(params["eta"], min=1.001), 1.0)
+
+    @staticmethod
     def _ctx(params, ctx, swl):
         p = params
         c = {

@@ -136,6 +136,10 @@ class GlassSurface(Surface):
         return cauchy_eta(params["cauchy_a"], params["cauchy_b"], swl.lam[..., 0])
 
     @staticmethod
+    def eta_value(params, ctx, it, swl):
+        return GlassSurface._eta_t(params, swl)
+
+    @staticmethod
     def is_dispersive_rows(params, ctx):
         return torch.abs(params["cauchy_b"]) > 1e-9
 

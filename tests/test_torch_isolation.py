@@ -46,7 +46,8 @@ def test_no_module_imports_jax_or_the_reference():
     scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for name in ("core/cie.py", "core/rgb2spec.py", "core/spectrum.py", "spectra/hero.py",
                  "core/medium_tracker.py", "media/base.py", "media/grid.py",
-                 "phasefunctions/hg.py", "integrators/mega_vpt.py", "integrators/aux.py"):
+                 "phasefunctions/hg.py", "integrators/mega_vpt.py", "integrators/aux.py",
+                 "integrators/megapm.py", "integrators/pssmlt.py", "integrators/gpt.py"):
         assert f"luisarender_tpu_torch/{name}" in scanned, name
     assert not bad, bad
 

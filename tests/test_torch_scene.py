@@ -92,8 +92,8 @@ def test_unsupported_plugins_raise_not_implemented():
     from luisarender_tpu_torch import testing
 
     d = testing.cornell_box(resolution=(8, 8), spp=1)
-    d["render"]["integrator"]["impl"] = "pssmlt"
-    with pytest.raises(NotImplementedError, match="pssmlt"):
+    d["render"]["integrator"]["impl"] = "bdpt"
+    with pytest.raises(NotImplementedError, match="bdpt"):
         lt.Scene.from_dict(d)
     d = testing.cornell_box(resolution=(8, 8), spp=1)
     d["render"]["shapes"][0]["prop"]["surface"] = {"impl": "matte", "prop": {

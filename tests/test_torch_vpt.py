@@ -24,8 +24,8 @@ package, on the CPU:
 (e) the repairs: a sphere with a medium stays a mesh (the reference's
     analytic-sphere test), and a scene with media never takes the fused
     fork (has_media, or an instance's medium tag);
-(f) 66 of the reference's 69 plugins registered; photon, pssmlt and gpt
-    still raise NotImplementedError.
+(f) all 69 of the reference's plugins registered, the integrators
+    constructing as the reference's classes.
 """
 
 import json
@@ -289,13 +289,10 @@ def test_registered_plugins():
     def count(reg):
         return sum(len(set(v.values())) for v in reg.values())
 
-    assert count(JREG) == 69 and count(TREG) == 66
+    assert count(JREG) == 69 and count(TREG) == 69
     d = testing.cornell_box(resolution=(8, 8), spp=1)
-    for impl in ("photon", "pssmlt", "gpt"):
-        d["render"]["integrator"]["impl"] = impl
-        with pytest.raises(NotImplementedError, match=impl):
-            lt.Scene.from_dict(d)
-    for impl in ("megavpt", "normal", "direct", "aov"):
+    for impl in ("megavpt", "normal", "direct", "aov", "photon", "sppm", "megapm", "pssmlt",
+                 "mlt", "gpt", "gradient"):
         d["render"]["integrator"]["impl"] = impl
         assert type(lt.Scene.from_dict(d).integrator).__name__ == type(
             lr.Scene.from_dict(d).integrator).__name__
