@@ -291,6 +291,23 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              kernel bit for bit against its plain version on the photon
              walk's first rays (origins on the light) and on GPT's 4N
              shifted camera rays, with its time and bound
+ 17 diff     differentiable rendering and the sharded pass (phase_diff):
+             d mean(img) / d the constant-texture table of
+             testing.cornell_box (16^2, 2 spp, depth 3) on the card
+             against the CPU's (each entry within 1% or 1e-5), and
+             tests/test_diff.py's checks on the card (finite, non-negative
+             on the walls, two finite differences, emission linearity);
+             its 48-step Adam recovery by that test's criteria; bench.py's
+             two gradient configurations, grad_overhead (testing.cornell_box
+             128^2, 2 spp, depth 4, remat) and grad_overhead_mesh
+             (testing.mesh_heavy(textured=True) flat, 640 x 360, 1 spp,
+             depth 4, no remat, the atlas), nothing cut: forward and
+             forward + backward seconds (best of GRAD_CALLS), bench.py's
+             ratio, peak allocated bytes, the trace kernels' launches in
+             the forward and the backward and nothing else, and the atlas
+             scatter-add's device ms (profiler) and a replay of its texels
+             (CUDA events); render_sharded and make_sharded_grad_fn in a
+             one-rank NCCL group against render and l2_loss_fn
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -3976,6 +3993,363 @@ def phase_montecarlo(torch, lt, brute, fp, device):
     return recs
 
 
+# --------------------------------------------------------------------------
+# phase 17: differentiable rendering and the sharded pass
+# --------------------------------------------------------------------------
+
+ALBEDO_PATH = ("textures", "constant", "value")
+ATLAS_PATH = ("texture_atlas",)
+# bench.py's two gradient configurations (bench.py:208-238, 386-426)
+GRAD_CONFIGS = {
+    "grad_overhead": dict(res=(128, 128), spp=2, depth=4, remat=True, path=ALBEDO_PATH,
+                          kernels=("brute_closest", "brute_any")),
+    "grad_overhead_mesh": dict(res=(640, 360), spp=1, depth=4, remat=False, path=ATLAS_PATH,
+                               kernels=("cluster_closest", "cluster_any")),
+}
+GRAD_CALLS = 3  # timed calls of each pass after a warm-up; the best is kept
+
+
+def grad_scene(lt, name):
+    from luisarender_tpu_torch import testing
+
+    if name == "grad_overhead":
+        return lt.Scene.from_dict(testing.cornell_box(resolution=(128, 128), spp=2, depth=4))
+    return lt.Scene.from_dict(testing.mesh_heavy(res=(640, 360), spp=1, depth=4, accel="flat",
+                                                 textured=True))
+
+
+def diff_cornell(lt, device):
+    """tests/test_diff.py's scene: testing.cornell_box(16^2, 4 spp, depth 3)."""
+    from luisarender_tpu_torch import testing
+
+    scene = lt.Scene.from_dict(testing.cornell_box(resolution=(16, 16), spp=4, depth=3))
+    return scene, lt.compile_scene(scene, device=device)
+
+
+def mean_grad(torch, compiled, scene, path, spp, depth, remat=True):
+    """(image, d mean(image) / d path) of the differentiable pass."""
+    from luisarender_tpu_torch.diff.render import get_in, make_render_fn
+
+    render = make_render_fn(compiled, scene.cameras[0], scene.integrator, spp=spp,
+                            max_depth=depth, remat=remat)
+    v = get_in(compiled.arrays, path).clone().requires_grad_(True)
+    img = render({path: v}, compiled.arrays)
+    img.mean().backward()
+    return img.detach(), v.grad
+
+
+def diff_checks(torch, lt, device):
+    """The 16^2 gradient with respect to the constant-texture table (spp 2,
+    depth 3) on the card against the CPU's, each entry within 1% or 1e-5
+    (tests/test_torch_diff.py's rule); tests/test_diff.py's checks on the
+    card: finite, the walls' rgb non-negative, the finite differences of
+    two entries within max(0.15 |fd|, 2e-4), emission linearity to rtol
+    1e-3."""
+    from luisarender_tpu_torch.diff.render import make_render_fn
+
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        scene, compiled = diff_cornell(lt, dev)
+        grads.append(mean_grad(torch, compiled, scene, ALBEDO_PATH, 2, 3)[1].cpu().numpy())
+    g, g_cpu = grads
+    gap = np.abs(g - g_cpu)
+    check(bool(np.all((gap <= 0.01 * np.abs(g_cpu)) | (gap <= 1e-5))),
+          f"diff: the card's gradient is off the CPU's by {float(gap.max())}")
+    check(bool(np.isfinite(g).all()) and bool((g[:, :3] >= -1e-6).all()) and g.max() > 1e-5,
+          "diff: the gradient is not finite, or negative on a wall's rgb")
+    scene, compiled = diff_cornell(lt, device)
+    render = make_render_fn(compiled, scene.cameras[0], scene.integrator, spp=2, max_depth=3)
+    base = compiled.arrays["textures"]["constant"]["value"]
+
+    def loss(v):
+        with torch.no_grad():
+            return float(render({ALBEDO_PATH: v}, compiled.arrays).mean())
+
+    fd = {}
+    for idx in [(0, 0), (1, 0)]:
+        up, down = base.clone(), base.clone()
+        up[idx] += 1e-3
+        down[idx] -= 1e-3
+        fd[str(idx)] = (loss(up) - loss(down)) / 2e-3
+        check(abs(fd[str(idx)] - g[idx]) <= max(0.15 * abs(fd[str(idx)]), 2e-4),
+              f"diff: finite difference {idx} {fd[str(idx)]} against {g[idx]}")
+    emis_row = int(torch.argmax(base[:, :3].amax(dim=1)))
+    scale = torch.ones((), device=device, requires_grad=True)
+    v = torch.cat([base[:emis_row], base[emis_row:emis_row + 1] * scale, base[emis_row + 1:]])
+    total = render({ALBEDO_PATH: v}, compiled.arrays).sum()
+    total.backward()
+    lin = float(scale.grad) / float(total.detach()) - 1.0
+    check(abs(lin) <= 1e-3, f"diff: emission linearity off by {lin}")
+    return {"max_gap_to_cpu": float(gap.max()), "grad_max": float(g.max()),
+            "finite_differences": fd, "emission_linearity_rel": lin}
+
+
+def diff_recovery(torch, lt, device):
+    """tests/test_diff.py::test_recover_albedo on the card: 48 Adam steps
+    (lr 8e-2, bounds (0, 32)) from grey walls against a 4-spp target, by
+    that test's criteria."""
+    from luisarender_tpu_torch.diff.optimize import recover
+    from luisarender_tpu_torch.diff.render import get_in, make_render_fn
+
+    scene, compiled = diff_cornell(lt, device)
+    cam, integ = scene.cameras[0], scene.integrator
+    true_t = get_in(compiled.arrays, ALBEDO_PATH)
+    with torch.no_grad():
+        target = make_render_fn(compiled, cam, integ, spp=4, max_depth=3)(
+            {ALBEDO_PATH: true_t}, compiled.arrays)
+    true = true_t.cpu().numpy()
+    init = true.copy()
+    emis_row = int(np.argmax(init[:, :3].max(axis=1)))
+    for i in range(init.shape[0]):
+        if i != emis_row:
+            init[i, :3] = 0.5
+    (params, losses), ms = synced_ms(torch, lambda: recover(
+        compiled, cam, integ, target, {ALBEDO_PATH: init}, spp=4, max_depth=3, steps=48,
+        learning_rate=8e-2, param_bounds=(0.0, 32.0)))
+    rec = params[ALBEDO_PATH].cpu().numpy()
+    red, green = 4, 3
+    ok = (losses[-1] < losses[0] * 0.1
+          and np.allclose(rec[0, :3], true[0, :3], rtol=0, atol=0.05)
+          and np.allclose(rec[emis_row, :3], true[emis_row, :3], rtol=0.05, atol=0)
+          and np.argmax(rec[red, :3]) == 0 and np.argmax(rec[green, :3]) == 1
+          and abs(rec[red, 0] - true[red, 0]) <= 0.1
+          and abs(rec[green, 1] - true[green, 1]) <= 0.1)
+    check(ok, f"diff: the 48-step recovery missed: losses {losses[0]} -> {losses[-1]}, "
+              f"rows {rec[:, :3].tolist()}")
+    return {"steps": 48, "seconds": ms / 1e3, "loss_first": losses[0], "loss_last": losses[-1],
+            "white": rec[0, :3].tolist(), "red": rec[red, :3].tolist(),
+            "green": rec[green, :3].tolist(), "emission": rec[emis_row, :3].tolist()}
+
+
+def atlas_scatter_us(prof, shape):
+    """Device us of the atlas gradient's scatter-adds in a profiled pass:
+    the index_put_ ops (with accumulate: indexing's backward) whose first
+    input has the atlas's shape, their kernels and children's."""
+    names = ("aten::index_put_", "aten::_index_put_impl_")
+
+    def hit(e):
+        return e.name in names and bool(e.input_shapes) and list(e.input_shapes[0]) == shape
+
+    return sum(e.device_time_total for e in prof.events()
+               if hit(e) and not (e.cpu_parent is not None and hit(e.cpu_parent)))
+
+
+def atlas_scatter(torch, compiled, fwd_bwd):
+    """The atlas gradient's scatter-add in one pass: its device ms under
+    torch.profiler (None where the profiler traces no device work), and a
+    replay of the pass's gathered texels (textures/image.py atlas_gather,
+    recorded) into a zero atlas by index_put_ with accumulate, wall ms
+    between CUDA events (host dispatch included), and beside it the same
+    sums by index_add_ on the flattened atlas (atomic adds, a sum order
+    that varies from run to run; the port does not call it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from luisarender_tpu_torch.textures import image
+
+    atlas = compiled.arrays["texture_atlas"]
+    calls = []
+    orig = image.atlas_gather
+
+    def rec(a, ys, xs):
+        calls.append((ys.detach().long(), xs.detach().long()))
+        return orig(a, ys, xs)
+
+    image.atlas_gather = rec
+    try:
+        fwd_bwd()
+    finally:
+        image.atlas_gather = orig
+    texels = sum(int(ys.numel()) for ys, _ in calls)
+    check(texels > 0, "diff: the mesh configuration gathered no texel")
+    gen = torch.Generator(device=atlas.device).manual_seed(0)
+    grads = [torch.rand((*ys.shape, atlas.shape[-1]), device=atlas.device, generator=gen)
+             for ys, _ in calls]
+
+    def replay():
+        out = torch.zeros_like(atlas)
+        for (ys, xs), g in zip(calls, grads):
+            out.index_put_((ys, xs), g, accumulate=True)
+        return out
+
+    replay_ms = events_ms(torch, replay, iters=5)
+    rows = [(ys * atlas.shape[1] + xs).reshape(-1) for ys, xs in calls]
+
+    def replay_add():
+        out = torch.zeros_like(atlas).view(-1, atlas.shape[-1])
+        for r, g in zip(rows, grads):
+            out.index_add_(0, r, g.reshape(-1, atlas.shape[-1]))
+        return out
+
+    add = replay_add().view_as(atlas)
+    ref = replay()
+    add_err = float((add - ref).abs().max() / ref.abs().max())
+    add_ms = events_ms(torch, replay_add, iters=5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    us = atlas_scatter_us(prof, list(atlas.shape))
+    busy = sum(e.device_time_total for e in device_events(prof))
+    return {"gathers": len(calls), "texels": texels, "atlas_shape": list(atlas.shape),
+            "scatter_add_device_ms": us / 1e3 if busy else None,
+            "pass_device_busy_ms": busy / 1e3 if busy else None,
+            "scatter_add_replay_ms": replay_ms, "index_add_replay_ms": add_ms,
+            "index_add_rel_err": add_err}
+
+
+def grad_config(torch, lt, brute, fp, device, name, cfg):
+    """One of bench.py's gradient configurations: the forward (no graph)
+    and the forward plus backward of mean(image), each the best of
+    GRAD_CALLS calls after a warm-up, to a synchronize; bench.py's
+    grad_pass_overhead (t_f + t_fb) / t_f; the peak of allocated device
+    memory in each; the trace kernels' launches in the forward and in the
+    backward (with remat, the backward's recompute re-launches them)."""
+    from luisarender_tpu_torch.diff.render import get_in, make_render_fn
+
+    scene = grad_scene(lt, name)
+    compiled, compile_s = timed_compile(torch, lt, scene, device)
+    render = make_render_fn(compiled, scene.cameras[0], scene.integrator, spp=cfg["spp"],
+                            max_depth=cfg["depth"], resolution=cfg["res"], remat=cfg["remat"])
+    path = cfg["path"]
+    base = get_in(compiled.arrays, path)
+
+    def fwd():
+        with torch.no_grad():
+            return render({path: base}, compiled.arrays).mean()
+
+    def fwd_bwd():
+        v = base.detach().requires_grad_(True)
+        render({path: v}, compiled.arrays).mean().backward()
+        return v.grad
+
+    def best(fn):
+        fn()
+        times = []
+        for _ in range(GRAD_CALLS):
+            _, ms = synced_ms(torch, fn)
+            times.append(ms / 1e3)
+        return min(times), times
+
+    t_f, f_all = best(fwd)
+    t_fb, fb_all = best(fwd_bwd)
+    peaks = {}
+    for key, fn in (("forward", fwd), ("forward_backward", fwd_bwd)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        fn()
+        torch.cuda.synchronize()
+        peaks[key] = torch.cuda.max_memory_allocated(device)
+    v = base.detach().requires_grad_(True)
+    reset_counts(brute, fp)
+    img = render({path: v}, compiled.arrays)
+    torch.cuda.synchronize()
+    launches_f = read_counts(brute, fp)
+    reset_counts(brute, fp)
+    img.mean().backward()
+    torch.cuda.synchronize()
+    launches_b = read_counts(brute, fp)
+    g = v.grad
+    check_image(img.detach().cpu().numpy(), cfg["res"][0], cfg["res"][1], name)
+    check(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0.0,
+          f"{name}: the gradient is not finite or is zero")
+    bounces = cfg["spp"] * (cfg["depth"] + 1)
+    others = [k for k in launches_f if k not in cfg["kernels"] and (launches_f[k] or launches_b[k])]
+    check(not others, f"{name}: launches of {others}")
+    for k in cfg["kernels"]:
+        check(launches_f[k] == bounces, f"{name}: {launches_f[k]} {k} launches in the forward, "
+                                        f"not {bounces}")
+        check(0 < launches_b[k] <= bounces if cfg["remat"] else launches_b[k] == 0,
+              f"{name}: {launches_b[k]} {k} launches in the backward")
+    rec = {"phase": "diff", "config": name, "resolution": list(cfg["res"]), "spp": cfg["spp"],
+           "depth": cfg["depth"], "remat": cfg["remat"], "path": list(path),
+           "compile_seconds": compile_s, "forward_seconds": t_f,
+           "forward_backward_seconds": t_fb, "forward_seconds_all": f_all,
+           "forward_backward_seconds_all": fb_all,
+           "grad_pass_overhead": (t_f + t_fb) / t_f, "forward_backward_over_forward": t_fb / t_f,
+           "peak_allocated_bytes": peaks,
+           "launches_forward": {k: launches_f[k] for k in cfg["kernels"]},
+           "launches_backward": {k: launches_b[k] for k in cfg["kernels"]},
+           "image_mean": float(img.detach().mean()), "grad_abs_sum": float(g.abs().sum())}
+    if path == ATLAS_PATH:
+        rec["atlas_scatter_add"] = atlas_scatter(torch, compiled, fwd_bwd)
+    emit(rec)
+    return rec
+
+
+def free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def diff_sharded(torch, lt, device):
+    """The sharded pass (parallel/render.py) in a one-rank NCCL group:
+    render_sharded against the integrator's render of testing.cornell_box
+    (32^2, 2 spp, depth 3) within rtol 1e-5 / atol 1e-6 (the reference's
+    rule, tests/test_parallel.py), and make_sharded_grad_fn against
+    l2_loss_fn's loss and gradient on one device."""
+    import torch.distributed as dist
+
+    from luisarender_tpu_torch import testing
+    from luisarender_tpu_torch.diff.render import get_in, l2_loss_fn, make_render_fn
+    from luisarender_tpu_torch.parallel.render import (
+        make_mesh, make_sharded_grad_fn, render_sharded,
+    )
+
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device)
+        scene = lt.Scene.from_dict(testing.cornell_box(resolution=(32, 32), spp=2, depth=3))
+        compiled = lt.compile_scene(scene, device=device)
+        cam, integ = scene.cameras[0], scene.integrator
+        img = render_sharded(compiled, cam, integ, mesh, spp=2).cpu().numpy()
+        single = integ.render(compiled)[cam.file]
+        check(np.allclose(img, single, rtol=1e-5, atol=1e-6),
+              f"diff: render_sharded is off the render by {float(np.abs(img - single).max())}")
+        target = np.random.default_rng(0).uniform(0.0, 0.3, (32, 32, 3)).astype(np.float32)
+        base = get_in(compiled.arrays, ALBEDO_PATH)
+        loss_s, grads_s = make_sharded_grad_fn(compiled, cam, integ, target, mesh, spp=2,
+                                               max_depth=3)({ALBEDO_PATH: base}, compiled.arrays)
+        v = base.clone().requires_grad_(True)
+        render = make_render_fn(compiled, cam, integ, spp=2, max_depth=3)
+        loss = l2_loss_fn(render, torch.as_tensor(target, device=device))({ALBEDO_PATH: v},
+                                                                         compiled.arrays)
+        loss.backward()
+        g_s, g = grads_s[ALBEDO_PATH].cpu().numpy(), v.grad.cpu().numpy()
+        check(np.allclose(float(loss_s), float(loss.detach()), rtol=1e-5, atol=0.0)
+              and np.allclose(g_s, g, rtol=1e-4, atol=1e-7),
+              f"diff: the sharded loss / gradient is off one device's by "
+              f"{abs(float(loss_s) - float(loss.detach()))} / {float(np.abs(g_s - g).max())}")
+        return {"ranks": mesh.size(), "backend": dist.get_backend(),
+                "image_max_abs_diff": float(np.abs(img - single).max()),
+                "loss_rel_diff": float(loss_s) / float(loss.detach()) - 1.0,
+                "grad_max_abs_diff": float(np.abs(g_s - g).max())}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_diff(torch, lt, brute, fp, device):
+    """Differentiable rendering and the sharded pass (diff/, parallel/):
+    diff_checks, diff_recovery, bench.py's two gradient configurations
+    (grad_config) and diff_sharded."""
+    t0 = time.perf_counter()
+    recs = {"checks": diff_checks(torch, lt, device)}
+    recs["recovery"] = diff_recovery(torch, lt, device)
+    emit({"phase": "diff", "what": "16^2 gradient, checks and the 48-step recovery",
+          **{k: recs[k] for k in ("checks", "recovery")}})
+    for name, cfg in GRAD_CONFIGS.items():
+        recs[name] = grad_config(torch, lt, brute, fp, device, name, cfg)
+    recs["sharded"] = diff_sharded(torch, lt, device)
+    emit({"phase": "diff", "what": "the sharded pass, one NCCL rank", **recs["sharded"],
+          "phase_seconds": time.perf_counter() - t0})
+    return recs
+
+
 def main():
     import torch
 
@@ -4040,6 +4414,7 @@ def main():
     media = phase_media(torch, lt, brute, fp, device)
     aux = phase_aux(torch, lt, brute, fp, device)
     montecarlo = phase_montecarlo(torch, lt, brute, fp, device)
+    diff = phase_diff(torch, lt, brute, fp, device)
 
     entries = []
     for name, kind_key, line in (("brute_closest", "closest", 79),
@@ -4062,6 +4437,10 @@ def main():
             "launches_aux": sum(r["launches"][name] for k, r in aux.items() if k != "held"),
             # bench.py's long-tail renders, 128^2, 16 spp (phase 16)
             "launches_montecarlo": {k: montecarlo[k]["launches"][name] for k in MC_CONFIGS},
+            # bench.py's grad_overhead (128^2, 2 spp, depth 4, remat): one a
+            # bounce in the forward, the recompute's in the backward
+            "launches_diff": {"forward": diff["grad_overhead"]["launches_forward"][name],
+                              "backward": diff["grad_overhead"]["launches_backward"][name]},
             "max_abs_err": brute_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -4130,6 +4509,11 @@ def main():
             # two (scatter-event and surface NEE); and testing.fog_grid's
             "launches_media": media["fog"]["launches"][name],
             "launches_media_grid": media["fog_grid"]["launches"][name],
+            # bench.py's grad_overhead_mesh (640 x 360, 1 spp, depth 4, no
+            # remat): one a bounce in the forward, none in the backward
+            "launches_diff": {
+                "forward": diff["grad_overhead_mesh"]["launches_forward"][name],
+                "backward": diff["grad_overhead_mesh"]["launches_backward"][name]},
             "max_abs_err": cluster_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

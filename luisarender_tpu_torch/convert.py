@@ -28,7 +28,11 @@ port's own compiler does; a parameter whose texture varies keeps its
 handle as `<name>__h` (textures/base.py). Handles index the texture types
 in the reference's order, which the plan takes over. Under a spectrum that
 is not fixed, the colour parameters get their fitted coefficients from the
-function the compiler uses (scene/compiler.py hoist_spectral_coeffs).
+function the compiler uses (scene/compiler.py hoist_spectral_coeffs). The
+`__src` columns also come across as the scene's hoisting sources
+(`hoist_src`), from which the differentiable pass hoists anew. A params
+dict of the reference's differentiable pass comes across with
+`params_to_device`.
 """
 
 from __future__ import annotations
@@ -36,12 +40,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core.device import resolve_device
 from .ops import subpacket
 from .scene.compiler import (
-    FLOAT_INSTANCE_KEYS, INT_INSTANCE_KEYS, CompiledScene, ScenePlan, drop_unused,
-    hoist_spectral_coeffs, tables_to_device,
+    FLOAT_INSTANCE_KEYS, HOIST_GROUPS, INT_INSTANCE_KEYS, CompiledScene, ScenePlan, drop_unused,
+    hoist_spectral_coeffs, tables_to_device, to_device,
 )
 from .scene.node import SceneNodeTag
 from .scene.registry import lookup, registered
@@ -103,6 +108,29 @@ def _convert_rows(table, cls, const):
                 np.asarray(table.get(name, -1)) >= 0)
             out[name + "__p"] = present.astype(np.float32)
     return drop_unused(out)
+
+
+def _hoist_sources(arrays, tables):
+    """The reference's `<name>__src` columns of the parameters the port's
+    tables hoist, in scene/compiler.py split_sources' layout."""
+
+    def src(ref, port):
+        return {k[: -len("__src")]: np.asarray(v, np.int32) for k, v in ref.items()
+                if k.endswith("__src") and k[: -len("__src")] in port and np.any(np.asarray(v) >= 0)}
+
+    out = {g: [src(r, p) for r, p in zip(arrays.get(g, []), tables.get(g, []))]
+           for g in HOIST_GROUPS}
+    out["textures"] = {k: src(arrays["textures"][k], t) for k, t in tables["textures"].items()}
+    return out
+
+
+def params_to_device(params, device=None):
+    """A params dict of the reference's differentiable pass ({path: array},
+    luisarender_tpu/diff/render.py) as the port's (diff/render.py): {path
+    tuple: float32 tensor on `device`}, default the first CUDA card."""
+    dev = resolve_device(device)
+    return {tuple(path): torch.tensor(np.asarray(v, np.float32), device=dev)
+            for path, v in params.items()}
 
 
 def _any_wrapper(tables, name):
@@ -292,4 +320,5 @@ def convert(arrays, surface_types, light_types, scene, device=None,
         scene=scene,
         spectrum=spectrum,
         device=dev,
+        hoist_src=to_device(_hoist_sources(arrays, tables), dev),
     )

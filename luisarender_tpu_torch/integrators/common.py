@@ -57,13 +57,18 @@ def has_work(carry) -> bool:
 
 
 def shade_surface(compiled, light_sampler, it, wo, swl, L, ray, beta,
-                  pdf_bsdf, eta_scale, active, n_rays, uniforms, defer_shadow=False):
+                  pdf_bsdf, eta_scale, active, n_rays, uniforms, defer_shadow=False,
+                  detach_sampling=False):
     """NEE + BSDF sampling at surface hits. uniforms = (u_sel, u_light (2),
     u_lobe, u_bsdf (2)). Returns the updated
     (L, ray, beta, pdf_bsdf, eta_scale, active, n_rays, event); with
     defer_shadow=True the NEE shadow ray is not traced, and a dict {ray,
     contrib, pending} follows for the caller to trace it and add contrib
-    where it is pending and not occluded."""
+    where it is pending and not occluded. detach_sampling=True stops
+    gradients at the light sample's pdf, wi, p and ng and at the BSDF
+    sample's wi and pdf, as the reference's differentiable pass does
+    (diff/render.py): gradients flow through BSDF values, textures and
+    emission, not through the sampling decisions."""
     geom = compiled.trace_geometry()
     n = it.p.shape[0]
     c = compiled.plan.spectral_dim
@@ -73,6 +78,8 @@ def shade_surface(compiled, light_sampler, it, wo, swl, L, ray, beta,
     do_nee = compiled.plan.num_lights > 0 or compiled.plan.has_environment
     if do_nee:
         ls = light_sampler.sample(compiled, it, u_sel, u_light, swl)
+        if detach_sampling:
+            ls = {**ls, **{k: ls[k].detach() for k in ("pdf", "wi", "p", "ng")}}
         f_eval = surf_base.dispatch(
             compiled, it, "evaluate", swl, wo, ls["wi"],
             init={"f": it.p.new_zeros((n, c)), "pdf": zeros},
@@ -111,6 +118,8 @@ def shade_surface(compiled, light_sampler, it, wo, swl, L, ray, beta,
                   "contrib": it.p.new_zeros((n, c)), "pending": zeros > 1.0}
 
     # --- BSDF sampling result ---
+    if detach_sampling:
+        s = {**s, "wi": s["wi"].detach(), "pdf": s["pdf"].detach()}
     new_ray = ct.spawn_ray(it, s["wi"])
     act3 = active[..., None]
     ray = ct.Ray(
@@ -141,9 +150,10 @@ def shade_surface(compiled, light_sampler, it, wo, swl, L, ray, beta,
 
 
 def bounce_step(compiled, sampler, light_sampler, carry, *,
-                max_depth, rr_depth, rr_threshold):
+                max_depth, rr_depth, rr_threshold, detach_sampling=False):
     """Advance every active path by one bounce; returns the new carry.
-    Paths that end this bounce have active=False and their final L."""
+    Paths that end this bounce have active=False and their final L.
+    detach_sampling: as for shade_surface."""
     geom = compiled.trace_geometry()
     ray = carry["ray"]
     beta = carry["beta"]
@@ -205,6 +215,7 @@ def bounce_step(compiled, sampler, light_sampler, carry, *,
     L, ray, beta, pdf_bsdf, eta_scale, active, n_rays, _ = shade_surface(
         compiled, light_sampler, it, wo, swl, L, ray, beta, pdf_bsdf,
         eta_scale, active, n_rays, (u_sel, u_light, u_lobe, u_bsdf),
+        detach_sampling=detach_sampling,
     )
 
     # --- Russian roulette ---

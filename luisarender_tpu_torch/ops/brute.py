@@ -6,7 +6,9 @@ compacted in shared memory, the table staged there; the source says why).
 On CPU tensors they run the plain PyTorch versions below, which repeat the
 kernels' arithmetic in the same order; the CPU tests hold those against the
 Pallas kernels in interpret mode. There is no fallback: a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. `closest` and `any_hit` are
+torch.autograd.Functions that pass no gradient (ops/nograd.py), as the
+reference's custom VJP passes zeros, on either device.
 
 Table: (P, 16) float32 rows, P <= MAX_TRIS; cols 0-8 v0/e1/e2, 9 valid
 (0 = padding row), 10 opaque (blocks shadow rays).
@@ -21,6 +23,8 @@ import ctypes
 import math
 
 import torch
+
+from .nograd import no_grad_entry
 
 MAX_TRIS = 512
 TRI_COLS = 16
@@ -185,6 +189,7 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+@no_grad_entry
 def closest(o, d, t_min, t_max, table, counters=None):
     """Closest hit of each ray: (t (inf on miss), slot (-1 on miss), u, v).
     `counters`, on the card only, is an int64 tensor of len(COUNTERS) that
@@ -213,6 +218,7 @@ def closest(o, d, t_min, t_max, table, counters=None):
     return t, slot, u, v
 
 
+@no_grad_entry
 def any_hit(o, d, t_min, t_max, table, counters=None):
     """Occlusion of each ray by any valid opaque row within (t_min, t_max),
     as bool; `counters` as for closest."""

@@ -22,7 +22,8 @@ versions below, which walk the same tree with the same per-lane order and
 arithmetic. There is no fallback: a CUDA tensor launches the kernel or
 raises. A malformed tree (a stack deeper than STACK_DEPTH, more than
 4 N + 64 pops for a ray, a child or cluster index out of range) raises in
-both.
+both. `closest` and `any_hit` are torch.autograd.Functions that pass no
+gradient (ops/nograd.py), as the reference's custom VJP passes zeros.
 
 The reference's wrapper sorts launches of at least 32,768 rays
 (cluster_pallas.py MIN_SORT_RAYS) into coherent packets first.
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from .brute import mt_uvt
+from .nograd import no_grad_entry
 
 CLUSTER = 128  # triangles a leaf block
 TRI_COLS = 16
@@ -524,6 +526,7 @@ def _run(o, d, t_min, t_max, nodes, tris, any_hit, err):
     return out
 
 
+@no_grad_entry
 def closest(o, d, t_min, t_max, nodes, tris, err=None):
     """Closest hit of each ray: (t (inf on miss), slot (-1 on miss), u, v),
     slot = the triangle's row in the scene's SAH order. `err`, an int32
@@ -538,6 +541,7 @@ def closest(o, d, t_min, t_max, nodes, tris, err=None):
     return _run(o, d, t_min, t_max, nodes, tris, False, err)
 
 
+@no_grad_entry
 def any_hit(o, d, t_min, t_max, nodes, tris, err=None):
     """Occlusion of each ray by any valid opaque triangle within
     (t_min, t_max); `err` as for closest."""

@@ -34,7 +34,9 @@ launches the kernel or raises. Both size the per-ray stack from the tree
 (`stack8_need`; the kernels are built with STACKS8 entries and a launch
 takes the least that holds it, `stack_build`). A malformed tree (a stack
 deeper than that bound, more than 4 N8 + 64 pops for a ray, a child or
-cluster index out of range) raises in both.
+cluster index out of range) raises in both. `closest` and `any_hit` are
+torch.autograd.Functions that pass no gradient (ops/nograd.py), as the
+reference's custom VJP passes zeros.
 
 The reference's wrapper sorts launches of at least 32,768 rays into
 coherent packets first (subpacket_pallas.py:596-608, MIN_SORT_RAYS).
@@ -60,6 +62,7 @@ import torch
 
 from .cluster import CLUSTER, COUNTERS as WALK_COUNTERS, ERR_INDEX, ERR_STACK, ERR_STEPS, _BIG
 from .cluster import coherence_keys, safe_inv, stack_need
+from .nograd import no_grad_entry
 
 # the route is taken only when asked for, as in the reference
 ENABLED = os.environ.get("LR_SUBPACKET", "0") != "0"
@@ -687,6 +690,7 @@ def _run(o, d, t_min, t_max, slab8, meta8, woop, any_hit, stack):
     return out
 
 
+@no_grad_entry
 def closest(o, d, t_min, t_max, slab8, meta8, woop, stack=None):
     """Closest hit of each ray: (t (inf on miss), slot (-1 on miss), u, v)
     with u = v = NaN: the exact (u, v) are the caller's to recompute.
@@ -703,6 +707,7 @@ def closest(o, d, t_min, t_max, slab8, meta8, woop, stack=None):
     return t, slot, nan, nan
 
 
+@no_grad_entry
 def any_hit(o, d, t_min, t_max, slab8, meta8, woop, stack=None):
     """Occlusion of each ray by any opaque triangle within (t_min, t_max);
     `stack` as for `closest`."""

@@ -18,7 +18,9 @@ There is no fallback: a CUDA tensor launches the kernel or raises. Both
 size the per-ray stack from the tree (ops/subpacket.py resolve_stack8); the
 kernel is built with the stacks of ops/subpacket.py STACKS8 and a launch
 takes the least that holds the bound (`stack_build`). A malformed tree
-raises in both.
+raises in both. `closest` and `any_hit` are torch.autograd.Functions that
+pass no gradient (ops/nograd.py), as the reference's custom VJP passes
+zeros.
 
 The reference's wrapper sorts launches of at least 32,768 rays into
 coherent packets first (wide8_pallas.py:340-352, MIN_SORT_RAYS).
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from .cluster import CLUSTER, COUNTERS as WALK_COUNTERS, TRI_COLS, leaf_blocks_plain, slab
+from .nograd import no_grad_entry
 from .subpacket import (STACKS8, check_bvh8, check_counters, raise_walk_error, resolve_stack8,
                         stack_build, walk8_plain)
 
@@ -210,6 +213,7 @@ def _run(o, d, t_min, t_max, slab8, meta8, cboxes, tris, any_hit, stack):
     return out
 
 
+@no_grad_entry
 def closest(o, d, t_min, t_max, slab8, meta8, cboxes, tris, stack=None):
     """Closest hit of each ray: (t (inf on miss), slot (-1 on miss), u, v).
     `stack`: the tree's stack bound when the caller has it (ScenePlan
@@ -223,6 +227,7 @@ def closest(o, d, t_min, t_max, slab8, meta8, cboxes, tris, stack=None):
     return _run(o, d, t_min, t_max, slab8, meta8, cboxes, tris, False, stack)
 
 
+@no_grad_entry
 def any_hit(o, d, t_min, t_max, slab8, meta8, cboxes, tris, stack=None):
     """Occlusion of each ray by any valid opaque triangle within
     (t_min, t_max); `stack` as for `closest`."""

@@ -27,7 +27,10 @@ Every scene keeps the binary SAH tree (`aabb_min`, `aabb_max`, `skip`,
 ops/trace.py. Spheres that qualify
 (`analytic_sphere`) are exact quadrics in their own table instead of
 triangles. Textures compile to handles and rows of per-type tables
-(`arrays["textures"]`, textures/base.py), and the image textures' levels
+(`arrays["textures"]`, textures/base.py; a parameter that names a constant
+texture holds its value, and the scene's `hoist_src` where it came from,
+so that the differentiable pass can hoist it anew: `hoist_constants`),
+and the image textures' levels
 to one atlas (`texture_atlas`, `texture_atlas_rects`, `texture_atlas_mips`;
 `_pack_atlas`); the environment, when the scene
 has one, to its own tables (`arrays["environment"]`) and the plan's
@@ -130,6 +133,10 @@ class CompiledScene:
     scene: Any  # host node graph
     spectrum: Any  # SpectrumModel
     device: torch.device
+    # where each parameter hoisted from a constant texture reads it
+    # (split_sources, on `device`); the differentiable pass hoists anew
+    # from it (hoist_constants)
+    hoist_src: Optional[dict] = None
 
     def trace_geometry(self):
         """The flat tables as a TraceGeometry, or a two-level scene's as a
@@ -166,19 +173,20 @@ INT_INSTANCE_KEYS = (
 FLOAT_INSTANCE_KEYS = ("medium_priority",)
 
 
+def to_device(x, device):
+    """A nested dict / list of numpy arrays as tensors on `device` (copies)."""
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [to_device(v, device) for v in x]
+    return torch.tensor(np.asarray(x), device=device)
+
+
 def tables_to_device(arrays_np: dict, device) -> dict:
     """numpy tables -> tensors on `device`, adding the brute-force kernel
     table (ops/brute.py layout) built from the trace arrays to a scene
     without cluster tables."""
-
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [conv(v) for v in x]
-        return torch.tensor(np.asarray(x), device=device)  # a copy
-
-    out = conv(arrays_np)
+    out = to_device(arrays_np, device)
     tr = out["trace"]
     if "tri_v0" in tr and "cluster_nodes" not in tr:
         tr["tri_table"] = brute.make_tri_table(
@@ -220,6 +228,58 @@ def hoist_spectral_coeffs(arrays, plan, spectrum):
     out = dict(arrays)
     out["surfaces"] = [aug(t, c) for t, c in zip(arrays["surfaces"], plan.surface_types)]
     out["lights"] = [aug(t, c) for t, c in zip(arrays["lights"], plan.light_types)]
+    return out
+
+
+# the parameter tables a type a group; "textures" is a dict by type name
+HOIST_GROUPS = ("surfaces", "lights", "media")
+
+
+def split_sources(arrays):
+    """Take the `<name>__src` columns (textures/base.py compile_tex_param)
+    out of the parameter tables, in place, and return them: {group: [{name:
+    rows' constant-table rows} a type]} for HOIST_GROUPS, and {"textures":
+    {type: {name: ...}}}; a column where no row hoists a constant is
+    dropped."""
+
+    def split(table):
+        src = {k[: -len("__src")]: table.pop(k) for k in [k for k in table if k.endswith("__src")]}
+        return {k: v for k, v in src.items() if np.any(np.asarray(v) >= 0)}
+
+    out = {g: [split(t) for t in arrays.get(g, [])] for g in HOIST_GROUPS}
+    out["textures"] = {k: split(t) for k, t in arrays.get("textures", {}).items()}
+    return out
+
+
+def hoist_constants(arrays, sources):
+    """The parameter tables with each column hoisted from a constant texture
+    read anew from `textures.constant.value` at its rows (sources:
+    split_sources' on the tables' device), as the reference's
+    `_hoist_constants` does at every pass, so that an override of the
+    constant table reaches every parameter that names it. The rows that
+    hoist nothing keep their values; new dicts and lists, no tensor copied
+    but the hoisted columns."""
+    const = arrays.get("textures", {}).get("constant", {}).get("value")
+    if const is None or not sources:
+        return arrays
+
+    def hoist(table, src):
+        if not src:
+            return table
+        out = dict(table)
+        for name, rows in src.items():
+            cur = table[name]
+            vals = const[torch.clamp(rows, 0, const.shape[0] - 1).long()]
+            vals = vals[:, 0] if cur.dim() == 1 else vals[:, : cur.shape[-1]]
+            mask = (rows >= 0).reshape(-1, *([1] * (cur.dim() - 1)))
+            out[name] = torch.where(mask, vals, cur)
+        return out
+
+    out = dict(arrays)
+    for g in HOIST_GROUPS:
+        if g in arrays:
+            out[g] = [hoist(t, src) for t, src in zip(arrays[g], sources[g])]
+    out["textures"] = {k: hoist(t, sources["textures"].get(k)) for k, t in arrays["textures"].items()}
     return out
 
 
@@ -742,6 +802,7 @@ class SceneCompiler:
             "world_max": np.asarray(world_max, np.float32),
         }
         arrays["density_grids"], arrays["density_grid_dims"] = self._pack_density_grids()
+        self.hoist_src = split_sources(arrays)
         statics = {}
         bvh8_stack = 0
         if two_level:
@@ -863,6 +924,7 @@ class SceneCompiler:
             scene=self.scene,
             spectrum=self.spectrum,
             device=device,
+            hoist_src=to_device(self.hoist_src, device),
         )
 
 

@@ -12,6 +12,12 @@ a texture keeps two entries in its owner's row:
               its rows once per pass, `_hoist_constants`);
   <name>__h   the handle of a texture that is not a constant, else -1.
 
+The compiler also takes the parameter's `<name>__src` entry (the constant
+texture's row in `textures.constant.value`, else -1) out of the rows into
+the scene's hoisting sources (scene/compiler.py split_sources), so that the
+differentiable pass hoists the values anew from the constant table
+(`hoist_constants`), as the reference does at every pass.
+
 The compiler drops a type's `__h` column when no row has a varying texture,
 so a scene of constants runs no texture evaluation at all. Where a handle
 survives, `evaluate_param` evaluates it at the hit (`evaluate_handles`: every
@@ -60,8 +66,9 @@ class Texture(SceneNode):
 
 def compile_tex_param(compiler, tex, default, row, name, channels=4):
     """Fill row[name] (the hoisted value, its first `channels` channels, a
-    scalar for channels=1) and row[name + '__h'] (the handle of a texture
-    that is not a constant, else -1) for one texture-valued parameter.
+    scalar for channels=1), row[name + '__h'] (the handle of a texture
+    that is not a constant, else -1) and row[name + '__src'] (a constant
+    texture's row in its table, else -1) for one texture-valued parameter.
     Every texture registers its row, constants included, so that handles
     number the texture types as the reference's do."""
     from .constant import ConstantTexture
@@ -72,6 +79,7 @@ def compile_tex_param(compiler, tex, default, row, name, channels=4):
     value = np.asarray(value[:channels], np.float32)
     row[name] = value[0] if channels == 1 else value
     row[name + "__h"] = np.int32(NULL_HANDLE if const else handle)
+    row[name + "__src"] = np.int32(handle & HANDLE_INDEX_MASK if const else -1)
 
 
 def compile_tex_params(node, compiler) -> dict:

@@ -1,7 +1,6 @@
 """Image texture on the shared atlas, with mips and ray-cone LOD.
 
-Counterpart of luisarender_tpu/textures/image.py (its forward; the custom
-VJP of its atlas gather belongs to differentiable rendering). Every image
+Counterpart of luisarender_tpu/textures/image.py. Every image
 texture of a scene, with its 2x2 box mip chain, is shelf-packed into one
 (H, W, 4) atlas (scene/compiler.py _pack_atlas); a texture row carries its
 image's id, the uv transform, the wrap mode, the mapping and a scale. A
@@ -9,13 +8,19 @@ lookup is bilinear inside the level's atlas rect with edge clamping, its
 four corners fetched in one index op; where the interaction carries a
 ray-cone footprint, the level of detail is log2 of the footprint in
 texels, and the two nearest levels blend (trilinear, eight corners in one
-index op). LDR files are sRGB-decoded at load (utils/imageio.py).
+index op). The gather's backward is PyTorch's own indexing backward, a
+scatter-add into the atlas (`index_put_` with accumulate), as the
+reference's custom VJP is an XLA scatter; as there, the coarser level's
+blend passes no gradient unless LR_TEX_GRAD_FULLMIP=1 (read at each
+lookup). LDR files are sRGB-decoded at load (utils/imageio.py).
 As in the reference, `encoding: "gamma"` is the only encoding that
 changes a loaded image (pow(rgb, gamma), a new atlas entry); any other
 encoding, "linear" included, keeps the decoded image.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -30,6 +35,12 @@ WRAP_REPEAT = 0
 WRAP_CLAMP = 1
 WRAP_MIRROR = 2
 _WRAP_MODES = {"repeat": WRAP_REPEAT, "clamp": WRAP_CLAMP, "mirror": WRAP_MIRROR}
+
+def atlas_gather(atlas, ys, xs):
+    """The atlas texels at rows ys and columns xs (int, any shape): one
+    index op, whose backward scatter-adds into the atlas."""
+    return atlas[ys.long(), xs.long()]
+
 
 # loaded images by path: a file used by several textures loads once and
 # keeps one atlas entry
@@ -152,7 +163,7 @@ class ImageTexture(Texture):
         base_rect = rects[base.long()]
         if it.footprint is None:
             ys, xs, fx, fy = ImageTexture._corners(base_rect, u, v)
-            return ImageTexture._blend(atlas[ys.long(), xs.long()], fx, fy) * r["scale"]
+            return ImageTexture._blend(atlas_gather(atlas, ys, xs), fx, fy) * r["scale"]
         # the level of detail: the footprint in texels of the base level
         foot_u = it.footprint * torch.abs(r["uv_scale"][..., 0])
         foot_v = it.footprint * torch.abs(r["uv_scale"][..., 1])
@@ -165,7 +176,10 @@ class ImageTexture(Texture):
         fl = (lod - l0.to(torch.float32))[..., None]
         ys0, xs0, fx0, fy0 = ImageTexture._corners(rects[(base + l0).long()], u, v)
         ys1, xs1, fx1, fy1 = ImageTexture._corners(rects[(base + l1).long()], u, v)
-        vals = atlas[torch.cat([ys0, ys1]).long(), torch.cat([xs0, xs1]).long()]
+        vals = atlas_gather(atlas, torch.cat([ys0, ys1]), torch.cat([xs0, xs1]))
         v0 = ImageTexture._blend(vals[:4], fx0, fy0)
         v1 = ImageTexture._blend(vals[4:], fx1, fy1)
+        if os.environ.get("LR_TEX_GRAD_FULLMIP", "0") == "0":
+            # the reference's default: gradients through the finer level only
+            v1 = v1.detach()
         return (v0 * (1.0 - fl) + v1 * fl) * r["scale"]

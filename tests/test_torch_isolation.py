@@ -1,6 +1,6 @@
 """The port stands alone: no module of luisarender_tpu_torch, and none of
 the scripts that drive it on the card (chip_smoke.py and the A/B scripts),
-imports JAX or anything of the JAX package, nor Pillow (the card's machine
+imports JAX, optax or anything of the JAX package, nor Pillow (the card's machine
 has none: the port decodes PNG itself); importing and
 rendering with it loads neither; its entry points default to the CUDA card
 and raise where there is none."""
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "luisarender_tpu", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "luisarender_tpu", "PIL", "optax")
 
 
 def _forbidden(name):
@@ -47,7 +47,8 @@ def test_no_module_imports_jax_or_the_reference():
     for name in ("core/cie.py", "core/rgb2spec.py", "core/spectrum.py", "spectra/hero.py",
                  "core/medium_tracker.py", "media/base.py", "media/grid.py",
                  "phasefunctions/hg.py", "integrators/mega_vpt.py", "integrators/aux.py",
-                 "integrators/megapm.py", "integrators/pssmlt.py", "integrators/gpt.py"):
+                 "integrators/megapm.py", "integrators/pssmlt.py", "integrators/gpt.py",
+                 "diff/render.py", "diff/optimize.py", "parallel/render.py", "ops/nograd.py"):
         assert f"luisarender_tpu_torch/{name}" in scanned, name
     assert not bad, bad
 
@@ -62,8 +63,10 @@ assert img.shape == (8, 8, 3) and img.mean() > 0
 # image textures: the port's own PNG decoder
 scene = lt.Scene.from_dict(testing.cornell_textured(resolution=(8, 8), spp=1, depth=2))
 assert lt.render(scene, device="cpu")["cornell.exr"].mean() > 0
+# the differentiable pass, inverse rendering and the sharded pass
+import luisarender_tpu_torch.diff.optimize, luisarender_tpu_torch.parallel.render
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "luisarender_tpu", "PIL"))
+                if m.split(".")[0] in ("jax", "jaxlib", "luisarender_tpu", "PIL", "optax"))
 print("LOADED", loaded)
 """
 

@@ -1335,3 +1335,113 @@ def test_megavpt_render_on_the_card_matches_golden(cuda, name):
     assert img.shape == ref.shape and np.isfinite(img).all()
     assert float((np.abs(img - ref).max(-1) > 1e-3).mean()) < 0.02
     assert abs(img.mean() / ref.mean() - 1.0) < 0.005
+
+
+def _soup_tables(dev, seed=5, n_tris=3000):
+    """A random soup's tables for the four trace modules, on `dev`."""
+    from luisarender_tpu_torch.ops import subpacket, wide8
+    from torch_parity import cluster_case
+
+    pos, tris, opaque, order, _, nodes, ctris = cluster_case(n_tris, seed)
+    slab8, meta8 = subpacket.build_slab_meta(subpacket.build_bvh8(nodes))
+    bt, _ = _random_table(400, seed)
+    return {
+        "brute": _to(dev, bt),
+        "cluster": _to(dev, nodes, ctris),
+        "wide8": _to(dev, slab8, meta8, wide8.build_cluster_boxes(nodes), ctris),
+        "subpacket": _to(dev, slab8, meta8, subpacket.build_woop_table(ctris)),
+    }
+
+
+@pytest.mark.parametrize("kind", ["closest", "any_hit"])
+@pytest.mark.parametrize("name", ["brute", "cluster", "wide8", "subpacket"])
+def test_trace_wrappers_pass_no_gradient_on_the_card(cuda, name, kind):
+    """Each CUDA trace wrapper is a torch.autograd.Function
+    (ops/nograd.py): under autograd its launch gives the outputs of the
+    launch under no_grad bit for bit, and backward through t passes no
+    gradient to the rays."""
+    from luisarender_tpu_torch.ops import cluster, subpacket, wide8
+    from torch_parity import soup_rays
+
+    mod = {"brute": brute, "cluster": cluster, "wide8": wide8, "subpacket": subpacket}[name]
+    entry = getattr(mod, kind)
+    tables = _soup_tables(cuda)[name]
+    if name == "brute":
+        o, d, t_min, t_max = _to(cuda, *_random_rays(20_000, _random_table(400, 5)[1], 9))
+    else:
+        o, d, t_min, t_max = _to(cuda, *soup_rays(6, 3.0, n_rays=20_003))
+    with torch.no_grad():
+        ref = entry(o, d, t_min, t_max, *tables)
+    og = o.clone().requires_grad_(True)
+    out = entry(og, d, t_min, t_max, *tables)
+    outs, refs = (out, ref) if kind == "closest" else ((out,), (ref,))
+    for x, y in zip(outs, refs):
+        assert torch.equal(x.detach(), y) or (torch.isnan(y).all() and torch.isnan(x).all())
+    if kind == "any_hit":
+        assert not out.requires_grad and 0 < int(out.sum()) < out.shape[0]
+        return
+    t = out[0]
+    assert t.requires_grad and not out[1].requires_grad
+    (torch.where(torch.isfinite(t), t, 0.0).sum() + (og * 0.0).sum()).backward()
+    assert float(og.grad.abs().max()) == 0.0
+
+
+def _diff_cornell(dev):
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch import testing
+
+    scene = lt.Scene.from_dict(testing.cornell_box(resolution=(16, 16), spp=4, depth=3))
+    return scene, lt.compile_scene(scene, device=dev)
+
+
+def test_diff_gradient_on_the_card_matches_the_cpu(cuda):
+    """d mean(img) / d the constant-texture table at 16^2, 2 spp, depth 3,
+    on the card (brute kernels) and on the CPU (their plain versions): each
+    entry within 1% relative or 1e-5 absolute, the CPU test's rule
+    (tests/test_torch_diff.py)."""
+    from luisarender_tpu_torch.diff.render import get_in, make_render_fn
+
+    path = ("textures", "constant", "value")
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, compiled = _diff_cornell(dev)
+        render = make_render_fn(compiled, scene.cameras[0], scene.integrator, spp=2,
+                                max_depth=3)
+        v = get_in(compiled.arrays, path).clone().requires_grad_(True)
+        render({path: v}, compiled.arrays).mean().backward()
+        grads.append(v.grad.cpu().numpy())
+    gap = np.abs(grads[0] - grads[1])
+    assert np.all((gap <= 0.01 * np.abs(grads[1])) | (gap <= 1e-5)), float(gap.max())
+    assert np.abs(grads[1]).max() > 1e-4
+
+
+def test_recover_albedo_on_the_card(cuda):
+    """tests/test_diff.py::test_recover_albedo on the port, on the card: 48
+    Adam steps from grey walls recover the table's red, green and white
+    walls and the emission by that test's criteria."""
+    from luisarender_tpu_torch.diff.optimize import recover
+    from luisarender_tpu_torch.diff.render import get_in, make_render_fn
+
+    path = ("textures", "constant", "value")
+    scene, compiled = _diff_cornell(cuda)
+    cam, integ = scene.cameras[0], scene.integrator
+    true = get_in(compiled.arrays, path)
+    with torch.no_grad():
+        target = make_render_fn(compiled, cam, integ, spp=4, max_depth=3)({path: true},
+                                                                          compiled.arrays)
+    init = true.cpu().numpy().copy()
+    true = true.cpu().numpy()
+    emis_row = int(np.argmax(init[:, :3].max(axis=1)))
+    for i in range(init.shape[0]):
+        if i != emis_row:
+            init[i, :3] = 0.5
+    params, losses = recover(compiled, cam, integ, target, {path: init}, spp=4, max_depth=3,
+                             steps=48, learning_rate=8e-2, param_bounds=(0.0, 32.0))
+    assert losses[-1] < losses[0] * 0.1, (losses[0], losses[-1])
+    rec = params[path].cpu().numpy()
+    np.testing.assert_allclose(rec[0, :3], true[0, :3], atol=0.05)
+    np.testing.assert_allclose(rec[emis_row, :3], true[emis_row, :3], rtol=0.05)
+    red_row, green_row = 4, 3
+    assert np.argmax(rec[red_row, :3]) == 0 and np.argmax(rec[green_row, :3]) == 1
+    np.testing.assert_allclose(rec[red_row, 0], true[red_row, 0], atol=0.1)
+    np.testing.assert_allclose(rec[green_row, 1], true[green_row, 1], atol=0.1)
