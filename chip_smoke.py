@@ -308,6 +308,25 @@ Phases, one JSON line each; any failure exits non-zero before the result:
              scatter-add's device ms (profiler) and a replay of its texels
              (CUDA events); render_sharded and make_sharded_grad_fn in a
              one-rank NCCL group against render and l2_loss_fn
+ 18 tools    the command line and the tools (phase_tools): cli.main (the
+             card by default) on scenes/cornell.json at its own 512^2, depth
+             8, 256 spp, its EXR bit-equal with render's image of the same
+             file and 256 fused launches, nothing else, with the load,
+             compile and render seconds it prints; the same on
+             scenes/cornell.luisa with -D light_scale=2 and --spp 32 (cut
+             from 256); tests/test_golden.py's Tungsten scene (a .wo3 floor,
+             a rough copper sphere, a quad light, a gaussian filter; 48 x
+             32, 8 spp) through tools/tungsten2scene.py, on the general fork
+             against tests/golden/tungsten_converted_48x32_8spp.exr at that
+             file's _check tolerance (mean |d| < 2e-5, max < 2e-3) with the
+             brute kernels once a bounce and nothing else, the brute kernels
+             on its first two bounces bit for bit against their plain
+             versions; on its default route (the fused kernel's ray-input
+             mode, one launch a sample, nothing else) by the fused goldens'
+             rule (the mean within 0.5%, each sample against the general
+             fork by the rule of phase 3), the kernel on one sample bit for
+             bit; tools/tonemap.py's operators on the card against the CPU
+             within 1e-6 and its main to a PNG
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -4350,6 +4369,274 @@ def phase_diff(torch, lt, brute, fp, device):
     return recs
 
 
+# --------------------------------------------------------------------------
+# phase 18: the command line and the tools
+# --------------------------------------------------------------------------
+
+TUNGSTEN_GOLDEN = ROOT / "tests" / "golden" / "tungsten_converted_48x32_8spp.exr"
+# scenes/cornell.luisa's spp on the command line (--spp), and the macro that
+# the file defines, overridden with -D
+LUISA_CLI_SPP = 32
+LUISA_CLI_DEFINE = "light_scale=2"
+
+
+def cli_counted(torch, brute, fp, argv):
+    """luisarender_tpu_torch.cli.main(argv) on the card (no device: its
+    default), with every kernel count set to 0 just before and read just
+    after; returns (printed paths, seconds, counts, the load, compile and
+    render seconds it reports)."""
+    import contextlib
+    import io
+    import re
+
+    from luisarender_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    reset_counts(brute, fp)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(brute, fp)
+    check(rc == 0, f"cli {argv}: exit code {rc}")
+    text = err.getvalue()
+    parts = {}
+    for key, pattern in (("load_seconds", r"scene loaded in ([0-9.]+)s"),
+                         ("compile_seconds", r"compiled .* in ([0-9.]+)s"),
+                         ("render_seconds", r"rendered in ([0-9.]+)s")):
+        m = re.search(pattern, text)
+        check(m is not None, f"cli {argv}: no '{pattern}' in its output: {text!r}")
+        parts[key] = float(m.group(1))
+    parts["compiled_line"] = re.search(r"compiled .*", text).group(0)
+    return out.getvalue().split(), seconds, counts, parts
+
+
+def tungsten_inputs(d):
+    """tests/test_golden.py test_golden_tungsten_converted's Tungsten scene
+    (a .wo3 floor, a rough copper sphere, a quad light; 48 x 32, 8 spp,
+    4 bounces) written into directory d; returns its scene file."""
+    import struct
+
+    pos = np.array([[-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]], np.float32)
+    nrm = np.tile(np.array([[0, 1, 0]], np.float32), (4, 1))
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    tris = np.array([[0, 2, 1], [0, 3, 2]], np.int32)
+    verts = np.concatenate([pos, nrm, uv], axis=1).astype(np.float32)
+    quads = np.concatenate([tris, np.zeros((tris.shape[0], 1), np.int32)], axis=1)
+    with open(d / "floor.wo3", "wb") as f:
+        f.write(struct.pack("<Q", pos.shape[0]))
+        f.write(verts.tobytes())
+        f.write(struct.pack("<Q", tris.shape[0]))
+        f.write(quads.tobytes())
+    tscene = {
+        "renderer": {"spp": 8},
+        "integrator": {"type": "path_tracer", "max_bounces": 4},
+        "camera": {"transform": {"position": [0, 1.5, -4.0], "look_at": [0, 0.3, 0],
+                                 "up": [0, 1, 0]},
+                   "resolution": [48, 32], "fov": 60},
+        "bsdfs": [{"name": "white", "type": "lambert", "albedo": 0.7},
+                  {"name": "metal", "type": "rough_conductor", "material": "Cu",
+                   "roughness": 0.3}],
+        "primitives": [
+            {"type": "mesh", "file": "floor.wo3", "bsdf": "white"},
+            {"type": "sphere", "transform": {"position": [0, 0.5, 0], "scale": 0.5},
+             "bsdf": "metal"},
+            {"type": "quad", "transform": {"position": [0, 3.0, 0], "scale": [2.0, 1.0, 2.0]},
+             "emission": [6.0, 6.0, 6.0], "bsdf": "white"},
+        ],
+    }
+    (d / "scene.json").write_text(json.dumps(tscene))
+    return d / "scene.json"
+
+
+@contextmanager
+def no_fused():
+    """The general fork for the body (LUISARENDER_TPU_NO_FUSED, which
+    ops/fused_path.py use_fused reads at every call)."""
+    os.environ["LUISARENDER_TPU_NO_FUSED"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("LUISARENDER_TPU_NO_FUSED", None)
+
+
+def phase_tools_tungsten(torch, lt, brute, fp, device, d):
+    """(c) of phase_tools: the Tungsten golden's scene converted by the
+    port's tungsten2scene and rendered on the card by both routes."""
+    from luisarender_tpu_torch.integrators.mega_path import (
+        general_path_trace_batch, path_trace_batch, pixel_grid,
+    )
+    from luisarender_tpu_torch.tools import tungsten2scene
+    from luisarender_tpu_torch.utils import imageio
+
+    t0 = time.perf_counter()
+    doc = tungsten2scene.convert(str(tungsten_inputs(d)), str(d / "converted.json"))
+    convert_seconds = time.perf_counter() - t0
+    ref = imageio.load_exr(str(TUNGSTEN_GOLDEN))
+    rec = {"phase": "tools", "scene": "tests/test_golden.py's Tungsten scene through "
+           "tools/tungsten2scene.py", "resolution": [48, 32], "spp": 8, "depth": 5,
+           "cut": None, "convert_seconds": convert_seconds}
+
+    # the general fork against the golden at tests/test_golden.py _check's
+    # tolerance: the reference's general fork on the CPU made the golden
+    scene = lt.Scene.from_dict(doc)
+    with no_fused():
+        img_g, seconds_g, counts_g = render_counted(torch, lt, brute, fp, scene, device)
+    integ = scene.integrator
+    check_image(img_g, 48, 32, "tungsten general fork")
+    others = {k: v for k, v in counts_g.items() if k not in ("brute_closest", "brute_any")}
+    check(integ.fused_passes == 0 and counts_g["brute_closest"] == integ.bounces_run > 0
+          and 0 < counts_g["brute_any"] <= integ.bounces_run and not any(others.values()),
+          f"tungsten general fork: launches {counts_g}, bounces {integ.bounces_run}")
+    mad, mx = float(np.abs(img_g - ref).mean()), float(np.abs(img_g - ref).max())
+    check(mad < 2e-5 and mx < 2e-3, f"tungsten general fork: mean |d| {mad}, max {mx}")
+    rec["general"] = {"seconds": seconds_g, "launches": counts_g, "bounces": integ.bounces_run,
+                      "mean_abs_diff_vs_golden": mad, "max_abs_diff_vs_golden": mx,
+                      "image_mean": float(img_g.mean())}
+    # the kernels the general fork reaches (the brute kernels: 4 triangles
+    # and a sphere) on its first two bounces' rays, bit for bit
+    compiled = lt.compile_scene(scene, device=device)
+    check(compiled.plan.fused_path and compiled.plan.num_tris == 4
+          and compiled.plan.num_spheres == 1,
+          f"tungsten: plan fused {compiled.plan.fused_path}, {compiled.plan.num_tris} "
+          f"triangles, {compiled.plan.num_spheres} spheres")
+    cap = capture_main_path_inputs(torch, brute, compiled, scene, max_depth=2)
+    rec["general"]["kernels"] = hold_brute_inputs(torch, brute, cap)
+    del cap
+
+    # the default route: the gaussian filter sends it to the fused kernel's
+    # ray-input mode; held as the fused goldens are held
+    scene = lt.Scene.from_dict(doc)
+    img_f, seconds_f, counts_f = render_counted(torch, lt, brute, fp, scene, device)
+    integ, cam = scene.integrator, scene.cameras[0]
+    check_image(img_f, 48, 32, "tungsten default route")
+    others = {k: v for k, v in counts_f.items() if k != "fused_path_rays"}
+    check(fp.camgen_params(cam, integ.sampler.seed) is None
+          and counts_f["fused_path_rays"] == integ.fused_passes == 8
+          and not any(others.values()),
+          f"tungsten default route: launches {counts_f}")
+    rel = float(img_f.mean() / ref.mean() - 1.0)
+    check(abs(rel) < 0.005, f"tungsten default route: mean off the golden by {rel:.5f}")
+    pxy = pixel_grid(48, 32, device)
+    kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
+              rr_threshold=integ.rr_threshold)
+    acc, per_sample = 0.0, []
+    for si in range(8):
+        args = (compiled, cam, integ.sampler, integ.light_sampler, pxy, si)
+        rgb_f, _, st_f = path_trace_batch(*args, with_stats=True, **kw)
+        rgb_g, _, st_g = general_path_trace_batch(*args, **kw)
+        rays_f, rays_g = int(st_f["rays"]), int(st_g["rays"])
+        off = frac_off(rgb_f.cpu(), rgb_g.cpu())
+        per_sample.append(off)
+        check(st_f["fused"] == 1, f"tungsten sample {si}: not on the fused fork")
+        check(abs(rays_f - rays_g) <= max(8, rays_g // 500),
+              f"tungsten sample {si}: rays {rays_f} vs {rays_g}")
+        check(off < 0.02, f"tungsten sample {si}: {off:.4f} of pixels off")
+        acc = acc + rgb_g.cpu().numpy()
+    frac_general = frac_off((acc / 8).reshape(32, 48, 3), ref)
+    check(frac_general < 0.02, f"tungsten: general samples {frac_general:.4f} off the golden")
+    # the ray-input kernel on the first sample, bit for bit
+    tables = fp.fused_tables(compiled)
+    rays, _, _ = ray_inputs(fp, compiled, scene, pxy, 0, integ.max_depth)
+    out_k = fp.paths_rays(tables, rays, **kw)
+    torch.cuda.synchronize()
+    out_p, work, plain_ms = fused_work(torch, fp, tables, None, pxy, 0, kw, rays=rays)
+    share, err, _ = bit_equal(torch, "fused rays tungsten", out_k[0], out_k[1], out_p[0],
+                              out_p[1])
+    rec["default"] = {"seconds": seconds_f, "launches": counts_f, "rays": integ.rays_traced,
+                      "mean_rel_diff_vs_golden": rel,
+                      "frac_pixels_off_vs_golden": frac_off(img_f, ref),
+                      "frac_pixels_off_per_sample_vs_general": per_sample,
+                      "general_samples_frac_off_golden": frac_general,
+                      "kernel": {"n": pxy.shape[0], "share_bit_equal": share,
+                                 "max_abs_err": err, "plain_ms": plain_ms,
+                                 "ms": device_ms(torch, lambda: fp.paths_rays(tables, rays, **kw),
+                                                 iters=20),
+                                 **fused_bound(tables, work, pxy.shape[0], rays=True)}}
+    emit(rec)
+    return rec
+
+
+def phase_tools(torch, lt, brute, fp, device):
+    """The command-line renderer and the tools (cli.py, tools/): (a)
+    cli.main on scenes/cornell.json at its own 512^2, depth 8, 256 spp, the
+    card by default, its EXR bit-equal with render_file's and 256 fused
+    launches, nothing else; (b) the same on scenes/cornell.luisa with -D
+    LUISA_CLI_DEFINE and --spp LUISA_CLI_SPP; (c) phase_tools_tungsten; (d)
+    tools/tonemap.py tonemap_image of (a)'s image on the card against the
+    CPU within 1e-6, each operator, and tonemap.main to a PNG."""
+    import contextlib
+    import io
+    import tempfile
+
+    from luisarender_tpu_torch.tools import tonemap
+    from luisarender_tpu_torch.utils import imageio
+
+    t_phase = time.perf_counter()
+    recs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        d = Path(tmp)
+        # (a) and (b)
+        for key, scene_file, extra, spp, macros in (
+                ("cornell_json", MAIN_SCENE, [], None, None),
+                ("cornell_luisa", LUISA_SCENE,
+                 ["-D", LUISA_CLI_DEFINE, "--spp", str(LUISA_CLI_SPP)], LUISA_CLI_SPP,
+                 dict([LUISA_CLI_DEFINE.split("=", 1)]))):
+            out = d / f"{key}.exr"
+            argv = [str(scene_file), "-o", str(out)] + extra
+            printed, seconds, counts, parts = cli_counted(torch, brute, fp, argv)
+            scene = lt.load_scene(str(scene_file), macros)
+            if spp is not None:
+                scene.cameras[0].spp = spp
+            want = spp or scene.cameras[0].spp
+            others = {k: v for k, v in counts.items() if k != "fused_path"}
+            check(printed == [str(out)] and counts["fused_path"] == want
+                  and not any(others.values()), f"cli {key}: printed {printed}, launches {counts}")
+            img = imageio.load_exr(out)
+            # render_file of the same file; --spp has no render_file form
+            images = (lt.render_file(str(scene_file), macros, save=False, device=device)
+                      if spp is None else lt.render(scene, device=device))
+            ref = images[scene.cameras[0].file]
+            check_image(img, 512, 512, f"cli {key}")
+            check(img.dtype == ref.dtype and np.array_equal(img, ref),
+                  f"cli {key}: its EXR differs from render's image by up to "
+                  f"{float(np.abs(img - ref).max())}")
+            recs[key] = {"phase": "tools", "what": f"cli.main {' '.join(argv[1:])}",
+                         "scene": str(scene_file.relative_to(ROOT)), "resolution": [512, 512],
+                         "depth": scene.integrator.max_depth, "spp": want,
+                         "cut": None if spp is None else {"spp": [256, spp]},
+                         "seconds": seconds, **parts, "launches": counts,
+                         "bit_equal_render": True, "image_mean": float(img.mean())}
+            emit(recs[key])
+            if key == "cornell_json":
+                cli_img, cli_exr = img, out
+        # (c)
+        recs["tungsten"] = phase_tools_tungsten(torch, lt, brute, fp, device, d)
+        # (d)
+        tm = {}
+        for op in ("none", "uncharted2", "aces"):
+            for exposure in (0.0, -1.0):
+                t0 = time.perf_counter()
+                on_card = tonemap.tonemap_image(cli_img, op, exposure)
+                card_ms = (time.perf_counter() - t0) * 1e3
+                on_cpu = tonemap.tonemap_image(cli_img, op, exposure, device="cpu")
+                err = float(np.abs(on_card - on_cpu).max())
+                check(on_card.shape == cli_img.shape and bool(np.isfinite(on_card).all())
+                      and err <= 1e-6, f"tonemap {op} {exposure}: card vs CPU {err}")
+                tm[f"{op}_{exposure}"] = {"max_abs_diff_vs_cpu": err, "card_ms": card_ms}
+        png = d / "tonemapped.png"
+        with contextlib.redirect_stdout(io.StringIO()):
+            tonemap.main([str(cli_exr), str(png), "--tonemap", "aces"])
+        check(imageio.png_rgba8(png).shape == cli_img.shape[:2] + (4,),
+              "tonemap.main: no PNG of (a)'s size")
+        recs["tonemap"] = {"phase": "tools", "what": "tools/tonemap.py on (a)'s image",
+                           "operators": tm}
+        emit(recs["tonemap"])
+    emit({"phase": "tools", "phase_seconds": time.perf_counter() - t_phase})
+    return recs
+
+
 def main():
     import torch
 
@@ -4415,6 +4702,7 @@ def main():
     aux = phase_aux(torch, lt, brute, fp, device)
     montecarlo = phase_montecarlo(torch, lt, brute, fp, device)
     diff = phase_diff(torch, lt, brute, fp, device)
+    tools = phase_tools(torch, lt, brute, fp, device)
 
     entries = []
     for name, kind_key, line in (("brute_closest", "closest", 79),
@@ -4441,6 +4729,8 @@ def main():
             # bounce in the forward, the recompute's in the backward
             "launches_diff": {"forward": diff["grad_overhead"]["launches_forward"][name],
                               "backward": diff["grad_overhead"]["launches_backward"][name]},
+            # the Tungsten golden's scene on the general fork, 48 x 32, 8 spp
+            "launches_tungsten": tools["tungsten"]["general"]["launches"][name],
             "max_abs_err": brute_k[kind_key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -4470,7 +4760,11 @@ def main():
             # scenes/cornell.luisa's render (one a sample) and the
             # motion-blur render's (one a sample of each shutter bucket)
             entries[-1].update({"launches_luisa": surfaces["luisa"]["launches"][name],
-                                "launches_motion": surfaces["motion"]["launches"][name]})
+                                "launches_motion": surfaces["motion"]["launches"][name],
+                                # the command line's renders: cornell.json at
+                                # its 256 spp, cornell.luisa at --spp 32
+                                "launches_cli": {k: tools[k]["launches"][name]
+                                                 for k in ("cornell_json", "cornell_luisa")}})
         if name == "fused_path_persistent":
             # the wavepath render of bench.py's Cornell box: one a tile
             entries[-1]["launches_wavefront"] = wavefront["cornell"]["launches"][name]
@@ -4481,6 +4775,10 @@ def main():
                                 "candidates_device_ms": rec["candidates_device_ms"],
                                 "miss_pass_ms": rec["miss_pass_ms"],
                                 "miss_pass_device_ms": rec["miss_pass_device_ms"]})
+        if name == "fused_path_rays":
+            # the Tungsten golden's scene on its default route (a gaussian
+            # filter): one a sample
+            entries[-1]["launches_tungsten"] = tools["tungsten"]["default"]["launches"][name]
         if name.startswith("fused_path_rays"):
             # the ray-input mode (fused_path.py cam is None): the camera
             # rays are made beside the kernel

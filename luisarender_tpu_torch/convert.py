@@ -275,6 +275,7 @@ def convert_tables(arrays, surface_types, light_types, bvh_leaf_size=4,
         light_types=light_cls,
         num_lights=int(out["light_entries"]["inst"].shape[0]),
         num_tris=num_tris,
+        num_instances=int(out["instances"]["surface_tag"].shape[0]),
         num_spheres=int(trace["sph"].shape[0]) if "sph" in trace else 0,
         fused_path="fused" in out,
         bvh_leaf_size=int(bvh_leaf_size),

@@ -95,6 +95,7 @@ class ScenePlan:
     light_types: tuple  # Light classes; index == light tag
     num_lights: int  # light-list entries (emissive instances)
     num_tris: int
+    num_instances: int  # shape instances (the command line prints it)
     spectral_dim: int = 3
     num_spheres: int = 0
     fused_path: bool = False  # the fused kernel covers the scene
@@ -886,6 +887,7 @@ class SceneCompiler:
             light_types=tuple(self._light_types),
             num_lights=len(light_entries["inst"]),
             num_tris=num_tris,
+            num_instances=len(instances),
             spectral_dim=self.spectrum.dimension,
             num_spheres=len(sphere_rows),
             fused_path=fused is not None,

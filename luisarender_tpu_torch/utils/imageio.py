@@ -280,7 +280,11 @@ def png_rgba8(path) -> np.ndarray:
     - a tRNS colour key of grey or RGB made transparent where the 8-bit
       pixel equals it: a 1-bit key scaled by 255, a 16-bit key's low byte;
       alpha 255 elsewhere."""
-    data = Path(path).read_bytes()
+    return png_rgba8_bytes(Path(path).read_bytes(), path)
+
+
+def png_rgba8_bytes(data: bytes, path="<bytes>") -> np.ndarray:
+    """png_rgba8 of a PNG file's bytes; `path` names it in errors."""
     if data[:8] != _PNG_MAGIC:
         raise ValueError(f"{path}: not a PNG file")
     pos = 8

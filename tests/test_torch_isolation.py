@@ -10,11 +10,24 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "luisarender_tpu", "PIL", "optax")
+
+
+# the reference's tools (luisarender_tpu/tools/), each with its port
+TOOLS = tuple(f"tools/{n}.py" for n in (
+    "__init__", "akr2obj", "disney2scene", "glslpt2scene", "gltf2scene", "hdr2srgb",
+    "image_channels", "lux2scene", "mitsuba2scene", "obj2scene", "obj_analyse",
+    "seq2video", "split_obj", "tonemap", "tungsten2scene"))
+# the reference's modules without a port module: the five Pallas kernel
+# files (ported as csrc/*.cu) and two MXU workarounds (ROADMAP Queue 3)
+KERNEL_ONLY = ("core/fetch.py", "ops/brute_pallas.py", "ops/cluster_pallas.py",
+               "ops/onehot_scatter.py", "ops/subpacket_pallas.py", "ops/trace_pallas.py",
+               "ops/wide8_pallas.py")
 
 
 def _forbidden(name):
@@ -50,6 +63,15 @@ def test_no_module_imports_jax_or_the_reference():
                  "integrators/megapm.py", "integrators/pssmlt.py", "integrators/gpt.py",
                  "diff/render.py", "diff/optimize.py", "parallel/render.py", "ops/nograd.py"):
         assert f"luisarender_tpu_torch/{name}" in scanned, name
+    # the command line, the tools and the IES parser: every module of the
+    # reference's but its Pallas kernels and its MXU workarounds
+    for name in ("cli.py", "utils/ies.py", *TOOLS):
+        assert f"luisarender_tpu_torch/{name}" in scanned, name
+    ref = {p.relative_to(ROOT / "luisarender_tpu").as_posix()
+           for p in (ROOT / "luisarender_tpu").rglob("*.py")}
+    port = {p.relative_to(ROOT / "luisarender_tpu_torch").as_posix()
+            for p in (ROOT / "luisarender_tpu_torch").rglob("*.py")}
+    assert sorted(ref - port) == sorted(KERNEL_ONLY), sorted(ref - port)
     assert not bad, bad
 
 
@@ -65,6 +87,11 @@ scene = lt.Scene.from_dict(testing.cornell_textured(resolution=(8, 8), spp=1, de
 assert lt.render(scene, device="cpu")["cornell.exr"].mean() > 0
 # the differentiable pass, inverse rendering and the sharded pass
 import luisarender_tpu_torch.diff.optimize, luisarender_tpu_torch.parallel.render
+# the command line, every tool and the IES parser
+import importlib, pkgutil, luisarender_tpu_torch.cli, luisarender_tpu_torch.utils.ies
+import luisarender_tpu_torch.tools as tools
+for m in pkgutil.iter_modules(tools.__path__):
+    importlib.import_module("luisarender_tpu_torch.tools." + m.name)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "luisarender_tpu", "PIL", "optax"))
 print("LOADED", loaded)
@@ -94,3 +121,10 @@ def test_entry_points_default_to_the_card():
         lt.compile_scene(scene)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lt.render_file(str(ROOT / "scenes" / "cornell.json"), save=False)
+    import luisarender_tpu_torch.cli
+    from luisarender_tpu_torch.tools import tonemap
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lt.cli.main([str(ROOT / "scenes" / "cornell.json"), "-o", "unused.exr"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tonemap.tonemap_image(np.ones((2, 2, 3), np.float32))

@@ -1445,3 +1445,32 @@ def test_recover_albedo_on_the_card(cuda):
     assert np.argmax(rec[red_row, :3]) == 0 and np.argmax(rec[green_row, :3]) == 1
     np.testing.assert_allclose(rec[red_row, 0], true[red_row, 0], atol=0.1)
     np.testing.assert_allclose(rec[green_row, 1], true[green_row, 1], atol=0.1)
+
+
+def test_cli_renders_on_the_card(cuda, tmp_path, capsys):
+    """The command line (cli.main, no device: the card) on a 64^2 Cornell
+    file, 8 spp: its EXR equal to render_file's of the same file bit for
+    bit, one fused launch a sample and no other kernel launch."""
+    import json
+
+    import luisarender_tpu_torch as lt
+    from luisarender_tpu_torch import cli, testing
+    from luisarender_tpu_torch.ops import cluster, fused_path
+    from luisarender_tpu_torch.utils import imageio
+
+    path = tmp_path / "cornell.json"
+    path.write_text(json.dumps(testing.cornell_box(resolution=(64, 64), spp=8, depth=5)))
+    out = tmp_path / "cli.exr"
+    before = (fused_path.launches, fused_path.env_launches, fused_path.persistent_launches,
+              fused_path.ray_launches, fused_path.ray_env_launches, brute.closest_launches,
+              brute.any_launches, cluster.closest_launches, cluster.any_launches)
+    assert cli.main([str(path), "-o", str(out)]) == 0
+    after = (fused_path.launches, fused_path.env_launches, fused_path.persistent_launches,
+             fused_path.ray_launches, fused_path.ray_env_launches, brute.closest_launches,
+             brute.any_launches, cluster.closest_launches, cluster.any_launches)
+    assert [a - b for a, b in zip(after, before)] == [8, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert capsys.readouterr().out.split() == [str(out)]
+    ref = lt.render_file(str(path), save=False, device=cuda)["cornell.exr"]
+    img = imageio.load_exr(out)
+    assert img.shape == (64, 64, 3) and np.isfinite(img).all() and img.mean() > 0.0
+    np.testing.assert_array_equal(img, ref)
