@@ -6,15 +6,20 @@ load the scene (JSON or .luisa text SDL), compile it onto the first CUDA
 card, render every camera, save the images.
 
     python -m luisarender_tpu_torch.cli scene.json [-D key=value ...] [-o out.exr]
+        [--profile trace.json]
 
 `main(argv, device=None)` renders on `device` (default: the first CUDA card;
 it raises without one); the command line has no device flag, as the
-reference's has none.
+reference's has none. `--profile FILE` renders under torch.profiler (the
+host, and the card where the render runs on one) and writes its Chrome
+trace to FILE: the port's `lr.*` spans (core/trace.py) beside the
+operators and kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import sys
 import time
@@ -42,6 +47,10 @@ def main(argv=None, device=None):
     )
     parser.add_argument(
         "-v", "--verbose", action="store_true", help="verbose logging"
+    )
+    parser.add_argument(
+        "--profile", default=None, metavar="FILE",
+        help="write a Chrome trace of the render (torch.profiler) to FILE",
     )
     args = parser.parse_args(argv)
 
@@ -79,9 +88,21 @@ def main(argv=None, device=None):
         file=sys.stderr,
     )
 
+    prof = contextlib.nullcontext()
+    if args.profile is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
     t0 = time.time()
-    results = scene.integrator.render(compiled, save=True)
+    with prof:
+        results = scene.integrator.render(compiled, save=True)
     print(f"rendered in {time.time() - t0:.2f}s", file=sys.stderr)
+    if args.profile is not None:
+        prof.export_chrome_trace(args.profile)
+        print(f"profile written to {args.profile}", file=sys.stderr)
     for path in results:
         print(path)
     return 0

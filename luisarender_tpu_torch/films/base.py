@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import trace
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
 from ..scene.scene import SceneNode
@@ -42,13 +43,14 @@ class ColorFilm(Film):
 
     def accumulate_image(self, accum, radiance, sample_weight):
         """radiance (H, W, 3) linear sRGB of one sample; sample_weight (H, W)."""
-        finite = torch.isfinite(radiance).all(dim=-1, keepdim=True)
-        effective_spp = accum[..., 3:4]
-        bound = self.clamp * torch.clamp(effective_spp, min=1.0)
-        clamped = torch.minimum(torch.clamp(radiance, min=0.0), bound)
-        contrib = torch.where(finite, clamped * sample_weight[..., None], 0.0)
-        count = torch.where(finite[..., 0], sample_weight, 0.0)
-        return accum + torch.cat([contrib, count[..., None]], dim=-1)
+        with trace.span("lr.film"):
+            finite = torch.isfinite(radiance).all(dim=-1, keepdim=True)
+            effective_spp = accum[..., 3:4]
+            bound = self.clamp * torch.clamp(effective_spp, min=1.0)
+            clamped = torch.minimum(torch.clamp(radiance, min=0.0), bound)
+            contrib = torch.where(finite, clamped * sample_weight[..., None], 0.0)
+            count = torch.where(finite[..., 0], sample_weight, 0.0)
+            return accum + torch.cat([contrib, count[..., None]], dim=-1)
 
     def _values(self, radiance, sample_weight):
         """(N, 4) rows to add: radiance clamped to [0, clamp] times its
@@ -64,30 +66,33 @@ class ColorFilm(Film):
         start + 1, ... added (the wavefront pool's pixel-pinned slots):
         radiance (N, 3), sample_weight (N,); rows past the last pixel are
         dropped. The clamp is `clamp` itself, not relative to the count."""
-        h, w = accum.shape[0], accum.shape[1]
-        vals = self._values(radiance, sample_weight)
-        m = min(vals.shape[0], h * w - start)
-        out = accum.clone()
-        out.view(h * w, 4)[start:start + m] += vals[:m]
-        return out
+        with trace.span("lr.film"):
+            h, w = accum.shape[0], accum.shape[1]
+            vals = self._values(radiance, sample_weight)
+            m = min(vals.shape[0], h * w - start)
+            out = accum.clone()
+            out.view(h * w, 4)[start:start + m] += vals[:m]
+            return out
 
     def accumulate_scatter(self, accum, pixel_ids, radiance, sample_weight):
         """A new buffer with samples of any pixels added: pixel_ids (N, 2)
         int (x, y), clamped to the film; radiance (N, 3); sample_weight
         (N,). Lanes whose count is 0 (dead or not finite) are dropped, not
         sent to a pixel."""
-        h, w = accum.shape[0], accum.shape[1]
-        vals = self._values(radiance, sample_weight)
-        y = torch.clamp(pixel_ids[..., 1].to(torch.int64), 0, h - 1)
-        x = torch.clamp(pixel_ids[..., 0].to(torch.int64), 0, w - 1)
-        # dead lanes go to a row past the film's, cut off after the add
-        idx = torch.where(vals[..., 3] <= 0.0, h * w, y * w + x)
-        flat = torch.cat([accum.reshape(h * w, 4), accum.new_zeros((1, 4))])
-        return flat.index_add(0, idx, vals)[: h * w].reshape(h, w, 4)
+        with trace.span("lr.film"):
+            h, w = accum.shape[0], accum.shape[1]
+            vals = self._values(radiance, sample_weight)
+            y = torch.clamp(pixel_ids[..., 1].to(torch.int64), 0, h - 1)
+            x = torch.clamp(pixel_ids[..., 0].to(torch.int64), 0, w - 1)
+            # dead lanes go to a row past the film's, cut off after the add
+            idx = torch.where(vals[..., 3] <= 0.0, h * w, y * w + x)
+            flat = torch.cat([accum.reshape(h * w, 4), accum.new_zeros((1, 4))])
+            return flat.index_add(0, idx, vals)[: h * w].reshape(h, w, 4)
 
     def develop(self, accum):
         """-> (H, W, 3) linear sRGB average with exposure applied."""
-        count = torch.clamp(accum[..., 3:4], min=1e-8)
-        rgb = accum[..., :3] / count
-        scale = torch.exp2(torch.as_tensor(self.exposure, device=accum.device))
-        return rgb * scale
+        with trace.span("lr.develop"):
+            count = torch.clamp(accum[..., 3:4], min=1e-8)
+            rgb = accum[..., :3] / count
+            scale = torch.exp2(torch.as_tensor(self.exposure, device=accum.device))
+            return rgb * scale

@@ -20,6 +20,7 @@ import time as _time
 import numpy as np
 import torch
 
+from ..core import trace
 from ..scene.node import SceneNodeDesc, SceneNodeTag
 from ..scene.scene import SceneNode
 from ..utils import imageio
@@ -64,11 +65,19 @@ class ProgressiveIntegrator(Integrator):
         self.checkpoint_file = desc.string("checkpoint_file", "")
         self.checkpoint_interval = desc.int("checkpoint_interval", 8)
         # totals of the last render(): rays traced (closest + shadow, as
-        # path_trace_batch counts them), bounce steps run on the general
-        # fork, and passes of the fused fork (one kernel launch each)
-        self.rays_traced = 0
+        # path_trace_batch counts them; kept on the device, see
+        # rays_traced), bounce steps run on the general fork, and passes of
+        # the fused fork (one kernel launch each)
+        self._rays = 0
         self.bounces_run = 0
         self.fused_passes = 0
+
+    @property
+    def rays_traced(self) -> int:
+        """Rays the last render() traced. The integrators add each sample's
+        count on the device, so a render never waits on it; reading it
+        here converts the sum (a host sync)."""
+        return int(self._rays)
 
     def _progressive_loop(self, film, spp, spd, step_fn, device):
         """Passes of at most spd samples until spp: step_fn(accum, done,
@@ -89,17 +98,18 @@ class ProgressiveIntegrator(Integrator):
             except (FileNotFoundError, OSError, KeyError):
                 pass
         since_ckpt = 0
-        while done < spp:
-            n = min(spd, spp - done)
-            accum = step_fn(accum, done, n)
-            done += n
-            since_ckpt += n
-            log.info("progress: %d/%d spp", done, spp)
-            if hasattr(film, "maybe_preview"):
-                film.maybe_preview(accum)
-            if ckpt and (since_ckpt >= self.checkpoint_interval or done >= spp):
-                np.savez(ckpt, accum=accum.cpu().numpy(), done=done, spp=spp)
-                since_ckpt = 0
+        with trace.span("lr.samples"):
+            while done < spp:
+                n = min(spd, spp - done)
+                accum = step_fn(accum, done, n)
+                done += n
+                since_ckpt += n
+                log.info("progress: %d/%d spp", done, spp)
+                if hasattr(film, "maybe_preview"):
+                    film.maybe_preview(accum)
+                if ckpt and (since_ckpt >= self.checkpoint_interval or done >= spp):
+                    np.savez(ckpt, accum=accum.cpu().numpy(), done=done, spp=spp)
+                    since_ckpt = 0
         return accum
 
     def _render_one_camera(self, compiled, camera):
@@ -127,19 +137,22 @@ class ProgressiveIntegrator(Integrator):
         return total
 
     def render(self, compiled, save: bool = False) -> dict:
-        results = {}
-        self.rays_traced = 0
-        self.bounces_run = 0
-        self.fused_passes = 0
-        for camera in compiled.scene.cameras:
-            t0 = _time.time()
-            image = self._render_camera_with_shutter(compiled, camera).cpu().numpy()
-            log.info(
-                "rendered %s (%dx%d, %d spp) in %.2fs",
-                camera.file, *camera.film.resolution, camera.spp,
-                _time.time() - t0,
-            )
-            results[camera.file] = image
-            if save:
-                imageio.save_image(camera.file, image)
-        return results
+        with trace.span("lr.render"):
+            results = {}
+            self._rays = 0
+            self.bounces_run = 0
+            self.fused_passes = 0
+            for camera in compiled.scene.cameras:
+                t0 = _time.time()
+                image = self._render_camera_with_shutter(compiled, camera)
+                with trace.span("lr.to_host"):
+                    image = image.cpu().numpy()
+                log.info(
+                    "rendered %s (%dx%d, %d spp) in %.2fs",
+                    camera.file, *camera.film.resolution, camera.spp,
+                    _time.time() - t0,
+                )
+                results[camera.file] = image
+                if save:
+                    imageio.save_image(camera.file, image)
+            return results

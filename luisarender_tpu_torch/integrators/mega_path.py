@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import trace
 from ..ops import fused_path
 from ..scene.node import SceneNodeTag
 from ..scene.registry import register
@@ -76,11 +77,14 @@ def general_path_trace_batch(compiled, camera, sampler, light_sampler, pixel_xy,
     cone = camera.ray_cone() if compiled.plan.needs_footprint else None
     carry = common.init_carry(ray, cam_weight[..., None].expand(n, c), state, swl, cone=cone)
     bounces = 0
-    while common.has_work(carry):
-        carry = common.bounce_step(
-            compiled, sampler, light_sampler, carry,
-            max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold,
-        )
+    live = common.has_work(carry)
+    while live:
+        with trace.span("lr.bounce"):
+            carry = common.bounce_step(
+                compiled, sampler, light_sampler, carry,
+                max_depth=max_depth, rr_depth=rr_depth, rr_threshold=rr_threshold,
+            )
+            live = common.has_work(carry)
         bounces += 1
     rgb = spectrum.srgb(carry["L"], carry["swl"])
     weight = torch.ones((n,), dtype=torch.float32, device=pixel_xy.device)
@@ -170,30 +174,31 @@ class MegakernelPathTracing(ProgressiveIntegrator):
         def persistent_pass(accum, done, n):
             # one persistent launch a pass of samples_per_pass samples; the
             # pass's mean enters the film with weight n, as in the reference
-            rgb_sum, n_rays = fused_path.trace_paths_fused_persistent(
-                compiled, cam, pixel_xy, done, n, **self._kw())
-            rays[0] = rays[0] + n_rays
-            self.fused_passes += 1
-            return film.accumulate_image(
-                accum, rgb_sum.reshape(h, w, 3) / float(n),
-                torch.full((h, w), float(n), dtype=torch.float32, device=dev),
-            )
+            with trace.span("lr.trace"):
+                rgb_sum, n_rays = fused_path.trace_paths_fused_persistent(
+                    compiled, cam, pixel_xy, done, n, **self._kw())
+                rays[0] = rays[0] + n_rays
+                self.fused_passes += 1
+                rgb = rgb_sum.reshape(h, w, 3) / float(n)
+                weight = torch.full((h, w), float(n), dtype=torch.float32, device=dev)
+            return film.accumulate_image(accum, rgb, weight)
 
         def sample_pass(accum, done, n):
             for sample_index in range(done, done + n):
-                rgb, weight, stats = path_trace_batch(
-                    compiled, camera, self.sampler, self.light_sampler, pixel_xy,
-                    sample_index, time=self.render_time, with_stats=True, **self._kw(),
-                )
-                rays[0] = rays[0] + stats["rays"]
-                self.bounces_run += stats["bounces"]
-                self.fused_passes += stats["fused"]
+                with trace.span("lr.trace"):
+                    rgb, weight, stats = path_trace_batch(
+                        compiled, camera, self.sampler, self.light_sampler, pixel_xy,
+                        sample_index, time=self.render_time, with_stats=True, **self._kw(),
+                    )
+                    rays[0] = rays[0] + stats["rays"]
+                    self.bounces_run += stats["bounces"]
+                    self.fused_passes += stats["fused"]
                 accum = film.accumulate_image(accum, rgb.reshape(h, w, 3), weight.reshape(h, w))
             return accum
 
         accum = self._progressive_loop(film, camera.spp, spd,
                                        persistent_pass if cam is not None else sample_pass, dev)
-        self.rays_traced += int(rays[0])
+        self._rays = self._rays + rays[0]
         return film.develop(accum)
 
 

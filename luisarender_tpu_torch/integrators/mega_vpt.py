@@ -272,5 +272,5 @@ class MegakernelVolumePathTracing(ProgressiveIntegrator):
             self.bounces_run += stats["iterations"]
             self.host_reads += stats["host_reads"]
             accum = film.accumulate_image(accum, rgb.reshape(h, w, 3), weight.reshape(h, w))
-        self.rays_traced += int(rays)
+        self._rays = self._rays + rays
         return film.develop(accum)

@@ -103,7 +103,7 @@ class WavefrontPathTracing(ProgressiveIntegrator):
             accum, n_rays = self._render_tile(compiled, camera, accum, tile_start,
                                               min(pool, n_pixels - tile_start), pool)
             rays = rays + n_rays
-        self.rays_traced += int(rays)
+        self._rays = self._rays + rays
         return camera.film.develop(accum)
 
     def _render_fused_pool(self, compiled, camera, cam, pool, accum):
@@ -123,7 +123,7 @@ class WavefrontPathTracing(ProgressiveIntegrator):
             accum = film.accumulate_linear(
                 accum, tile_start, rgb_sum / float(spp),
                 torch.full((size,), float(spp), dtype=torch.float32, device=dev))
-        self.rays_traced += int(rays)
+        self._rays = self._rays + rays
         return film.develop(accum)
 
     def _render_tile(self, compiled, camera, accum, tile_start, tile_size, pool):
